@@ -1,0 +1,109 @@
+"""The flagship fusion problem at full scale (NumPy copy of
+`surfh_tpu/simulation/flagship.py`, PSF-stamp mode only).
+
+12 MIRI MRS bands × 4 dither pointings, a 501² sky grid at 0.025″, a global
+λ axis from the union of the detector tables subsampled ×3 (≈3879
+samples), Gaussian PSF stamps [Nλ, 40, 40] and M = 4 smooth templates with
+random abundance maps.  Everything comes from the seed; nothing is loaded
+beyond the bundled MIRI calibration tables.  Not ported: the materialized
+`sotf` (`build_sotf=True`) and the diffraction PSF (`SURFH_SIM_PSF`), which
+only non-rank consumers read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from surfh_tpu.instrument import miri, wavelength_mrs
+from surfh_tpu.instrument.geometry import CoordList
+
+from ..utils.psf import gaussian_psf
+
+FLAGSHIP_STEP_ARCSEC = 0.025
+
+
+def flagship_instruments(bands: Optional[List[str]] = None) -> list:
+    """The bands with their full detector wavelength tables (pce=None)."""
+    if bands is None:
+        bands = list(miri.BANDS)
+    return [
+        dataclasses.replace(ifu, wavel_axis=wavelength_mrs.get_mrs_wavelength(b), pce=None)
+        for b, ifu in zip(bands, miri.fusion_bands(bands))
+    ]
+
+
+def make_flagship_setup(
+    npix: int = 501,
+    bands: Optional[List[str]] = None,
+    n_pointings: int = 4,
+    n_tpl: int = 4,
+    lambda_subsample: int = 3,
+    seed: int = 19940407,
+):
+    """Flagship-scale inputs (host arrays), same keys and values as the
+    reference's `make_flagship_setup(build_sotf=False)` (`sotf` is None)."""
+    if bands is None:
+        bands = list(miri.BANDS)
+    instrs = flagship_instruments(bands)
+    rng = np.random.default_rng(seed)
+    step_degree = FLAGSHIP_STEP_ARCSEC / 3600.0
+    alpha_axis = (np.arange(npix) - npix / 2) * step_degree
+    beta_axis = (np.arange(npix) - npix / 2) * step_degree
+    wavelength_axis = np.sort(
+        np.concatenate([np.asarray(ifu.wavel_axis) for ifu in instrs])
+    )[::lambda_subsample].copy()
+    n_lambda = len(wavelength_axis)
+
+    lam01 = (wavelength_axis - wavelength_axis[0]) / (wavelength_axis[-1] - wavelength_axis[0])
+    templates = np.empty((n_tpl, n_lambda))
+    for m in range(n_tpl):
+        t = 0.5 + 0.5 * (m + 1) / n_tpl * lam01
+        for _ in range(3):
+            c, w, a = rng.uniform(0.05, 0.95), rng.uniform(0.01, 0.1), rng.uniform(0.5, 2.0)
+            t = t + a * np.exp(-((lam01 - c) ** 2) / (2 * w**2))
+        templates[m] = t
+    maps = rng.random((n_tpl, npix, npix))
+
+    psf_stack = gaussian_psf(wavelength_axis, FLAGSHIP_STEP_ARCSEC).astype(np.float32)
+    if psf_stack.shape[1] > npix or psf_stack.shape[2] > npix:
+        ca = max(0, (psf_stack.shape[1] - npix) // 2)
+        cb = max(0, (psf_stack.shape[2] - npix) // 2)
+        psf_stack = psf_stack[:, ca : ca + npix, cb : cb + npix]
+        psf_stack = psf_stack / psf_stack.sum(axis=(1, 2), keepdims=True)
+
+    pts = CoordList.from_array(np.asarray(miri.dithering)[:n_pointings] / 3600.0)
+    return dict(
+        maps=maps,
+        templates=templates,
+        wavelength_axis=wavelength_axis,
+        alpha_axis=alpha_axis,
+        beta_axis=beta_axis,
+        sotf=None,
+        psf_stack=psf_stack,
+        instrs=instrs,
+        pointings=[pts for _ in instrs],
+        step_degree=step_degree,
+        im_shape=(npix, npix),
+        bands=bands,
+    )
+
+
+def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32,
+                        conv_freq_rtol: float = 1e-6, conv_rank_rtol: float = 1e-7,
+                        workers: int = 1, **kwargs):
+    """The flagship rank-mode `SpectroSigRLSCT` (defaults as the reference's
+    `make_flagship_model`: conv_freq_rtol=1e-6, conv_rank_rtol=1e-7)."""
+    from ..models.spectro import SpectroSigRLSCT
+
+    if setup is None:
+        setup = make_flagship_setup(**kwargs)
+    model = SpectroSigRLSCT(
+        setup["templates"], setup["alpha_axis"], setup["beta_axis"],
+        setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
+        setup["pointings"], setup["psf_stack"], dtype=dtype,
+        conv_freq_rtol=conv_freq_rtol, conv_rank_rtol=conv_rank_rtol, workers=workers,
+    )
+    return model, setup
