@@ -3,21 +3,34 @@
 
     python3 chip_smoke.py [--bands 1a,1b,...]
 
-The flagship rank-mode fusion solve at full width (501² sky, ~3879-λ cube,
-M = 4 templates, 4 dither pointings, all 12 MIRI bands unless `--bands`
-cuts them), f32 on the card, weights and data from seeds:
+Two paths of the flagship fusion solve at full width (501² sky, ~3879-λ
+cube, M = 4 templates, 4 dither pointings, all 12 MIRI bands unless
+`--bands` cuts them), f32 on the card, weights and data from seeds: the
+rank mode (window-local, PSF stamps) and the materialized-OTF W-plane mode
+(`window_local=False`, `wblur_impl="banded"`, `wblur_band_rtol=1e-4`).
 
-1. device   — the card's name and power limit (nvidia-smi);
-2. build    — nvcc builds the row-gather kernel from csrc/ into build/;
-3. host     — the flagship host tables (NumPy, channels in parallel);
-4. kernel   — the kernel against its plain torch version on one flagship
-              channel's real composed plans, both directions (error, times);
-5. slice    — upload, y = H·truth, an f64-accumulated dot test, the fused
-              normal through the kernel against the same through the plain
-              version, the launch count per normal application, the main
-              path (y, b = µ·Hᵗy, 10 lcg iterations), timings;
-6. small    — the card's f32 operator against the CPU f64 one on a small
-              synthetic problem.
+1. device      — the card's name and power limit (nvidia-smi);
+2. build       — nvcc builds both kernel sources from csrc/ into build/,
+                 one nvcc each, in parallel;
+3. host        — the flagship rank-mode host tables (NumPy, channels in
+                 parallel);
+4. kernel      — the row gather against its plain torch version on one
+                 flagship channel's real composed plans (error, times);
+5. slice       — the rank path: upload, y = H·truth, an f64-accumulated dot
+                 test, the fused normal through the kernel against the plain
+                 version, launches per normal application, the main path
+                 (y, b = µ·Hᵗy, 10 lcg iterations), timings;
+6. wplane-host — the OTF built on the card from the PSF stamps, the W-plane
+                 model over the rank model's channels, the band plans;
+7. kernel      — both banded kernels against their plain versions on the
+                 largest band's real plans (error, times);
+8. wplane      — the W-plane path: FFT stage and relayout costs, y, the
+                 dense pair's dot test, the banded pair's mismatch, banded
+                 against dense, kernels against plain versions, launches per
+                 normal application, times for both blurs, the main path
+                 (y, b, 10 lcg iterations);
+9. small       — the card's f32 operators (both modes) against the CPU f64
+                 ones on small synthetic problems.
 
 Prints the kernels' JSON record, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -35,6 +48,8 @@ import time
 
 WORKERS = min(8, os.cpu_count() or 1)  # processes for the host table build
 REPS = 10  # timed applications per operator
+BAND_RTOL = 1e-4  # the banded blur's support threshold (the throughput setting)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -58,7 +73,11 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from surfh_tpu_torch.core import _build, gather_rows as gr
+    from concurrent.futures import ThreadPoolExecutor
+
+    from surfh_tpu_torch.core import _build, fft
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import wblur_banded as wb
     from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
     from surfh_tpu_torch.simulation.synthetic import make_model
     from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
@@ -96,11 +115,15 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    gr.load_kernel()
-    log(f"[build] gather_rows.cu -> {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_logs.get("gather_rows", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, both at once
+        for f in [ex.submit(gr.load_kernel), ex.submit(wb.load_kernels)]:
+            f.result()
+    log(f"[build] gather_rows.cu, wblur_banded.cu -> {_build.BUILD_DIR} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in ("gather_rows", "wblur_banded"):
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"[build] ptxas {name}: {line.strip()}")
 
     # 3. host tables ----------------------------------------------------
     bands = args.bands.split(",") if args.bands else None
@@ -173,7 +196,7 @@ def main(argv=None) -> int:
     check(dot_rel <= tol_dot, "dot test")
 
     n_k = model.normal(truth)
-    n_p = model.normal(truth, gather=gr.gather_rows_reference)
+    n_p = model.normal(truth, plain=True)
     sync()
     nrm_rel = rel(n_k, n_p)
     tol_normal = 1e-5
@@ -222,17 +245,181 @@ def main(argv=None) -> int:
     log(f"[slice] {card}: CG {s_it:.4f} s/iteration (10 resumed iterations, host clock); "
         f"grad norm {gn[0]:.4e} -> {res2.grad_norm[-1]:.4e} after 20")
 
-    # 6. small input against the CPU f64 operator -----------------------
-    small, ssetup = make_model(im_size=41, n_lambda=120, n_tpl=2, n_channels=2,
-                               n_pointings=2, n_slit=3, dtype=np.float64)
-    small.to("cpu", torch.float64)
-    xs = torch.as_tensor(ssetup["maps"])
-    ref_y, ref_n = small.forward(xs), small.normal(xs)
-    small.to(dev, torch.float32)
-    got_y, got_n = small.forward(xs).cpu().double(), small.normal(xs).cpu().double()
-    e_y, e_n = rel(got_y, ref_y), rel(got_n, ref_n)
-    log(f"[small] card f32 vs CPU f64: forward {e_y:.3e}, normal {e_n:.3e} (bound 1e-5)")
-    check(e_y <= 1e-5 and e_n <= 1e-5, "small problem vs CPU f64")
+    # 6. the W-plane model: OTF on the card, channels reused, band plans ---
+    t0 = time.perf_counter()
+    wsetup = make_flagship_setup(bands=bands, build_sotf=True, device=dev)
+    sync()
+    t_otf = time.perf_counter() - t0
+    sotf = wsetup["sotf"]
+    log(f"[wplane-host] OTF {tuple(sotf.shape)} {sotf.dtype} built on the card from the PSF "
+        f"stamps in {t_otf:.2f} s (setup included, f64 FFTs, chunks of 128 planes); "
+        f"{sotf.numel() * sotf.element_size() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    wmodel, _ = make_flagship_model(wsetup, dtype=np.float32, window_local=False,
+                                    wblur_impl="banded", wblur_band_rtol=BAND_RTOL,
+                                    channels=model.channels)
+    t_wh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wmodel.to(dev, torch.float32)
+    sync()
+    log(f"[wplane-host] W-plane model over the rank model's channels: host {t_wh:.2f} s "
+        f"(band plans at rtol {BAND_RTOL:g}), upload + banded tables {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
+    for chan, t in zip(wmodel.channels, wmodel.host_tables()["chan"]):
+        p, q = t["band_plan"], t["band_plan_t"]
+        aw = np.abs(chan.wpsf.astype(np.float64))
+        kept = float((aw * p.mask()[:, :, None]).sum() / aw.sum())
+        kept_t = float((aw * q.mask()[:, :, None]).sum() / aw.sum())
+        log(f"[wplane-host]   {chan.instr.name}: K={p.K} W={p.W} sb={p.B} S*A={chan.oshape[1] * chan.oshape[3]} "
+            f"LB={p.LB} (density {p.density:.3f}, {p.n_tiles} tiles, kept mass {kept:.6f}) "
+            f"KB={q.KB} TL={q.TL} ({q.n_tiles} tiles, kept mass {kept_t:.6f})")
+
+    # 7. both banded kernels against their plain versions ------------------
+    wt = wmodel.tables["chan"]
+    c_w = max(range(len(wt)), key=lambda c: wt[c]["band"].plan.K * wt[c]["band"].plan.LB
+              * wt[c]["band"].plan.B * wmodel.channels[c].oshape[1] * wmodel.channels[c].oshape[3])
+    bt = wt[c_w]["band"]
+    _, S_, K_, A_ = wmodel.channels[c_w].oshape
+    win = torch.rand((S_ * A_, bt.plan.B * bt.plan.W), generator=gen, device=dev)
+    y2d = torch.rand((S_ * A_, K_), generator=gen, device=dev)
+    bkern = {}
+    for name, kfn, pfn, arg in (("wblur_banded", wb.wblur_banded_cuda, wb.wblur_banded_reference, win),
+                                ("wblur_banded_t", wb.wblur_banded_t_cuda,
+                                 wb.wblur_banded_t_reference, y2d)):
+        out_k, out_p = kfn(arg, bt), pfn(arg, bt)
+        sync()
+        err = rel(out_k, out_p)
+        ms_k = cuda_ms(lambda: kfn(arg, bt), 50)
+        ms_p = cuda_ms(lambda: pfn(arg, bt), 50)
+        terms = bt.plan.B * bt.plan.LB if name == "wblur_banded" else bt.plan_t.KB
+        flops = 2.0 * arg.shape[0] * out_k.shape[1] * terms
+        log(f"[kernel] {wmodel.channels[c_w].instr.name} {name}: [{arg.shape[0]} x {arg.shape[1]}] -> "
+            f"[{out_k.shape[0]} x {out_k.shape[1]}], {terms} terms per output: max rel err {err:.3e} "
+            f"(bound {tol_kernel:g}, f32 sums in another order); kernel {ms_k:.4f} ms "
+            f"({flops / (ms_k * 1e-3) / 1e12:.2f} TFLOP/s of banded work), plain (cuBLAS on the "
+            f"masked table) "
+            f"{ms_p:.4f} ms")
+        check(err <= tol_kernel, f"kernel vs plain {name}: {err:.3e} > {tol_kernel:g}")
+        bkern[name] = {"err": float((out_k - out_p).abs().max()), "ms": ms_k, "plain_ms": ms_p}
+    del win, y2d
+
+    # 8. the W-plane path at full width ------------------------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    cube = wmodel.mapsToCube(truth)
+    t_lmm = cuda_ms(lambda: wmodel.mapsToCube(truth), 5)
+    t_fft = cuda_ms(lambda: fft.conv_otf_(cube, sotf), 5)
+    n_c = len(wmodel.channels)
+    rows = [wmodel.patch_rows(cube, c) for c in range(n_c)]
+    t_rel = cuda_ms(lambda: [wmodel.patch_rows(cube, c) for c in range(n_c)], 5)
+    t_rel_t = cuda_ms(lambda: [wmodel.add_patch_rows_(cube, rows[c], c) for c in range(n_c)], 5)
+    log(f"[wplane] {card}: T (maps -> cube {tuple(cube.shape)}) {t_lmm:.3f} ms; FFT stage "
+        f"(rfft2 * sotf, irfft2, {fft.CONV_OTF_CHUNK}-plane chunks, in place) {t_fft:.3f} ms per "
+        f"direction; bbox relayout [W, ha, wb] -> [ha*wb, W] {t_rel:.3f} ms, back (add into "
+        f"the cube) {t_rel_t:.3f} ms, all {n_c} bands; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del cube, rows
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    y_b = wmodel.forward(truth)
+    sync()
+    log(f"[wplane] y = H truth (banded): {tuple(y_b.shape)} in {time.perf_counter() - t0:.3f} s (first call)")
+    check(tuple(y_b.shape) == wmodel.oshape and bool(torch.isfinite(y_b).all()), "W-plane y finite, shape")
+    xr = torch.rand(wmodel.ishape, generator=gen, device=dev)
+    yr = torch.rand(wmodel.oshape, generator=gen, device=dev)
+
+    def dot_rel(m):
+        lhs = float(torch.dot(m.forward(xr).double(), yr.double()))
+        rhs = float(torch.dot(xr.reshape(-1).double(), m.adjoint(yr).reshape(-1).double()))
+        return abs(lhs - rhs) / abs(lhs), lhs, rhs
+
+    wmodel.wblur_impl = "dense"
+    d_rel, lhs, rhs = dot_rel(wmodel)
+    y_d = wmodel.forward(truth)
+    wmodel.wblur_impl = "banded"
+    log(f"[wplane] dense pair dot test (f64 sums): <Hx,y>={lhs:.9e} <x,H'y>={rhs:.9e} rel {d_rel:.3e} "
+        f"(bound {tol_dot:g})")
+    check(d_rel <= tol_dot, "W-plane dense dot test")
+    b_rel, lhs, rhs = dot_rel(wmodel)
+    log(f"[wplane] banded pair dot mismatch (its two masks differ by design): rel {b_rel:.3e} (bound 1e-2)")
+    check(b_rel <= 1e-2, "W-plane banded dot mismatch")
+    bd = rel(y_b, y_d)
+    log(f"[wplane] banded vs dense forward: max rel {bd:.3e} (bound 5e-2; the truncated response mass)")
+    check(bd <= 5e-2, "banded vs dense forward")
+
+    n_k = wmodel.normal(truth)
+    n_p = wmodel.normal(truth, plain=True)
+    sync()
+    nrm_rel = rel(n_k, n_p)
+    log(f"[wplane] normal, kernels vs plain versions: max rel {nrm_rel:.3e} (bound {tol_normal:g})")
+    check(bool(torch.isfinite(n_k).all()) and nrm_rel <= tol_normal, "W-plane normal kernels vs plain")
+    del n_k, n_p
+
+    gr.reset_launches()
+    wb.reset_launches()
+    wmodel.normal(truth)
+    sync()
+    per_app = (gr.launches, wb.launches, wb.launches_t)
+    log(f"[wplane] launches per normal application: gather_rows {per_app[0]}, wblur_banded "
+        f"{per_app[1]}, wblur_banded_t {per_app[2]} (expected {2 * n_pt}, {n_pt}, {n_pt}: one per "
+        f"band and pointing and direction)")
+    check(per_app == (2 * n_pt, n_pt, n_pt), "W-plane launches per normal application")
+
+    vox = float(np.prod(wmodel.cube_shape))
+    for impl in ("dense", "banded"):
+        wmodel.wblur_impl = impl
+        tf = cuda_ms(lambda: wmodel.forward(truth), REPS)
+        ta = cuda_ms(lambda: wmodel.adjoint(y_b), REPS)
+        tn = cuda_ms(lambda: wmodel.normal(truth), REPS)
+        log(f"[wplane] {card}: {impl} blur: forward {tf:.3f} ms ({vox / (tf * 1e-3) / 1e9:.2f} GVox/s), "
+            f"adjoint {ta:.3f} ms ({vox / (ta * 1e-3) / 1e9:.2f} GVox/s), normal {tn:.3f} ms/app "
+            f"({2 * vox / (tn * 1e-3) / 1e9:.2f} GVox/s, 2 x {int(vox)} voxels per app)")
+    log(f"[wplane] peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB (W-plane path, "
+        f"both models' tables on the card)")
+
+    # the W-plane main path, counted: y, b = µ·Hᵗy, 10 CG iterations
+    gr.reset_launches()
+    wb.reset_launches()
+    t0 = time.perf_counter()
+    y_w = wmodel.forward(truth)
+    wcrit = QuadCriterion_MRS(1.0, y_w, wmodel, mu_reg)
+    wres = wcrit.run_method("lcg", maximum_iterations=10, return_state=True)
+    sync()
+    t_wmain = time.perf_counter() - t0
+    wmain = (gr.launches, wb.launches, wb.launches_t)
+    n_app = wres.n_iter + 1
+    expect_w = (2 * n_pt + 2 * n_pt * n_app, n_pt * (1 + n_app), n_pt * (1 + n_app))
+    wgn = wres.grad_norm
+    log(f"[wplane] main path (y, b, {wres.n_iter} lcg it, mu_reg={mu_reg:g}) in {t_wmain:.3f} s; "
+        f"launches gather_rows / wblur_banded / wblur_banded_t {wmain} (expected {expect_w}); "
+        f"grad norms {wgn.tolist()}")
+    check(wmain == expect_w and min(wmain) > 0, "W-plane main-path launches")
+    check(bool(torch.isfinite(wcrit.b).all()) and bool(torch.isfinite(wres.x).all()), "W-plane b, x finite")
+    check(wres.n_iter == 10 and bool(np.isfinite(wgn).all()) and wgn[-1] < wgn[0],
+          "W-plane grad norms finite, falling")
+    t0 = time.perf_counter()
+    wres2 = wcrit.run_method("lcg", maximum_iterations=10, solver_state=wres.state)
+    sync()
+    ws_it = (time.perf_counter() - t0) / wres2.n_iter
+    check(bool(np.isfinite(wres2.grad_norm).all()) and wres2.grad_norm[-1] < wgn[0], "W-plane resumed CG")
+    log(f"[wplane] {card}: CG {ws_it:.4f} s/iteration (banded, 10 resumed iterations, host clock); "
+        f"grad norm {wgn[0]:.4e} -> {wres2.grad_norm[-1]:.4e} after 20")
+    del wmodel, wcrit, wres, wres2, wsetup, sotf, y_b, y_d, y_w, xr, yr
+    torch.cuda.empty_cache()
+
+    # 9. small inputs against the CPU f64 operators -----------------------
+    for mode, kw in (("rank", dict(im_size=41, n_lambda=120, n_tpl=2)),
+                     ("wplane banded", dict(im_size=31, n_lambda=200, n_tpl=3, detector_oversample=4,
+                                            window_local=False, wblur_impl="banded",
+                                            wblur_band_rtol=1e-3))):
+        small, ssetup = make_model(n_channels=2, n_pointings=2, n_slit=3, dtype=np.float64, **kw)
+        small.to("cpu", torch.float64)
+        xs = torch.as_tensor(ssetup["maps"])
+        ref_y, ref_n = small.forward(xs), small.normal(xs)
+        small.to(dev, torch.float32)
+        got_y, got_n = small.forward(xs).cpu().double(), small.normal(xs).cpu().double()
+        e_y, e_n = rel(got_y, ref_y), rel(got_n, ref_n)
+        log(f"[small] {mode}: card f32 vs CPU f64: forward {e_y:.3e}, normal {e_n:.3e} (bound 1e-5)")
+        check(e_y <= 1e-5 and e_n <= 1e-5, f"small {mode} problem vs CPU f64")
 
     log(json.dumps({"kernels": [{
         "name": "gather_rows",
@@ -243,7 +430,18 @@ def main(argv=None) -> int:
         "max_abs_err": kern["err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "surfh_tpu_torch/csrc/wblur_banded.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": bkern[name]["err"],
+        "ms": bkern[name]["ms"],
+        "plain_ms": bkern[name]["plain_ms"],
+    } for name, replaces, launches in (
+        ("wblur_banded", "surfh_tpu/core/wblur_pallas.py:102", wmain[1]),
+        ("wblur_banded_t", "surfh_tpu/core/wblur_pallas.py:227", wmain[2]))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

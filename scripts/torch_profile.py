@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of the port's flagship application goes.
 
-    python3 scripts/torch_profile.py [--bands 1a,1b,...] [--trace out.json]
+    python3 scripts/torch_profile.py [--bands 1a,1b,...] [--wplane dense|banded]
+                                     [--trace out.json]
 
-Builds the flagship rank-mode model of `surfh_tpu_torch` (as chip_smoke.py
-does) on one NVIDIA card and measures the fused normal application
-(HᵗH x, the CG hot loop):
+Builds the flagship model of `surfh_tpu_torch` on one NVIDIA card — the
+rank mode (as chip_smoke.py does), or with `--wplane` the materialized-OTF
+mode with that spectral blur (OTF built on the card, wblur_band_rtol=1e-4)
+— and measures the normal application (HᵗH x, the CG hot loop):
 
 * eager time per application (CUDA events, 8 × 10 repetitions: the spread)
   and the host time to enqueue one application (no sync inside);
-* the device floor: one application captured in a CUDA graph, its replay
-  time and its difference from the eager result, then the SM clock and
-  power draw as nvidia-smi reads them;
+* rank mode only: the device floor, one application captured in a CUDA
+  graph, its replay time and its difference from the eager result, then
+  the SM clock and power draw as nvidia-smi reads them;
 * five applications under torch.profiler: device time by kernel class
-  (GEMM, the gather_rows kernel, elementwise, reduction, copy), the top
+  (GEMM, FFT, this repo's kernels, elementwise, reduction, copy), the top
   kernels, the launch count, and the busy share of the profiled window
   (union of kernel intervals over the first-to-last-kernel span).
 
@@ -33,12 +35,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 WORKERS = min(8, os.cpu_count() or 1)  # processes for the host table build
 REPS = 5  # profiled applications
+BAND_RTOL = 1e-4  # the banded blur's support threshold (--wplane banded)
 
 
 def kernel_class(name: str) -> str:
     n = name.lower()
     if "gather_rows" in n:
         return "gather_rows (CUDA, this repo)"
+    if "wblur_banded" in n:
+        return "wblur_banded (CUDA, this repo)"
+    if "fft" in n:
+        return "FFT (cuFFT)"
     if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90", "ampere", "cublas")):
         return "GEMM (cuBLAS)"
     if "reduce" in n:
@@ -50,9 +57,37 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def graph_floor(model, x, event_ms, smi, vox) -> None:
+    """The device floor: one normal application replayed as a CUDA graph."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream before capture
+        for _ in range(2):
+            model.normal(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = model.normal(x)
+    graph.replay()
+    eager_out = model.normal(x)
+    torch.cuda.synchronize()
+    diff = float((captured - eager_out).abs().max() / eager_out.abs().max())
+    replay = [event_ms(graph.replay) for _ in range(8)]
+    clocks = smi("clocks.sm,power.draw")  # read right after the replays, card still warm
+    print(f"  CUDA-graph replay (8 x 10): {min(replay):.3f}-{max(replay):.3f} ms/app "
+          f"-> {vox / (np.median(replay) * 1e-3) / 1e9:.2f} GVox/s; max rel diff vs eager {diff:.3e}")
+    print(f"  SM clock, power draw after the replays: {clocks}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bands", default=None)
+    ap.add_argument("--wplane", choices=("dense", "banded"), default=None,
+                    help="profile the materialized-OTF model with this blur")
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     args = ap.parse_args(argv)
 
@@ -69,8 +104,15 @@ def main(argv=None) -> int:
 
     dev = require_cuda()
     card = smi("name,power.limit")
-    setup = make_flagship_setup(bands=args.bands.split(",") if args.bands else None)
-    model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS)
+    bands = args.bands.split(",") if args.bands else None
+    if args.wplane:
+        setup = make_flagship_setup(bands=bands, build_sotf=True, device=dev)
+        model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS,
+                                       window_local=False, wblur_impl=args.wplane,
+                                       wblur_band_rtol=BAND_RTOL)
+    else:
+        setup = make_flagship_setup(bands=bands)
+        model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS)
     model.to(dev, torch.float32)
     x = torch.as_tensor(setup["maps"], dtype=torch.float32, device=dev)
     for _ in range(3):
@@ -93,29 +135,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         model.normal(x)
         enqueue.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up on a side stream before capture
-        for _ in range(2):
-            model.normal(x)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = model.normal(x)
-    graph.replay()
-    eager_out = model.normal(x)
-    torch.cuda.synchronize()
-    diff = float((captured - eager_out).abs().max() / eager_out.abs().max())
-    replay = [event_ms(graph.replay) for _ in range(8)]
-    clocks = smi("clocks.sm,power.draw")  # read right after the replays, card still warm
     vox = 2.0 * float(np.prod(model.cube_shape))
-    print(f"{card}: {len(model.channels)} bands, fused normal application")
+    mode = f"W-plane ({args.wplane} blur)" if args.wplane else "rank"
+    print(f"{card}: {len(model.channels)} bands, {mode} normal application")
     print(f"  eager (CUDA events, 8 x 10): {min(eager):.3f}-{max(eager):.3f} ms/app "
-          f"(median {np.median(eager):.3f}); host enqueue {min(enqueue):.3f}-{max(enqueue):.3f} ms/app")
-    print(f"  CUDA-graph replay (8 x 10): {min(replay):.3f}-{max(replay):.3f} ms/app "
-          f"-> {vox / (np.median(replay) * 1e-3) / 1e9:.2f} GVox/s; max rel diff vs eager {diff:.3e}")
-    print(f"  SM clock, power draw after the replays: {clocks}")
+          f"(median {np.median(eager):.3f}, {vox / (np.median(eager) * 1e-3) / 1e9:.2f} GVox/s); "
+          f"host enqueue {min(enqueue):.3f}-{max(enqueue):.3f} ms/app")
+    if not args.wplane:
+        graph_floor(model, x, event_ms, smi, vox)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

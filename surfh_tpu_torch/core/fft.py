@@ -1,9 +1,13 @@
-"""DFT-as-matmul tables (host, NumPy) and the rank-basis conv pair (torch).
+"""DFT-as-matmul tables (host, NumPy), the rank-basis conv pair and the
+materialized-OTF FFT conv (torch).
 
 Counterpart of `surfh_tpu/core/fft.py`.  The host table functions are NumPy
 copies of the reference's (same arithmetic, so both packages build
 bit-identical tables); the device side is the λ-rank fused T·C conv
-`lmm_conv_rank` and its exact transpose as chains of plain GEMMs.
+`lmm_conv_rank` and its exact transpose as chains of plain GEMMs, and, for
+the W-plane path, the unitary `dft` / `idft` pair (cuFFT on the card, as
+the reference leaves it to `jnp.fft`), the chunked in-place OTF conv and a
+device `ir2fr` that builds the materialized OTF from the PSF stamps.
 
 Layout.  The reference keeps the rank-basis patch as ``[Q, ha, wb]``; the
 row-gather kernel downstream wants one contiguous ``Q``-wide row per patch
@@ -243,6 +247,59 @@ def lmm_conv_rank_rows_t(g: torch.Tensor, otf_re: torch.Tensor, otf_im: torch.Te
     yb_re = k1 + m["fa_d"].T @ zm_im
     yb_im = k1 - m["fa_s"].T @ zm_re
     return yb_re @ m["fb_re"] + yb_im @ m["fb_im"]
+
+
+# ---------------------------------------------------------------------------
+# device side: the materialized-OTF FFT conv (the W-plane path)
+
+
+def dft(x: torch.Tensor) -> torch.Tensor:
+    """Unitary real DFT over the last two axes (reference `fft.dft`)."""
+    return torch.fft.rfftn(x, dim=(-2, -1), norm="ortho")
+
+
+def idft(x: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
+    """Unitary inverse real DFT over the last two axes (reference `fft.idft`).
+    `im_shape` is required: an odd last axis (501) is not recoverable from
+    the half spectrum."""
+    return torch.fft.irfftn(x, s=tuple(im_shape), dim=(-2, -1), norm="ortho")
+
+
+CONV_OTF_CHUNK = 256  # λ-planes per cuFFT call of `conv_otf_`
+
+
+def conv_otf_(cube: torch.Tensor, otf: torch.Tensor, conj: bool = False,
+              chunk: int = CONV_OTF_CHUNK) -> torch.Tensor:
+    """``idft(dft(cube) · otf)`` (or · conj(otf)) per λ-plane, IN PLACE on
+    `cube` [L, Na, Nb], `chunk` planes at a time, so no whole-cube spectrum
+    and no whole-cube FFT workspace are ever held; returns `cube`.  The
+    callers own `cube` (a temporary of the operator), hence in place."""
+    im_shape = tuple(cube.shape[-2:])
+    for i in range(0, cube.shape[0], chunk):
+        o = otf[i : i + chunk]
+        spec = dft(cube[i : i + chunk])
+        spec.mul_(o.conj() if conj else o)
+        cube[i : i + chunk] = idft(spec, im_shape)
+    return cube
+
+
+def ir2fr_device(imp_resp, shape: Tuple[int, int], device="cpu",
+                 dtype=torch.complex64, chunk: int = 128) -> torch.Tensor:
+    """:func:`ir2fr` of a stamp stack [L, sx, sy] on `device`: pad to
+    `shape`, roll the center to (0, 0), non-normalized rfft2 — computed in
+    float64, `chunk` planes at a time, then cast to `dtype` (so it matches
+    the host `ir2fr` to rounding)."""
+    imp = torch.as_tensor(np.asarray(imp_resp))
+    n, sx, sy = imp.shape
+    na, nb = int(shape[0]), int(shape[1])
+    out = torch.empty((n, na, nb // 2 + 1), dtype=dtype, device=device)
+    for i in range(0, n, chunk):
+        stamps = imp[i : i + chunk].to(device=device, dtype=torch.float64)
+        padded = torch.zeros((stamps.shape[0], na, nb), dtype=torch.float64, device=device)
+        padded[:, :sx, :sy] = stamps
+        padded = torch.roll(padded, shifts=(-(sx // 2), -(sy // 2)), dims=(1, 2))
+        out[i : i + chunk] = torch.fft.rfftn(padded, dim=(1, 2)).to(dtype)
+    return out
 
 
 def otf_bins_last(otf: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,340 @@
+"""Banded spectral blur: the port of `surfh_tpu/core/wblur_pallas.py`.
+
+The spectral response wpsf[λ', λ, β] of a band is band-limited: detector
+wavelength λ' takes flux only from cube wavelengths λ near it.  The banded
+pair keeps, per tile, only the slab of the λ-window (forward) or of the λ'
+axis (transpose) where the tile's response lives, as the reference's plans
+decide:
+
+* `BandPlan` / `build_band_plan`: per λ'-tile of TK = 128 rows, the λ
+  offset `starts[t]` of a band of LB samples (LB rounded up to 8, at most
+  W) — the forward keeps ``wpsf[k, l, b]`` for
+  ``starts[k // TK] <= l < starts[k // TK] + LB``;
+* `BandPlanT` / `build_band_plan_t`: per λ-tile of TL = 128 // Bp rows,
+  the λ' offset of a band of KB samples (rounded up to 128) — the
+  transpose keeps ``wpsf[k, l, b]`` for
+  ``starts_t[l // TL] <= k < starts_t[l // TL] + KB``.
+
+The two masks differ, so at ``rel_eps > 0`` the banded pair is not an
+exact transpose pair (the reference's design; its dot test is off by about
+the truncated mass).  The plans are NumPy copies of the reference's, so
+both packages keep the same entries.
+
+Layout: the port's row layout (`core.wblur`): windows ``[S·A, B·W]`` as the
+row gather leaves them (β-major, then λ), detector rows ``[S·A, K]``.
+
+* `banded_tables` — the plans' device tables: the per-tile re-laid blocks
+  the kernels read, and the masked dense tables the plain versions read.
+* `wblur_banded_reference` / `wblur_banded_t_reference` — the plain torch
+  versions: one matmul against the masked table.
+* `wblur_banded_cuda` / `wblur_banded_t_cuda` — the hand-written kernels
+  (``csrc/wblur_banded.cu``), built with nvcc at first use; each counts its
+  launches in `launches` / `launches_t`.
+* `wblur_banded` / `wblur_banded_t` — the dispatch: a CPU tensor takes the
+  plain version, a CUDA tensor launches the kernel or raises.  Never a
+  fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from .wblur import rows_table
+
+launches = 0  # forward kernel launches since the last reset_launches()
+launches_t = 0  # transpose kernel launches since the last reset_launches()
+
+
+def reset_launches() -> None:
+    global launches, launches_t
+    launches = 0
+    launches_t = 0
+
+
+def _support(wpsf: np.ndarray, eps: float, rel_eps: float) -> np.ndarray:
+    thresh = max(eps, rel_eps * float(np.abs(wpsf).max()))
+    return np.abs(wpsf).max(axis=2) > thresh  # [K, W]
+
+
+@dataclass(frozen=True)
+class BandPlan:
+    """Forward banded plan of one wpsf [K, W, B] (reference `BandPlan`
+    without its blocked f32 table)."""
+
+    starts: np.ndarray  # int32 [nT] λ offset of each λ'-tile's band
+    K: int
+    W: int
+    B: int
+    Bp: int  # β rounded up to 8 (the reference's padding; sets nothing here)
+    LB: int  # band length
+    TK: int  # λ' tile
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.starts.shape[0])
+
+    @property
+    def density(self) -> float:
+        """Banded fraction of the dense contraction."""
+        return self.LB / max(self.W, 1)
+
+    def mask(self) -> np.ndarray:
+        """bool [K, W]: the wpsf entries the forward keeps."""
+        s = self.starts.astype(np.int64)[np.arange(self.K) // self.TK][:, None]
+        l = np.arange(self.W)[None, :]
+        return (l >= s) & (l < s + self.LB)
+
+
+def build_band_plan(wpsf, tile_k: int = 128, eps: float = 0.0, rel_eps: float = 0.0) -> BandPlan:
+    """The reference's `build_band_plan` (wblur_pallas.py:54-99): support
+    above max(eps, rel_eps·max|wpsf|), per-tile band start, LB → multiple of
+    8 (≤ W), starts clamped so every band lies inside the window."""
+    wpsf = np.asarray(wpsf)
+    K, W, B = wpsf.shape
+    nT = -(-K // tile_k)
+    K_pad = nT * tile_k
+    support = _support(wpsf, eps, rel_eps)
+    lo = np.full(K_pad, W, np.int64)
+    hi = np.full(K_pad, 0, np.int64)
+    any_k = support.any(axis=1)
+    lo[:K][any_k] = support.argmax(axis=1)[any_k]
+    hi[:K][any_k] = W - support[:, ::-1].argmax(axis=1)[any_k]
+    starts = np.zeros(nT, np.int64)
+    LB = 1
+    for t in range(nT):
+        ks = slice(t * tile_k, (t + 1) * tile_k)
+        s = int(lo[ks].min()) if (lo[ks] < W).any() else 0
+        e = int(hi[ks].max())
+        starts[t] = min(s, max(W - 1, 0))
+        LB = max(LB, e - s)
+    LB = min(W, -(-LB // 8) * 8)
+    starts = np.minimum(starts, max(W - LB, 0))
+    Bp = -(-B // 8) * 8
+    return BandPlan(starts.astype(np.int32), K, W, B, Bp, LB, tile_k)
+
+
+@dataclass(frozen=True)
+class BandPlanT:
+    """Transpose banded plan of one wpsf [K, W, B] (reference `BandPlanT`
+    without its blocked f32 table)."""
+
+    starts: np.ndarray  # int32 [nT] λ' offset of each λ-tile's band
+    K: int
+    W: int
+    B: int
+    Bp: int
+    TL: int  # λ rows per tile
+    KB: int  # λ' band length
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.starts.shape[0])
+
+    @property
+    def density(self) -> float:
+        return min(self.KB, self.K) / max(self.K, 1)
+
+    def mask(self) -> np.ndarray:
+        """bool [K, W]: the wpsf entries the transpose keeps."""
+        s = self.starts.astype(np.int64)[np.arange(self.W) // self.TL][None, :]
+        k = np.arange(self.K)[:, None]
+        return (k >= s) & (k < s + self.KB)
+
+
+def build_band_plan_t(wpsf, eps: float = 0.0, rel_eps: float = 0.0) -> BandPlanT:
+    """The reference's `build_band_plan_t` (wblur_pallas.py:182-224): TL =
+    128 // Bp, per-λ-tile λ' band start, KB → multiple of 128 (may exceed K:
+    the slab then runs past the end and reads zeros)."""
+    wpsf = np.asarray(wpsf)
+    K, W, B = wpsf.shape
+    Bp = -(-B // 8) * 8
+    TL = max(1, 128 // Bp)
+    nT = -(-W // TL)
+    support = _support(wpsf, eps, rel_eps)
+    lo = np.full(W, K, np.int64)
+    hi = np.full(W, 0, np.int64)
+    any_l = support.any(axis=0)
+    lo[any_l] = support.argmax(axis=0)[any_l]
+    hi[any_l] = K - support[::-1, :].argmax(axis=0)[any_l]
+    starts = np.zeros(nT, np.int64)
+    KB = 8
+    for t in range(nT):
+        ls = slice(t * TL, min((t + 1) * TL, W))
+        s = int(lo[ls].min()) if (lo[ls] < K).any() else 0
+        e = int(hi[ls].max())
+        starts[t] = min(s, max(K - 1, 0))
+        KB = max(KB, e - s)
+    KB = -(-KB // 128) * 128
+    starts = np.maximum(np.minimum(starts, max(K - KB, 0)), 0)
+    return BandPlanT(starts.astype(np.int32), K, W, B, Bp, TL, KB)
+
+
+@dataclass(frozen=True)
+class BandedTables:
+    """Device tables of one channel's banded pair.
+
+    blocks   [nT, B·LB, TK]     forward block of tile t: row b·LB + j is λ = starts[t] + j
+    blocks_t [nT_t, KB, B·TL]   transpose block of tile t: column b·TL + j is λ = t·TL + j
+    rows / rows_t [K, B·W]      the forward / transpose masked wpsf, row layout
+    """
+
+    plan: BandPlan
+    plan_t: BandPlanT
+    starts: Any
+    starts_t: Any
+    blocks: Any
+    blocks_t: Any
+    rows: Any
+    rows_t: Any
+
+
+def banded_tables(wpsf: torch.Tensor, plan: BandPlan, plan_t: BandPlanT) -> BandedTables:
+    """Both plans' tables from wpsf [K, W, B] (on its device, in its dtype)."""
+    K, W, B = wpsf.shape
+    if (plan.K, plan.W, plan.B) != (K, W, B) or (plan_t.K, plan_t.W, plan_t.B) != (K, W, B):
+        raise ValueError(f"band plans do not match wpsf {tuple(wpsf.shape)}")
+    dev = wpsf.device
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    # forward blocks: wpsf[t·TK + i, starts[t] + j, b] at [t, b·LB + j, i]
+    nT, TK, LB = plan.n_tiles, plan.TK, plan.LB
+    wk = torch.cat([wpsf, wpsf.new_zeros((nT * TK - K, W, B))])  # partial last tile → zero rows
+    kk = idx(np.arange(nT * TK).reshape(nT, TK, 1))
+    ll = idx(plan.starts[:, None, None] + np.arange(LB)[None, None, :])
+    blocks = wk[kk, ll]  # [nT, TK, LB, B]
+    blocks = blocks.permute(0, 3, 2, 1).reshape(nT, B * LB, TK).contiguous()
+
+    # transpose blocks: wpsf[starts_t[t] + c, t·TL + j, b] at [t, c, b·TL + j],
+    # zero where the slab runs past K or the tile past W
+    nTt, TL, KB = plan_t.n_tiles, plan_t.TL, plan_t.KB
+    k_need = int(plan_t.starts.max()) + KB
+    l_need = nTt * TL
+    wt = torch.zeros((max(K, k_need), max(W, l_need), B), dtype=wpsf.dtype, device=dev)
+    wt[:K, :W] = wpsf
+    kk = idx(plan_t.starts[:, None, None] + np.arange(KB)[None, :, None])
+    ll = idx(np.arange(l_need).reshape(nTt, 1, TL))
+    blocks_t = wt[kk, ll]  # [nTt, KB, TL, B]
+    blocks_t = blocks_t.permute(0, 1, 3, 2).reshape(nTt, KB, B * TL).contiguous()
+
+    def masked_rows(mask):
+        return rows_table(wpsf * torch.as_tensor(mask, device=dev)[:, :, None])
+
+    return BandedTables(
+        plan, plan_t,
+        torch.as_tensor(plan.starts, dtype=torch.int32, device=dev),
+        torch.as_tensor(plan_t.starts, dtype=torch.int32, device=dev),
+        blocks, blocks_t, masked_rows(plan.mask()), masked_rows(plan_t.mask()),
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def wblur_banded_reference(win: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """win [S·A, B·W] → [S·A, K] against the forward-masked table."""
+    return win @ bt.rows.T
+
+
+def wblur_banded_t_reference(y2d: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """y2d [S·A, K] → [S·A, B·W] against the transpose-masked table."""
+    return y2d @ bt.rows_t
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+
+_fns = None
+
+
+def load_kernels():
+    """Build (first call) and bind both kernels' C entry points."""
+    global _fns
+    if _fns is None:
+        from ._build import build_library
+
+        lib = build_library("wblur_banded", ["wblur_banded.cu"])
+        fns = []
+        for name in ("surfh_wblur_banded_f32", "surfh_wblur_banded_t_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns.append(fn)
+        _fns = tuple(fns)
+    return _fns
+
+
+def _check(x: torch.Tensor, shape, bt: BandedTables, what: str) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{what} needs a CUDA tensor")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} is f32 only (got {x.dtype})")
+    if x.dim() != 2 or x.shape[1] != shape:
+        raise ValueError(f"{what}: input {tuple(x.shape)} is not [S·A, {shape}]")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} needs a contiguous input")
+    for name in ("blocks", "blocks_t", "starts", "starts_t"):
+        a = getattr(bt, name)
+        if a.device != x.device or not a.is_contiguous():
+            raise ValueError(f"tables.{name} must be contiguous on {x.device}")
+    if bt.blocks.dtype != torch.float32 or bt.blocks_t.dtype != torch.float32:
+        raise TypeError(f"{what}: tables must be f32 (got {bt.blocks.dtype})")
+
+
+def _launch(fn, args, device) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"wblur_banded kernel launch failed: cudaError {err}")
+
+
+def wblur_banded_cuda(win: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """The forward kernel: f32 win [S·A, B·W] → [S·A, K] on the current stream."""
+    p = bt.plan
+    _check(win, p.B * p.W, bt, "wblur_banded kernel")
+    out = torch.empty((win.shape[0], p.K), device=win.device, dtype=torch.float32)
+    _launch(load_kernels()[0],
+            (win.data_ptr(), bt.blocks.data_ptr(), bt.starts.data_ptr(), out.data_ptr(),
+             int(win.shape[0]), p.W, p.B, p.K, p.n_tiles, p.LB, p.TK), win.device)
+    global launches
+    launches += 1
+    return out
+
+
+def wblur_banded_t_cuda(y2d: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """The transpose kernel: f32 y2d [S·A, K] → [S·A, B·W] on the current stream."""
+    p = bt.plan_t
+    _check(y2d, p.K, bt, "wblur_banded_t kernel")
+    out = torch.empty((y2d.shape[0], p.B * p.W), device=y2d.device, dtype=torch.float32)
+    _launch(load_kernels()[1],
+            (y2d.data_ptr(), bt.blocks_t.data_ptr(), bt.starts_t.data_ptr(), out.data_ptr(),
+             int(y2d.shape[0]), p.W, p.B, p.K, p.n_tiles, p.TL, p.KB), y2d.device)
+    global launches_t
+    launches_t += 1
+    return out
+
+
+def wblur_banded(win: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """Dispatch: plain version for a CPU tensor, the kernel for a CUDA one."""
+    if win.is_cuda:
+        return wblur_banded_cuda(win, bt)
+    if win.device.type == "cpu":
+        return wblur_banded_reference(win, bt)
+    raise ValueError(f"wblur_banded: unsupported device {win.device}")
+
+
+def wblur_banded_t(y2d: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """Dispatch: plain version for a CPU tensor, the kernel for a CUDA one."""
+    if y2d.is_cuda:
+        return wblur_banded_t_cuda(y2d, bt)
+    if y2d.device.type == "cpu":
+        return wblur_banded_t_reference(y2d, bt)
+    raise ValueError(f"wblur_banded_t: unsupported device {y2d.device}")

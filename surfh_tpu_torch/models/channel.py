@@ -1,19 +1,21 @@
-"""One MRS band over its dither pointings: the composed rank-basis path.
+"""One MRS band over its dither pointings: the composed-gather path.
 
-Counterpart of `surfh_tpu/models/channel.py`, first slice only.
+Counterpart of `surfh_tpu/models/channel.py`, for the composed window
+gather (the rank-basis and the W-plane modes).
 
 Host side (NumPy, at construction): the parts of the reference
-`Channel.__init__` that the composed rank path reads — the Slicer, the
+`Channel.__init__` that the composed path reads — the Slicer, the
 per-pointing bilinear plans, the FOV bbox of the footprint, the slit
 tables, the calibrated direct box-sum offset and the composed window
-plans (gather + sorted-COO transpose).  The spectral PSF `wpsf` is built
-once, by :meth:`host_tables`.
+plans (gather + sorted-COO transpose).  The spectral PSF `wpsf`, the CSR
+gather plans and the banded-blur plans are built once, at first use.
 
 Device side: the per-pointing forward (composed gather → slit weights →
-wblur GEMM, reference `_forward_one_pointing` with `cgrid`) and its exact
-transpose (wblur_t GEMM → slit weights → composed transpose, reference
+spectral blur, reference `_forward_one_pointing` with `cgrid`) and its
+transpose (blur transpose → slit weights → composed transpose, reference
 `one_pointing` with the COO transpose), pointings unrolled in Python.
-Both composed stages run the row-gather kernel on ``[n, Q]`` rows.
+Both composed stages run the row-gather kernel on ``[n, Q]`` rows; the
+blur is the dense GEMM or the banded kernel pair (`core.wblur_banded`).
 
 Not ported yet (raise NotImplementedError): the staged gridding path and
 the FFT box-sum fallback, used when the direct box-sum is not exact.
@@ -22,7 +24,6 @@ the FFT box-sum fallback, used when the direct box-sum is not exact.
 from __future__ import annotations
 
 from math import ceil
-from typing import Callable
 
 import numpy as np
 import torch
@@ -31,8 +32,12 @@ from surfh_tpu.instrument.geometry import CoordList
 from surfh_tpu.instrument.ifu import IFU
 
 from ..core import bilinear, fft
-from ..core.gather_rows import gather_rows, plan_from_gather_table, build_row_gather_plan
+from ..core.gather_rows import (build_row_gather_plan, gather_rows, gather_rows_reference,
+                                plan_from_gather_table)
 from ..core.wblur import wblur_rows, wblur_rows_t
+from ..core.wblur_banded import (BandPlan, BandPlanT, build_band_plan, build_band_plan_t,
+                                 wblur_banded, wblur_banded_reference, wblur_banded_t,
+                                 wblur_banded_t_reference)
 from .slicer import Slicer
 
 
@@ -149,6 +154,9 @@ class Channel:
             np.stack([padc(c.cw, 0) for c in cplans]),
             np.stack([padc(c.cdst, n_patch - 1) for c in cplans]),
         )
+        self._wpsf = None
+        self._gather_plans = None
+        self._band_plans = {}
 
     # ------------------------------------------------------------------
     @property
@@ -211,43 +219,89 @@ class Channel:
             type="mrs",
         )
 
+    @property
+    def wpsf(self) -> np.ndarray:
+        """wpsf [K, W, sb] in the table dtype, built once (the costliest
+        host stage of a channel) and kept, so a second model over the same
+        channels reuses it."""
+        if self._wpsf is None:
+            self._wpsf = np.asarray(self._build_wpsf(), self.npdtype)
+        return self._wpsf
+
+    def gather_plans(self):
+        """(forward, transpose) per-pointing CSR plans of the composed stack,
+        built once."""
+        if self._gather_plans is None:
+            n_patch = self.tbbox[2] * self.tbbox[3]
+            self._gather_plans = gather_plans_from_composed(self.composed_stack, n_patch, self.n_out)
+        return self._gather_plans
+
+    def band_plan(self, rtol: float) -> BandPlan:
+        """Forward banded plan of the wpsf at `rtol` (reference
+        `Channel.band_plan`, channel.py:752-760), built at first use."""
+        key = ("fwd", float(rtol))
+        if key not in self._band_plans:
+            self._band_plans[key] = build_band_plan(self.wpsf, rel_eps=float(rtol))
+        return self._band_plans[key]
+
+    def band_plan_t(self, rtol: float) -> BandPlanT:
+        """Transpose banded plan of the wpsf at `rtol` (reference
+        `Channel.band_plan_t`, channel.py:762-770), built at first use."""
+        key = ("t", float(rtol))
+        if key not in self._band_plans:
+            self._band_plans[key] = build_band_plan_t(self.wpsf, rel_eps=float(rtol))
+        return self._band_plans[key]
+
     def host_tables(self) -> dict:
         """The channel's host tables: wpsf [K, W, sb], slit weights [S, A, sb]
         and the per-pointing forward / transpose gather plans."""
-        n_patch = self.tbbox[2] * self.tbbox[3]
-        fwd, adj = gather_plans_from_composed(self.composed_stack, n_patch, self.n_out)
+        fwd, adj = self.gather_plans()
         return {
-            "wpsf": np.asarray(self._build_wpsf(), self.npdtype),
+            "wpsf": self.wpsf,
             "slit_w": self.slit_weights_sub,
             "gather_fwd": fwd,
             "gather_t": adj,
         }
 
     # ------------------------------------------------------------------
-    # device side (tables from `models.spectro.device_tables`)
-    def forward_rank(self, src: torch.Tensor, t: dict,
-                     gather: Callable = gather_rows) -> torch.Tensor:
-        """Rank-basis patch rows src [ha·wb, Q] → detector blocks [P, S, K, A]."""
+    # device side (tables from `models.spectro`): one pipeline for both
+    # modes, on rows of Q planes — Q = M·R rank-basis planes (rank mode) or
+    # Q = W λ-planes (W-plane mode).  The blur is the dense GEMM against
+    # t["wq"] [K, sb·Q], or with `banded` the banded kernel pair on
+    # t["band"] (W-plane mode only).  `plain=True` runs every kernel's plain
+    # version instead (the comparison on the card).
+    def forward_rows(self, src: torch.Tensor, t: dict, plain: bool = False,
+                     banded: bool = False) -> torch.Tensor:
+        """Patch rows src [ha·wb, Q] → detector blocks [P, S, K, A]: per
+        pointing the composed gather, the slit weights, the spectral blur."""
         P, S, K, A = self.oshape
         sb = self.slit_shape[2]
         q = src.shape[1]
+        gather = gather_rows_reference if plain else gather_rows
+        blur = wblur_banded_reference if plain else wblur_banded
         outs = []
         for p in range(P):
             win = gather(src, t["gather_fwd"][p])  # [S·A·sb, Q]
             win = (win.view(S * A, sb, q) * t["slit_w"]).view(S * A, sb * q)
-            outs.append(wblur_rows(win, t["wq"]).view(S, A, K).transpose(1, 2))
+            y2d = blur(win, t["band"]) if banded else wblur_rows(win, t["wq"])
+            outs.append(y2d.view(S, A, K).transpose(1, 2))
         return torch.stack(outs)
 
-    def adjoint_rank(self, yc: torch.Tensor, t: dict,
-                     gather: Callable = gather_rows) -> torch.Tensor:
-        """Exact transpose of :meth:`forward_rank`: [P, S, K, A] → [ha·wb, Q]."""
+    def adjoint_rows(self, yc: torch.Tensor, t: dict, plain: bool = False,
+                     banded: bool = False) -> torch.Tensor:
+        """Transpose of :meth:`forward_rows`, [P, S, K, A] → [ha·wb, Q]
+        summed over pointings: exact with the dense table; the banded pair
+        keeps the transpose plan's mask, as the reference's does."""
         P, S, K, A = self.oshape
         sb = self.slit_shape[2]
-        q = t["wq"].shape[1] // sb
+        gather = gather_rows_reference if plain else gather_rows
+        blur_t = wblur_banded_t_reference if plain else wblur_banded_t
         acc = None
         for p in range(P):
             y2d = yc[p].transpose(1, 2).reshape(S * A, K)
-            win = wblur_rows_t(y2d, t["wq"]).view(S * A, sb, q) * t["slit_w"]
+            win = blur_t(y2d, t["band"]) if banded else wblur_rows_t(y2d, t["wq"])
+            q = win.shape[1] // sb
+            win = win.view(S * A, sb, q) * t["slit_w"]
             patch = gather(win.view(S * A * sb, q), t["gather_t"][p])
             acc = patch if acc is None else acc.add_(patch)
         return acc

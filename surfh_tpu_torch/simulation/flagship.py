@@ -5,9 +5,11 @@
 λ axis from the union of the detector tables subsampled ×3 (≈3879
 samples), Gaussian PSF stamps [Nλ, 40, 40] and M = 4 smooth templates with
 random abundance maps.  Everything comes from the seed; nothing is loaded
-beyond the bundled MIRI calibration tables.  Not ported: the materialized
-`sotf` (`build_sotf=True`) and the diffraction PSF (`SURFH_SIM_PSF`), which
-only non-rank consumers read.
+beyond the bundled MIRI calibration tables.  `build_sotf=True` builds the
+materialized OTF [Nλ, 501, 251] (complex64, ~3.9 GB) from the stamps on the
+given device (`fft.ir2fr_device`), for the materialized-OTF model.  Not
+ported: the reference's on-disk sotf cache and the diffraction PSF
+(`SURFH_SIM_PSF`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 from surfh_tpu.instrument import miri, wavelength_mrs
 from surfh_tpu.instrument.geometry import CoordList
 
+from ..core.fft import ir2fr_device
 from ..utils.psf import gaussian_psf
 
 FLAGSHIP_STEP_ARCSEC = 0.025
@@ -42,9 +45,12 @@ def make_flagship_setup(
     n_tpl: int = 4,
     lambda_subsample: int = 3,
     seed: int = 19940407,
+    build_sotf: bool = False,
+    device="cpu",
 ):
-    """Flagship-scale inputs (host arrays), same keys and values as the
-    reference's `make_flagship_setup(build_sotf=False)` (`sotf` is None)."""
+    """Flagship-scale inputs, same keys and values as the reference's
+    `make_flagship_setup`: host arrays, and with `build_sotf` the OTF as a
+    complex64 tensor on `device` (else `sotf` is None)."""
     if bands is None:
         bands = list(miri.BANDS)
     instrs = flagship_instruments(bands)
@@ -81,7 +87,7 @@ def make_flagship_setup(
         wavelength_axis=wavelength_axis,
         alpha_axis=alpha_axis,
         beta_axis=beta_axis,
-        sotf=None,
+        sotf=ir2fr_device(psf_stack, (npix, npix), device) if build_sotf else None,
         psf_stack=psf_stack,
         instrs=instrs,
         pointings=[pts for _ in instrs],
@@ -93,17 +99,26 @@ def make_flagship_setup(
 
 def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32,
                         conv_freq_rtol: float = 1e-6, conv_rank_rtol: float = 1e-7,
-                        workers: int = 1, **kwargs):
-    """The flagship rank-mode `SpectroSigRLSCT` (defaults as the reference's
-    `make_flagship_model`: conv_freq_rtol=1e-6, conv_rank_rtol=1e-7)."""
+                        workers: int = 1, window_local: bool = True, wblur_impl: str = "dense",
+                        wblur_band_rtol: float = 0.0, channels=None, **kwargs):
+    """The flagship `SpectroSigRLSCT`: the rank mode by default (as the
+    reference's `make_flagship_model`: conv_freq_rtol=1e-6,
+    conv_rank_rtol=1e-7), or with ``window_local=False`` the
+    materialized-OTF mode, which needs a setup built with
+    ``build_sotf=True``.  `channels` reuses another flagship model's."""
     from ..models.spectro import SpectroSigRLSCT
 
     if setup is None:
-        setup = make_flagship_setup(**kwargs)
+        setup = make_flagship_setup(build_sotf=not window_local, **kwargs)
+    if not window_local and setup.get("sotf") is None:
+        raise ValueError("the materialized-OTF model needs the sotf — rebuild the setup "
+                         "with make_flagship_setup(build_sotf=True)")
     model = SpectroSigRLSCT(
         setup["templates"], setup["alpha_axis"], setup["beta_axis"],
         setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
-        setup["pointings"], setup["psf_stack"], dtype=dtype,
+        setup["pointings"], setup["psf_stack"] if window_local else None, dtype=dtype,
         conv_freq_rtol=conv_freq_rtol, conv_rank_rtol=conv_rank_rtol, workers=workers,
+        sotf=None if window_local else setup["sotf"], window_local=window_local,
+        wblur_impl=wblur_impl, wblur_band_rtol=wblur_band_rtol, channels=channels,
     )
     return model, setup

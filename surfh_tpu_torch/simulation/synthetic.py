@@ -106,9 +106,15 @@ def make_setup(
 
 
 def make_model(setup: Optional[dict] = None, dtype=np.float64, conv_freq_rtol: float = 1e-6,
-               conv_rank_rtol: float = 1e-7, workers: int = 1, **kwargs):
-    """The rank-mode `SpectroSigRLSCT` of a synthetic setup (host tables
-    in `dtype`; call `.to(device, dtype)` before applying it)."""
+               conv_rank_rtol: float = 1e-7, workers: int = 1, window_local: bool = True,
+               wblur_impl: str = "dense", wblur_band_rtol: float = 0.0, **kwargs):
+    """The `SpectroSigRLSCT` of a synthetic setup (host tables in `dtype`;
+    call `.to(device, dtype)` before applying it).
+
+    ``window_local=True`` (the default here) builds the rank mode from the
+    PSF stamps (`spsf`); ``window_local=False`` the materialized-OTF mode
+    from the setup's `sotf`, with the spectral blur `wblur_impl` and
+    `wblur_band_rtol` at the reference's defaults (dense, 0)."""
     from ..models.spectro import SpectroSigRLSCT
 
     if setup is None:
@@ -116,7 +122,9 @@ def make_model(setup: Optional[dict] = None, dtype=np.float64, conv_freq_rtol: f
     model = SpectroSigRLSCT(
         setup["templates"], setup["alpha_axis"], setup["beta_axis"],
         setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
-        setup["pointings"], setup["spsf"], dtype=dtype,
+        setup["pointings"], setup["spsf"] if window_local else None, dtype=dtype,
         conv_freq_rtol=conv_freq_rtol, conv_rank_rtol=conv_rank_rtol, workers=workers,
+        sotf=None if window_local else setup["sotf"], window_local=window_local,
+        wblur_impl=wblur_impl, wblur_band_rtol=wblur_band_rtol,
     )
     return model, setup

@@ -17,6 +17,8 @@ SLICE_MODULES = [
     "surfh_tpu_torch.core.gather_rows",
     "surfh_tpu_torch.core._build",
     "surfh_tpu_torch.core.wblur",
+    "surfh_tpu_torch.core.wblur_banded",
+    "surfh_tpu_torch.core.lmm",
     "surfh_tpu_torch.utils.psf",
     "surfh_tpu_torch.models.slicer",
     "surfh_tpu_torch.models.channel",
