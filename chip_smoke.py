@@ -7,29 +7,39 @@ Two paths of the flagship fusion solve at full width (501² sky, ~3879-λ
 cube, M = 4 templates, 4 dither pointings, all 12 MIRI bands unless
 `--bands` cuts them), f32 on the card, weights and data from seeds: the
 rank mode (window-local, PSF stamps) and the materialized-OTF W-plane mode
-(`window_local=False`, `wblur_impl="banded"`, `wblur_band_rtol=1e-4`).
+(`window_local=False`, `wblur_impl="banded"`, `wblur_band_rtol=1e-4`);
+and the composed-transpose prototype entry point
+(`scripts/torch_scatter_proto.py`) with its three fixed-fan-in kernels.
 
 1. device      — the card's name and power limit (nvidia-smi);
-2. build       — nvcc builds both kernel sources from csrc/ into build/,
-                 one nvcc each, in parallel;
+2. build       — nvcc builds the three kernel sources from csrc/ into
+                 build/, one nvcc each, in parallel;
 3. host        — the flagship rank-mode host tables (NumPy, channels in
                  parallel);
-4. kernel      — the row gather against its plain torch version on one
-                 flagship channel's real composed plans (error, times);
-5. slice       — the rank path: upload, y = H·truth, an f64-accumulated dot
+4. kernel      — the row gather against its plain torch version and the
+                 library's CSR SpMM on one flagship channel's real composed
+                 plans (error, times, byte bound);
+5. proto       — the prototype entry point as a user runs it (`run`: band
+                 1c alone, one pointing, Q = W = 466) with K1–K3 launches
+                 counted, then `run_proto` on every band's pointing-0
+                 transpose of the flagship model at Q = W: K1–K3 against A,
+                 their plain versions and the CSR kernel (errors, times,
+                 byte bound);
+6. slice       — the rank path: upload, y = H·truth, an f64-accumulated dot
                  test, the fused normal through the kernel against the plain
                  version, launches per normal application, the main path
                  (y, b = µ·Hᵗy, 10 lcg iterations), timings;
-6. wplane-host — the OTF built on the card from the PSF stamps, the W-plane
+7. wplane-host — the OTF built on the card from the PSF stamps, the W-plane
                  model over the rank model's channels, the band plans;
-7. kernel      — both banded kernels against their plain versions on the
-                 largest band's real plans (error, times);
-8. wplane      — the W-plane path: FFT stage and relayout costs, y, the
+8. kernel      — both banded kernels against their plain versions and
+                 cuBLAS on the masked table on the largest band's real plans
+                 (error, times, flop bound);
+9. wplane      — the W-plane path: FFT stage and relayout costs, y, the
                  dense pair's dot test, the banded pair's mismatch, banded
                  against dense, kernels against plain versions, launches per
                  normal application, times for both blurs, the main path
                  (y, b, 10 lcg iterations);
-9. small       — the card's f32 operators (both modes) against the CPU f64
+10. small      — the card's f32 operators (both modes) against the CPU f64
                  ones on small synthetic problems.
 
 Prints the kernels' JSON record, then as its last line
@@ -42,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +60,7 @@ import time
 WORKERS = min(8, os.cpu_count() or 1)  # processes for the host table build
 REPS = 10  # timed applications per operator
 BAND_RTOL = 1e-4  # the banded blur's support threshold (the throughput setting)
+FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 
 
 def log(msg: str) -> None:
@@ -75,7 +87,10 @@ def main(argv=None) -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    import importlib.util
+
     from surfh_tpu_torch.core import _build, fft
+    from surfh_tpu_torch.core import gather_fixed as gf
     from surfh_tpu_torch.core import gather_rows as gr
     from surfh_tpu_torch.core import wblur_banded as wb
     from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
@@ -85,22 +100,21 @@ def main(argv=None) -> int:
     def sync():
         torch.cuda.synchronize(dev)
 
-    def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-        """Mean device ms per call, CUDA events around `reps` calls."""
-        for _ in range(warmup):
-            fn()
-        sync()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            fn()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     def rel(a, b) -> float:
         return float((a - b).abs().max() / b.abs().max())
+
+    def bound(nbytes: float, flops: float = 0.0):
+        """The least time the card could take: bytes over the memory rate or
+        operations over the FP32 rate, whichever is larger (ms, which)."""
+        t_b, t_f = nbytes / proto.HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_scatter_proto", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                            "scripts", "torch_scatter_proto.py"))
+    proto = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(proto)
+    cuda_ms = proto.event_ms  # mean device ms per call, CUDA events around `reps` calls
 
     # 1. device --------------------------------------------------------
     smi = subprocess.run(
@@ -115,15 +129,24 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, both at once
-        for f in [ex.submit(gr.load_kernel), ex.submit(wb.load_kernels)]:
+    with ThreadPoolExecutor(3) as ex:  # one nvcc per source, all at once
+        for f in [ex.submit(gr.load_kernel), ex.submit(wb.load_kernels),
+                  ex.submit(gf.load_kernels)]:
             f.result()
-    log(f"[build] gather_rows.cu, wblur_banded.cu -> {_build.BUILD_DIR} in "
+    log(f"[build] gather_rows.cu, wblur_banded.cu, gather_fixed.cu -> {_build.BUILD_DIR} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name in ("gather_rows", "wblur_banded"):
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] ptxas {name}: {line.strip()}")
+    # gather_fixed.cu holds 51 instances (static L = 1..8): the largest
+    # register count and every spill, not one line per instance
+    flog = _build.build_logs.get("gather_fixed", "")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", flog)]
+    spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", flog)
+              if int(m.group(1)) or int(m.group(2))]
+    log(f"[build] ptxas gather_fixed: {len(regs)} kernel instances, at most {max(regs, default=0)} "
+        f"registers; spill lines with bytes: {spills or 'none'}")
 
     # 3. host tables ----------------------------------------------------
     bands = args.bands.split(",") if args.bands else None
@@ -150,27 +173,69 @@ def main(argv=None) -> int:
     # f32: the kernel's sequential FMAs and the plain version's index_add_
     # sum the same ≤ ~30 taps per row in another order (~1e-7 each)
     tol_kernel = 1e-5
-    kern = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    kern = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for name in ("gather_fwd", "gather_t"):
         plan = tb[name][0].to(dev, torch.float32)
+        spm = proto.library_csr(tb[name][0], dev)
         src = torch.rand((plan.n_src, q), generator=gen, device=dev)
         out_k = gr.gather_rows_cuda(src, plan)
         out_p = gr.gather_rows_reference(src, plan)
+        out_l = torch.sparse.mm(spm, src)
         sync()
-        err = rel(out_k, out_p)
+        err, err_l = rel(out_k, out_p), rel(out_l, out_p)
         ms_k = cuda_ms(lambda: gr.gather_rows_cuda(src, plan), 50)
         ms_p = cuda_ms(lambda: gr.gather_rows_reference(src, plan), 50)
+        ms_l = cuda_ms(lambda: torch.sparse.mm(spm, src), 50)
         moved = plan.nnz * (8 + 4 * q) + plan.n_rows * 4 * (q + 1)
+        b_ms, _ = bound(proto.gather_bytes(plan.n_rows, plan.n_src, q, plan.nnz))
         log(f"[kernel] {model.channels[c_big].instr.name} {name}: rows {plan.n_rows} x Q {q}, "
             f"nnz {plan.nnz}: max rel err {err:.3e} (bound {tol_kernel:g}, f32 sums in another "
             f"order); kernel {ms_k:.4f} ms, "
-            f"plain {ms_p:.4f} ms; {moved / ms_k / 1e6:.1f} GB/s of tap+row traffic")
+            f"plain {ms_p:.4f} ms, library torch.sparse.mm {ms_l:.4f} ms (max rel {err_l:.3e}); "
+            f"{moved / ms_k / 1e6:.1f} GB/s of tap+row traffic; byte bound {b_ms:.4f} ms "
+            f"({100 * b_ms / ms_k:.1f} % of the kernel's time)")
         check(err <= tol_kernel, f"kernel vs plain {name}: {err:.3e} > {tol_kernel:g}")
+        check(err_l <= tol_kernel, f"library vs plain {name}: {err_l:.3e} > {tol_kernel:g}")
         kern["err"] = max(kern["err"], float((out_k - out_p).abs().max()))
         kern["ms"] += ms_k
         kern["plain_ms"] += ms_p
+        kern["library_ms"] += ms_l
+        kern["bound_ms"] += b_ms
 
-    # 5. slice ------------------------------------------------------------
+    # 5. the prototype entry point as a user runs it, counted; every band ---
+    # its defaults: band 1c alone, one pointing, 501², Q = W = 466 (float2)
+    gf.reset_launches()
+    t0 = time.perf_counter()
+    pres = proto.run(device=dev, log=lambda m: log(f"[proto] {m}"))
+    sync()
+    proto_launches = (gf.launches_k1, gf.launches_k2, gf.launches_k3)
+    expect_p = proto.launches_per_run()
+    log(f"[proto] {card}: the entry point (band 1c, one pointing, host build included) in "
+        f"{time.perf_counter() - t0:.2f} s; launches K1 / K2 / K3 {proto_launches} (expected "
+        f"{expect_p} each: one check, {proto.EVENT_WARMUP} + {proto.EVENT_REPS} timed, 4 chains "
+        f"of 10)")
+    check(proto_launches == (expect_p,) * 3, "proto launches")
+
+    # K1–K3 against their plain versions: the same taps in the same order,
+    # so only the FMA contraction differs; against A (index_add_, summing in
+    # the order of the card's atomics) and the CSR kernel: ≤ tol_kernel
+    tol_fixed = 1e-6
+
+    def check_proto(r, what):
+        check(max(r["check"].values()) <= tol_kernel, f"{what}: checks against A {r['check']}")
+        for k in ("K1", "K2", "K3"):
+            check(r["vs_plain"][k] <= tol_fixed and r["vs_csr"][k] <= tol_kernel,
+                  f"{what} {k}: {r['vs_plain'][k]:.3e} vs plain (bound {tol_fixed:g}), "
+                  f"{r['vs_csr'][k]:.3e} vs CSR (bound {tol_kernel:g})")
+
+    check_proto(pres, "entry point")
+    log(f"[proto] {card}: K1–K3 on every band's pointing-0 transpose of the {len(model.channels)}-band, "
+        f"{n_pt // len(model.channels)}-pointing model at Q = W")
+    for chan, band in zip(model.channels, setup["bands"]):
+        check_proto(proto.run_proto(chan, dev, chain=0, band=band, log=lambda m: log(f"[proto] {m}")),
+                    band)
+
+    # 6. slice ------------------------------------------------------------
     t0 = time.perf_counter()
     model.to(dev, torch.float32)
     sync()
@@ -245,7 +310,7 @@ def main(argv=None) -> int:
     log(f"[slice] {card}: CG {s_it:.4f} s/iteration (10 resumed iterations, host clock); "
         f"grad norm {gn[0]:.4e} -> {res2.grad_norm[-1]:.4e} after 20")
 
-    # 6. the W-plane model: OTF on the card, channels reused, band plans ---
+    # 7. the W-plane model: OTF on the card, channels reused, band plans ---
     t0 = time.perf_counter()
     wsetup = make_flagship_setup(bands=bands, build_sotf=True, device=dev)
     sync()
@@ -274,7 +339,7 @@ def main(argv=None) -> int:
             f"LB={p.LB} (density {p.density:.3f}, {p.n_tiles} tiles, kept mass {kept:.6f}) "
             f"KB={q.KB} TL={q.TL} ({q.n_tiles} tiles, kept mass {kept_t:.6f})")
 
-    # 7. both banded kernels against their plain versions ------------------
+    # 8. both banded kernels against their plain versions ------------------
     wt = wmodel.tables["chan"]
     c_w = max(range(len(wt)), key=lambda c: wt[c]["band"].plan.K * wt[c]["band"].plan.LB
               * wt[c]["band"].plan.B * wmodel.channels[c].oshape[1] * wmodel.channels[c].oshape[3])
@@ -283,27 +348,34 @@ def main(argv=None) -> int:
     win = torch.rand((S_ * A_, bt.plan.B * bt.plan.W), generator=gen, device=dev)
     y2d = torch.rand((S_ * A_, K_), generator=gen, device=dev)
     bkern = {}
-    for name, kfn, pfn, arg in (("wblur_banded", wb.wblur_banded_cuda, wb.wblur_banded_reference, win),
-                                ("wblur_banded_t", wb.wblur_banded_t_cuda,
-                                 wb.wblur_banded_t_reference, y2d)):
+    for name, kfn, pfn, arg, table, starts, lib in (
+            ("wblur_banded", wb.wblur_banded_cuda, wb.wblur_banded_reference, win, bt.blocks,
+             bt.starts, lambda: torch.matmul(win, bt.rows.T)),
+            ("wblur_banded_t", wb.wblur_banded_t_cuda, wb.wblur_banded_t_reference, y2d,
+             bt.blocks_t, bt.starts_t, lambda: torch.matmul(y2d, bt.rows_t))):
         out_k, out_p = kfn(arg, bt), pfn(arg, bt)
         sync()
         err = rel(out_k, out_p)
         ms_k = cuda_ms(lambda: kfn(arg, bt), 50)
         ms_p = cuda_ms(lambda: pfn(arg, bt), 50)
+        ms_l = cuda_ms(lib, 50)  # one cuBLAS call on the masked dense table
         terms = bt.plan.B * bt.plan.LB if name == "wblur_banded" else bt.plan_t.KB
         flops = 2.0 * arg.shape[0] * out_k.shape[1] * terms
+        nbytes = 4.0 * (arg.numel() + table.numel() + starts.numel() + out_k.numel())
+        b_ms, b_by = bound(nbytes, flops)
         log(f"[kernel] {wmodel.channels[c_w].instr.name} {name}: [{arg.shape[0]} x {arg.shape[1]}] -> "
             f"[{out_k.shape[0]} x {out_k.shape[1]}], {terms} terms per output: max rel err {err:.3e} "
             f"(bound {tol_kernel:g}, f32 sums in another order); kernel {ms_k:.4f} ms "
             f"({flops / (ms_k * 1e-3) / 1e12:.2f} TFLOP/s of banded work), plain (cuBLAS on the "
-            f"masked table) "
-            f"{ms_p:.4f} ms")
+            f"masked table) {ms_p:.4f} ms, library torch.matmul on the masked table {ms_l:.4f} ms; "
+            f"bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; "
+            f"{100 * b_ms / ms_k:.1f} % of the kernel's time)")
         check(err <= tol_kernel, f"kernel vs plain {name}: {err:.3e} > {tol_kernel:g}")
-        bkern[name] = {"err": float((out_k - out_p).abs().max()), "ms": ms_k, "plain_ms": ms_p}
+        bkern[name] = {"err": float((out_k - out_p).abs().max()), "ms": ms_k, "plain_ms": ms_p,
+                       "library_ms": ms_l, "bound_ms": b_ms, "bound_by": b_by}
     del win, y2d
 
-    # 8. the W-plane path at full width ------------------------------------
+    # 9. the W-plane path at full width ------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
     cube = wmodel.mapsToCube(truth)
     t_lmm = cuda_ms(lambda: wmodel.mapsToCube(truth), 5)
@@ -406,7 +478,7 @@ def main(argv=None) -> int:
     del wmodel, wcrit, wres, wres2, wsetup, sotf, y_b, y_d, y_w, xr, yr
     torch.cuda.empty_cache()
 
-    # 9. small inputs against the CPU f64 operators -----------------------
+    # 10. small inputs against the CPU f64 operators -----------------------
     for mode, kw in (("rank", dict(im_size=41, n_lambda=120, n_tpl=2)),
                      ("wplane banded", dict(im_size=31, n_lambda=200, n_tpl=3, detector_oversample=4,
                                             window_local=False, wblur_impl="banded",
@@ -430,6 +502,9 @@ def main(argv=None) -> int:
         "max_abs_err": kern["err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": kern["library_ms"],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -439,9 +514,27 @@ def main(argv=None) -> int:
         "max_abs_err": bkern[name]["err"],
         "ms": bkern[name]["ms"],
         "plain_ms": bkern[name]["plain_ms"],
+        "bound_ms": bkern[name]["bound_ms"],
+        "bound_by": bkern[name]["bound_by"],
+        "library_ms": bkern[name]["library_ms"],
     } for name, replaces, launches in (
         ("wblur_banded", "surfh_tpu/core/wblur_pallas.py:102", wmain[1]),
-        ("wblur_banded_t", "surfh_tpu/core/wblur_pallas.py:227", wmain[2]))]}))
+        ("wblur_banded_t", "surfh_tpu/core/wblur_pallas.py:227", wmain[2]))] + [{
+        "name": f"gather_fixed_{k.lower()}",
+        "route": "cuda",
+        "source": "surfh_tpu_torch/csrc/gather_fixed.cu",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": pres["err_plain"][k],
+        "ms": pres["ms"][k],
+        "plain_ms": pres["plain_ms"][k],
+        "bound_ms": pres["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": pres["ms"]["library"],
+    } for k, replaces, launches in (
+        ("K1", "scripts/scatter_pallas_proto.py:113", proto_launches[0]),
+        ("K2", "scripts/scatter_pallas_proto.py:143", proto_launches[1]),
+        ("K3", "scripts/scatter_pallas_proto.py:185", proto_launches[2]))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .precision import require_cuda
+
 # ---------------------------------------------------------------------------
 # host tables (NumPy copies of surfh_tpu/core/fft.py:61-413)
 
@@ -283,12 +285,15 @@ def conv_otf_(cube: torch.Tensor, otf: torch.Tensor, conj: bool = False,
     return cube
 
 
-def ir2fr_device(imp_resp, shape: Tuple[int, int], device="cpu",
+def ir2fr_device(imp_resp, shape: Tuple[int, int], device=None,
                  dtype=torch.complex64, chunk: int = 128) -> torch.Tensor:
-    """:func:`ir2fr` of a stamp stack [L, sx, sy] on `device`: pad to
-    `shape`, roll the center to (0, 0), non-normalized rfft2 — computed in
-    float64, `chunk` planes at a time, then cast to `dtype` (so it matches
-    the host `ir2fr` to rounding)."""
+    """:func:`ir2fr` of a stamp stack [L, sx, sy] on `device` (None: the
+    card, or raise; pass "cpu" for the host): pad to `shape`, roll the
+    center to (0, 0), non-normalized rfft2 — computed in float64, `chunk`
+    planes at a time, then cast to `dtype` (so it matches the host `ir2fr`
+    to rounding)."""
+    if device is None:
+        device = require_cuda()
     imp = torch.as_tensor(np.asarray(imp_resp))
     n, sx, sy = imp.shape
     na, nb = int(shape[0]), int(shape[1])

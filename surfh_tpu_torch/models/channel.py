@@ -28,9 +28,6 @@ from math import ceil
 import numpy as np
 import torch
 
-from surfh_tpu.instrument.geometry import CoordList
-from surfh_tpu.instrument.ifu import IFU
-
 from ..core import bilinear, fft
 from ..core.gather_rows import (build_row_gather_plan, gather_rows, gather_rows_reference,
                                 plan_from_gather_table)
@@ -38,6 +35,8 @@ from ..core.wblur import wblur_rows, wblur_rows_t
 from ..core.wblur_banded import (BandPlan, BandPlanT, build_band_plan, build_band_plan_t,
                                  wblur_banded, wblur_banded_reference, wblur_banded_t,
                                  wblur_banded_t_reference)
+from ..instrument.geometry import CoordList
+from ..instrument.ifu import IFU
 from .slicer import Slicer
 
 

@@ -3,7 +3,7 @@
 NumPy copy of `surfh_tpu/models/slicer.py` (host-side tables only: the
 per-slit (α, β) window starts and fractional-pixel edge weights, with the
 reference's trimming fix-ups and edge-weight sharing rule).  Copied rather
-than imported because `surfh_tpu.models` pulls JAX in at package import.
+than imported: the port imports nothing of `surfh_tpu`.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ from typing import Tuple
 
 import numpy as np
 
-from surfh_tpu.instrument.geometry import LocalFOV
-from surfh_tpu.instrument.ifu import IFU
+from ..instrument.geometry import LocalFOV
+from ..instrument.ifu import IFU
 
 
 class Slicer:

@@ -40,12 +40,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from surfh_tpu.instrument.geometry import CoordList, get_srf
-from surfh_tpu.instrument.ifu import IFU
-
 from ..core import fft, lmm
 from ..core.wblur import rows_table
 from ..core.wblur_banded import banded_tables
+from ..instrument.geometry import CoordList, get_srf
+from ..instrument.ifu import IFU
 from .channel import Channel
 
 

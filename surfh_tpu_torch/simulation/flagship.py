@@ -7,9 +7,9 @@ samples), Gaussian PSF stamps [Nλ, 40, 40] and M = 4 smooth templates with
 random abundance maps.  Everything comes from the seed; nothing is loaded
 beyond the bundled MIRI calibration tables.  `build_sotf=True` builds the
 materialized OTF [Nλ, 501, 251] (complex64, ~3.9 GB) from the stamps on the
-given device (`fft.ir2fr_device`), for the materialized-OTF model.  Not
-ported: the reference's on-disk sotf cache and the diffraction PSF
-(`SURFH_SIM_PSF`).
+card, or on the device asked for (`fft.ir2fr_device`), for the
+materialized-OTF model.  Not ported: the reference's on-disk sotf cache and
+the diffraction PSF (`SURFH_SIM_PSF`).
 """
 
 from __future__ import annotations
@@ -19,10 +19,9 @@ from typing import List, Optional
 
 import numpy as np
 
-from surfh_tpu.instrument import miri, wavelength_mrs
-from surfh_tpu.instrument.geometry import CoordList
-
 from ..core.fft import ir2fr_device
+from ..instrument import miri, wavelength_mrs
+from ..instrument.geometry import CoordList
 from ..utils.psf import gaussian_psf
 
 FLAGSHIP_STEP_ARCSEC = 0.025
@@ -46,11 +45,12 @@ def make_flagship_setup(
     lambda_subsample: int = 3,
     seed: int = 19940407,
     build_sotf: bool = False,
-    device="cpu",
+    device=None,
 ):
     """Flagship-scale inputs, same keys and values as the reference's
     `make_flagship_setup`: host arrays, and with `build_sotf` the OTF as a
-    complex64 tensor on `device` (else `sotf` is None)."""
+    complex64 tensor on `device` (else `sotf` is None).  `device` None means
+    the card (raise without one); pass ``device="cpu"`` for the host."""
     if bands is None:
         bands = list(miri.BANDS)
     instrs = flagship_instruments(bands)
@@ -105,7 +105,10 @@ def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32,
     reference's `make_flagship_model`: conv_freq_rtol=1e-6,
     conv_rank_rtol=1e-7), or with ``window_local=False`` the
     materialized-OTF mode, which needs a setup built with
-    ``build_sotf=True``.  `channels` reuses another flagship model's."""
+    ``build_sotf=True``.  `channels` reuses another flagship model's.
+    Without a `setup`, one is built from `kwargs` (the OTF on the card
+    unless ``device="cpu"``); the model's tables stay on the host until
+    ``.to(device, dtype)``."""
     from ..models.spectro import SpectroSigRLSCT
 
     if setup is None:

@@ -7,11 +7,10 @@ from typing import Optional
 
 import numpy as np
 
-from surfh_tpu.instrument.geometry import FOV, Coord, CoordList
-from surfh_tpu.instrument.ifu import IFU
-from surfh_tpu.instrument.spectral import SpectralBlur
-
 from ..core.fft import ir2fr
+from ..instrument.geometry import FOV, Coord, CoordList
+from ..instrument.ifu import IFU
+from ..instrument.spectral import SpectralBlur
 from ..utils.psf import gaussian_psf
 
 GRATING_RESOLUTION = float(np.mean([2990, 3110]))

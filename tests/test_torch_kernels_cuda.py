@@ -149,3 +149,74 @@ def test_small_wplane_model_on_card_matches_cpu_f64():
     assert (gr.launches - before[0], wb.launches - before[1], wb.launches_t - before[2]) == (
         2 * n_pt, n_pt, n_pt)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def _fixed_case(rng, n_rows, n_src, max_per_row, tp, ld):
+    """Sorted COO taps, a third of the rows empty, some zero weights."""
+    from surfh_tpu_torch.core import gather_fixed as gf
+
+    live = np.sort(rng.choice(n_rows, size=2 * n_rows // 3, replace=False))
+    cdst = np.repeat(live, rng.integers(1, max_per_row + 1, live.size))
+    csrc = rng.integers(0, n_src, cdst.size)
+    cw = rng.standard_normal(cdst.size)
+    cw[rng.random(cdst.size) < 0.05] = 0.0
+    empty = np.bincount(cdst[cw != 0], minlength=n_rows) == 0
+    return gf.build_fixed_fanin_plan(csrc, cw, cdst, n_rows, n_src, tp, ld=ld), empty
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [52, 466, 181])  # float4, float2 and scalar paths
+@pytest.mark.parametrize("n_rows, tp, max_per_row", [(3001, 512, 7), (1022, 8, 8), (999, 4, 1)])
+def test_gather_fixed_kernels_match_plain(W, n_rows, tp, max_per_row):
+    from surfh_tpu_torch.core import gather_fixed as gf
+
+    dev = _cuda()
+    rng = np.random.default_rng(W + n_rows)
+    n_src = 700
+    plan, empty = _fixed_case(rng, n_rows, n_src, max_per_row, tp, W)
+    assert empty.any() and n_rows % 4 and plan.L <= gf.MAX_L
+    src = torch.as_tensor(rng.standard_normal((n_src, W)), dtype=torch.float32, device=dev)
+    p32, p64 = plan.to(dev, torch.float32), plan.to(dev, torch.float64)
+    for kernel, plain in ((gf.gather_fixed_k1, gf.gather_fixed_k1_reference),
+                          (gf.gather_fixed_k2, gf.gather_fixed_k2_reference),
+                          (gf.gather_fixed_k3, gf.gather_fixed_k3_reference)):
+        before = (gf.launches_k1, gf.launches_k2, gf.launches_k3)
+        got = kernel(src, p32)
+        torch.cuda.synchronize()
+        after = (gf.launches_k1, gf.launches_k2, gf.launches_k3)
+        assert sum(after) - sum(before) == 1
+        assert tuple(got.shape) == (n_rows, W)
+        # the same taps in the same order, f32 FMAs against separate mul/add
+        want32 = plain(src, p32)
+        assert float((got - want32).abs().max() / want32.abs().max()) <= 1e-6
+        want = plain(src.double(), p64)
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
+        assert not got[torch.as_tensor(empty, device=dev)].any()  # rows with no taps: zero
+
+
+@pytest.mark.cuda
+def test_gather_fixed_kernels_reject_what_they_do_not_take():
+    from surfh_tpu_torch.core import gather_fixed as gf
+
+    dev = _cuda()
+    rng = np.random.default_rng(10)
+    plan, _ = _fixed_case(rng, 40, 30, 4, 8, 8)
+    p32 = plan.to(dev, torch.float32)
+    for kernel in (gf.gather_fixed_k1, gf.gather_fixed_k2, gf.gather_fixed_k3):
+        with pytest.raises(TypeError):
+            kernel(torch.zeros((30, 8), dtype=torch.float64, device=dev), plan.to(dev, torch.float64))
+        with pytest.raises(ValueError):
+            kernel(torch.zeros((29, 8), device=dev), p32)
+        with pytest.raises(ValueError):
+            kernel(torch.zeros((8, 30), device=dev).T, p32)
+    with pytest.raises(ValueError, match="ld"):
+        gf.gather_fixed_k3(torch.zeros((30, 12), device=dev), p32)
+    wide, _ = _fixed_case(rng, 40, 30, gf.MAX_L + 3, 8, 8)
+    assert wide.L > gf.MAX_L
+    w32, src = wide.to(dev, torch.float32), torch.randn((30, 8), device=dev)
+    for kernel in (gf.gather_fixed_k1, gf.gather_fixed_k3):
+        with pytest.raises(ValueError, match="static L"):
+            kernel(src, w32)
+    # K2's tap loop is dynamic: any L
+    got, want = gf.gather_fixed_k2(src, w32), gf.gather_fixed_k2_reference(src, w32)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from surfh_tpu.core import wblur_pallas as wp
-from surfh_tpu.instrument.geometry import get_srf
 from surfh_tpu_torch.core import wblur_banded as wb
+from surfh_tpu_torch.instrument.geometry import get_srf
 from surfh_tpu_torch.models.channel import Channel
 from surfh_tpu_torch.simulation import flagship
 
