@@ -18,7 +18,10 @@ and the composed-transpose prototype entry point
                  parallel);
 4. kernel      — the row gather against its plain torch version and the
                  library's CSR SpMM on one flagship channel's real composed
-                 plans (error, times, byte bound);
+                 plans at the rank path's width (error, times, byte bound),
+                 then at the W-plane path's width Q = W on every band's
+                 pointing-0 gather and transpose, and once on base pointers
+                 one float into their storage;
 5. proto       — the prototype entry point as a user runs it (`run`: band
                  1c alone, one pointing, Q = W = 466) with K1–K3 launches
                  counted, then `run_proto` on every band's pointing-0
@@ -32,8 +35,9 @@ and the composed-transpose prototype entry point
 7. wplane-host — the OTF built on the card from the PSF stamps, the W-plane
                  model over the rank model's channels, the band plans;
 8. kernel      — both banded kernels against their plain versions and
-                 cuBLAS on the masked table on the largest band's real plans
-                 (error, times, flop bound);
+                 cuBLAS on the masked table on every band's real plans
+                 (error, times, flop bound, the forward's split and blocks),
+                 the forward twice on one input bit for bit;
 9. wplane      — the W-plane path: FFT stage and relayout costs, y, the
                  dense pair's dot test, the banded pair's mismatch, banded
                  against dense, kernels against plain versions, launches per
@@ -186,8 +190,8 @@ def main(argv=None) -> int:
         ms_k = cuda_ms(lambda: gr.gather_rows_cuda(src, plan), 50)
         ms_p = cuda_ms(lambda: gr.gather_rows_reference(src, plan), 50)
         ms_l = cuda_ms(lambda: torch.sparse.mm(spm, src), 50)
-        moved = plan.nnz * (8 + 4 * q) + plan.n_rows * 4 * (q + 1)
-        b_ms, _ = bound(proto.gather_bytes(plan.n_rows, plan.n_src, q, plan.nnz))
+        moved = plan.nnz * (8 + 4 * q) + plan.n_rows * 4 * (q + 1)  # every tap's row, not the least
+        b_ms, _ = bound(proto.gather_bytes(plan.n_rows, np.unique(tb[name][0].idx).size, q, plan.nnz))
         log(f"[kernel] {model.channels[c_big].instr.name} {name}: rows {plan.n_rows} x Q {q}, "
             f"nnz {plan.nnz}: max rel err {err:.3e} (bound {tol_kernel:g}, f32 sums in another "
             f"order); kernel {ms_k:.4f} ms, "
@@ -201,6 +205,45 @@ def main(argv=None) -> int:
         kern["plain_ms"] += ms_p
         kern["library_ms"] += ms_l
         kern["bound_ms"] += b_ms
+
+    # the W-plane path's shapes: every band's pointing-0 gather and transpose at Q = W
+    log(f"[kernel] {card}: gather_rows at Q = W, pointing 0 of every band (ms; share = byte bound / kernel)")
+    for chan, tc in zip(model.channels, host["chan"]):
+        w_q = chan.n_wslice
+        for name in ("gather_fwd", "gather_t"):
+            plan = tc[name][0].to(dev, torch.float32)
+            spm = proto.library_csr(tc[name][0], dev)
+            src = torch.rand((plan.n_src, w_q), generator=gen, device=dev)
+            out_k, out_p = gr.gather_rows_cuda(src, plan), gr.gather_rows_reference(src, plan)
+            sync()
+            err = rel(out_k, out_p)
+            del out_k, out_p
+            ms_k = cuda_ms(lambda: gr.gather_rows_cuda(src, plan), 50)
+            ms_p = cuda_ms(lambda: gr.gather_rows_reference(src, plan), 10)
+            ms_l = cuda_ms(lambda: torch.sparse.mm(spm, src), 50)
+            n_read = np.unique(tc[name][0].idx).size  # the source rows the taps name
+            b_ms, _ = bound(proto.gather_bytes(plan.n_rows, n_read, w_q, plan.nnz))
+            log(f"[kernel]   {chan.instr.name} {name}: rows {plan.n_rows} x Q {w_q}, n_src {plan.n_src}, "
+                f"({n_read} read), nnz {plan.nnz}, launch shape (vec, cols, taps, group) "
+                f"{gr.gather_launch_shape(w_q, True, plan.nnz / plan.n_rows)}: max rel "
+                f"err {err:.3e}; kernel {ms_k:.4f}, plain {ms_p:.4f}, torch.sparse.mm {ms_l:.4f}, byte "
+                f"bound {b_ms:.4f} ({100 * b_ms / ms_k:.1f} %)")
+            check(err <= tol_kernel, f"kernel vs plain {chan.instr.name} {name} at Q = W: {err:.3e}")
+    # base pointers one float into their storage: no 16-byte alignment to lean on
+    plan = tb["gather_t"][0].to(dev, torch.float32)
+    w_q = 4 * (model.channels[c_big].n_wslice // 4)
+    src = torch.rand(plan.n_src * w_q + 1, generator=gen, device=dev)[1:].view(plan.n_src, w_q)
+    check(src.data_ptr() % 16 == 4 and src.is_contiguous(), "misaligned source view")
+    err = rel(gr.gather_rows_cuda(src, plan), gr.gather_rows_reference(src, plan))
+    ms_k = cuda_ms(lambda: gr.gather_rows_cuda(src, plan), 50)
+    src_a = src.clone()  # the same rows from an aligned base: float4 columns
+    ms_a = cuda_ms(lambda: gr.gather_rows_cuda(src_a, plan), 50)
+    log(f"[kernel] {model.channels[c_big].instr.name} gather_t at Q = {w_q} from a base one float into "
+        f"its storage, launch shape {gr.gather_launch_shape(w_q, False, plan.nnz / plan.n_rows)}: max rel err "
+        f"{err:.3e}; kernel {ms_k:.4f} ms (from an aligned base, "
+        f"{gr.gather_launch_shape(w_q, True, plan.nnz / plan.n_rows)}: {ms_a:.4f} ms)")
+    check(err <= tol_kernel, f"kernel vs plain on a misaligned base: {err:.3e}")
+    del src, src_a, plan, spm
 
     # 5. the prototype entry point as a user runs it, counted; every band ---
     # its defaults: band 1c alone, one pointing, 501², Q = W = 466 (float2)
@@ -339,41 +382,49 @@ def main(argv=None) -> int:
             f"LB={p.LB} (density {p.density:.3f}, {p.n_tiles} tiles, kept mass {kept:.6f}) "
             f"KB={q.KB} TL={q.TL} ({q.n_tiles} tiles, kept mass {kept_t:.6f})")
 
-    # 8. both banded kernels against their plain versions ------------------
+    # 8. both banded kernels against their plain versions, every band ------
     wt = wmodel.tables["chan"]
     c_w = max(range(len(wt)), key=lambda c: wt[c]["band"].plan.K * wt[c]["band"].plan.LB
               * wt[c]["band"].plan.B * wmodel.channels[c].oshape[1] * wmodel.channels[c].oshape[3])
-    bt = wt[c_w]["band"]
-    _, S_, K_, A_ = wmodel.channels[c_w].oshape
-    win = torch.rand((S_ * A_, bt.plan.B * bt.plan.W), generator=gen, device=dev)
-    y2d = torch.rand((S_ * A_, K_), generator=gen, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     bkern = {}
-    for name, kfn, pfn, arg, table, starts, lib in (
-            ("wblur_banded", wb.wblur_banded_cuda, wb.wblur_banded_reference, win, bt.blocks,
-             bt.starts, lambda: torch.matmul(win, bt.rows.T)),
-            ("wblur_banded_t", wb.wblur_banded_t_cuda, wb.wblur_banded_t_reference, y2d,
-             bt.blocks_t, bt.starts_t, lambda: torch.matmul(y2d, bt.rows_t))):
-        out_k, out_p = kfn(arg, bt), pfn(arg, bt)
-        sync()
-        err = rel(out_k, out_p)
-        ms_k = cuda_ms(lambda: kfn(arg, bt), 50)
-        ms_p = cuda_ms(lambda: pfn(arg, bt), 50)
-        ms_l = cuda_ms(lib, 50)  # one cuBLAS call on the masked dense table
-        terms = bt.plan.B * bt.plan.LB if name == "wblur_banded" else bt.plan_t.KB
-        flops = 2.0 * arg.shape[0] * out_k.shape[1] * terms
-        nbytes = 4.0 * (arg.numel() + table.numel() + starts.numel() + out_k.numel())
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"[kernel] {wmodel.channels[c_w].instr.name} {name}: [{arg.shape[0]} x {arg.shape[1]}] -> "
-            f"[{out_k.shape[0]} x {out_k.shape[1]}], {terms} terms per output: max rel err {err:.3e} "
-            f"(bound {tol_kernel:g}, f32 sums in another order); kernel {ms_k:.4f} ms "
-            f"({flops / (ms_k * 1e-3) / 1e12:.2f} TFLOP/s of banded work), plain (cuBLAS on the "
-            f"masked table) {ms_p:.4f} ms, library torch.matmul on the masked table {ms_l:.4f} ms; "
-            f"bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; "
-            f"{100 * b_ms / ms_k:.1f} % of the kernel's time)")
-        check(err <= tol_kernel, f"kernel vs plain {name}: {err:.3e} > {tol_kernel:g}")
-        bkern[name] = {"err": float((out_k - out_p).abs().max()), "ms": ms_k, "plain_ms": ms_p,
-                       "library_ms": ms_l, "bound_ms": b_ms, "bound_by": b_by}
-    del win, y2d
+    for c, chan in enumerate(wmodel.channels):
+        bt = wt[c]["band"]
+        _, S_, K_, A_ = chan.oshape
+        win = torch.rand((S_ * A_, bt.plan.B * bt.plan.W), generator=gen, device=dev)
+        y2d = torch.rand((S_ * A_, K_), generator=gen, device=dev)
+        shape = wb.forward_launch_shape(S_ * A_, bt.plan, n_sm)
+        for name, kfn, pfn, arg, table, starts, lib in (
+                ("wblur_banded", wb.wblur_banded_cuda, wb.wblur_banded_reference, win, bt.blocks,
+                 bt.starts, lambda: torch.matmul(win, bt.rows.T)),
+                ("wblur_banded_t", wb.wblur_banded_t_cuda, wb.wblur_banded_t_reference, y2d,
+                 bt.blocks_t, bt.starts_t, lambda: torch.matmul(y2d, bt.rows_t))):
+            out_k, out_p = kfn(arg, bt), pfn(arg, bt)
+            same = torch.equal(out_k, kfn(arg, bt))
+            sync()
+            err = rel(out_k, out_p)
+            ms_k = cuda_ms(lambda: kfn(arg, bt), 50)
+            ms_p = cuda_ms(lambda: pfn(arg, bt), 50)
+            ms_l = cuda_ms(lib, 50)  # one cuBLAS call on the masked dense table
+            terms = bt.plan.B * bt.plan.LB if name == "wblur_banded" else bt.plan_t.KB
+            flops = 2.0 * arg.shape[0] * out_k.shape[1] * terms
+            nbytes = 4.0 * (arg.numel() + table.numel() + starts.numel() + out_k.numel())
+            b_ms, b_by = bound(nbytes, flops)
+            cut = (f"split {shape.split} of B = {bt.plan.B}, {shape.blocks} blocks on {n_sm} SMs, "
+                   f"{shape.scratch * 4 / 1e6:.2f} MB of partial sums; " if name == "wblur_banded" else "")
+            log(f"[kernel] {chan.instr.name} {name}: [{arg.shape[0]} x {arg.shape[1]}] -> "
+                f"[{out_k.shape[0]} x {out_k.shape[1]}], {terms} terms per output: {cut}max rel err {err:.3e} "
+                f"(bound {tol_kernel:g}, f32 sums in another order), repeat bit-identical {same}; kernel "
+                f"{ms_k:.4f} ms ({flops / (ms_k * 1e-3) / 1e12:.2f} TFLOP/s of banded work), plain (cuBLAS "
+                f"on the masked table) {ms_p:.4f} ms, library torch.matmul on the masked table {ms_l:.4f} ms; "
+                f"bound {b_ms:.4f} ms by {b_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; "
+                f"{100 * b_ms / ms_k:.1f} % of the kernel's time)")
+            check(err <= tol_kernel, f"kernel vs plain {chan.instr.name} {name}: {err:.3e} > {tol_kernel:g}")
+            check(same, f"{chan.instr.name} {name}: two launches on one input differ")
+            if c == c_w:
+                bkern[name] = {"err": float((out_k - out_p).abs().max()), "ms": ms_k, "plain_ms": ms_p,
+                               "library_ms": ms_l, "bound_ms": b_ms, "bound_by": b_by}
+        del win, y2d, out_k, out_p
 
     # 9. the W-plane path at full width ------------------------------------
     torch.cuda.reset_peak_memory_stats(dev)
@@ -433,7 +484,8 @@ def main(argv=None) -> int:
     per_app = (gr.launches, wb.launches, wb.launches_t)
     log(f"[wplane] launches per normal application: gather_rows {per_app[0]}, wblur_banded "
         f"{per_app[1]}, wblur_banded_t {per_app[2]} (expected {2 * n_pt}, {n_pt}, {n_pt}: one per "
-        f"band and pointing and direction)")
+        f"band and pointing and direction); the forward's add-the-parts pass, counted apart: "
+        f"{wb.launches_sum}")
     check(per_app == (2 * n_pt, n_pt, n_pt), "W-plane launches per normal application")
 
     vox = float(np.prod(wmodel.cube_shape))
@@ -462,7 +514,8 @@ def main(argv=None) -> int:
     expect_w = (2 * n_pt + 2 * n_pt * n_app, n_pt * (1 + n_app), n_pt * (1 + n_app))
     wgn = wres.grad_norm
     log(f"[wplane] main path (y, b, {wres.n_iter} lcg it, mu_reg={mu_reg:g}) in {t_wmain:.3f} s; "
-        f"launches gather_rows / wblur_banded / wblur_banded_t {wmain} (expected {expect_w}); "
+        f"launches gather_rows / wblur_banded / wblur_banded_t {wmain} (expected {expect_w}; "
+        f"add-the-parts passes {wb.launches_sum}); "
         f"grad norms {wgn.tolist()}")
     check(wmain == expect_w and min(wmain) > 0, "W-plane main-path launches")
     check(bool(torch.isfinite(wcrit.b).all()) and bool(torch.isfinite(wres.x).all()), "W-plane b, x finite")

@@ -15,9 +15,10 @@ mode with that spectral blur (OTF built on the card, wblur_band_rtol=1e-4)
   graph, its replay time and its difference from the eager result, then
   the SM clock and power draw as nvidia-smi reads them;
 * five applications under torch.profiler: device time by kernel class
-  (GEMM, FFT, this repo's kernels, elementwise, reduction, copy), the top
-  kernels, the launch count, and the busy share of the profiled window
-  (union of kernel intervals over the first-to-last-kernel span).
+  (GEMM, FFT, this repo's kernels, elementwise, reduction, copy), this
+  repo's kernels one by one, the top kernels, the launch count, and the
+  busy share of the profiled window (union of kernel intervals over the
+  first-to-last-kernel span).
 
 Needs a CUDA device; imports no JAX.
 """
@@ -183,6 +184,10 @@ def main(argv=None) -> int:
           f"first-to-last-kernel window ({window / REPS / 1e3:.3f} ms/app)")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {cls:32s} {us / REPS / 1e3:8.3f} ms/app  {us / total:6.1%}")
+    print("this repo's kernels:")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        if "this repo" in kernel_class(name):
+            print(f"  {us / REPS / 1e3:8.3f} ms/app  {n // REPS:5d}/app  {name[:110]}")
     print("top kernels:")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {us / REPS / 1e3:8.3f} ms/app  {n // REPS:5d}/app  {name[:110]}")

@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -42,6 +43,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: the unit of the device-side wait in event_ms
 EVENT_WARMUP, EVENT_REPS = 2, 50  # untimed and timed launches per CUDA-event time
 PLAIN_REPS = 20  # timed applications of a plain version
 
@@ -64,20 +66,28 @@ def library_csr(plan, device):
 
 def gather_bytes(n_rows: int, n_src: int, q: int, nnz: int) -> float:
     """The least bytes of a row gather: the output [n_rows, q] written once,
-    the source [n_src, q] read once, the nnz CSR taps (index and weight)
-    and the row pointers read once, f32 / int32."""
+    the `n_src` source rows that the taps name read once, the nnz CSR taps
+    (index and weight) and the row pointers read once, f32 / int32."""
     return 4.0 * (n_rows * q + n_src * q + 2 * nnz + n_rows + 1)
 
 
 def event_ms(fn, reps: int, warmup: int = EVENT_WARMUP) -> float:
     """Mean device ms per call of `fn`, CUDA events around `reps` calls
-    after `warmup` untimed ones."""
+    after `warmup` untimed ones.  The timed calls are enqueued behind a
+    device-side wait twice as long as the host needs to enqueue them (as
+    the warm-up calls took), so the device finds them queued and runs them
+    back to back: a kernel shorter than its launch on a busy host is timed
+    as the kernel, not as the host."""
     import torch
 
+    enqueue = float("inf")
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
+        enqueue = min(enqueue, time.perf_counter() - t0)
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * enqueue * reps, 0.1) * SM_CYCLES_PER_S))
     e0.record()
     for _ in range(reps):
         fn()
@@ -175,7 +185,7 @@ def run_proto(chan, device, tp: int = 512, chain: int = 10, reps: int = 3, band:
     del got
     out["ms"] = {name: event_ms(lambda: fns[name](rows), EVENT_REPS)
                  for name in ("K1", "K2", "K3", "CSR", "library")}
-    nbytes = gather_bytes(P, n_out, W, csr.nnz)
+    nbytes = gather_bytes(P, np.unique(csr.idx).size, W, csr.nnz)
     out["bound_mb"], out["bound_ms"] = nbytes / 1e6, nbytes / HBM_BYTES_PER_S * 1e3
     labels = {"A": "A  column scatter (plain torch)", "K1": "K1 CUDA static-L",
               "K2": "K2 CUDA dynamic count", "K3": "K3 CUDA 4-row unroll",

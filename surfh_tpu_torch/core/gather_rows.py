@@ -13,6 +13,8 @@ contiguous: ``src [n_src, Q]`` → ``out [n_rows, Q]``.
 * `gather_rows_reference` — the plain torch version (gather + index_add_).
 * `gather_rows_cuda` — the hand-written kernel (``csrc/gather_rows.cu``),
   built with nvcc at first use; counts its launches in `launches`.
+  `gather_launch_shape` picks the kernel (narrow rows: a lane per column;
+  wide rows: a group of lanes per row) and its shape from Q and the plan.
 * `gather_rows` — the dispatch: a CPU tensor takes the plain version, a
   CUDA tensor launches the kernel or raises.  Never a fallback.
 """
@@ -32,6 +34,48 @@ launches = 0  # kernel launches since the last reset_launches()
 def reset_launches() -> None:
     global launches
     launches = 0
+
+
+# the wide-row kernel's instances (csrc/gather_rows.cu): floats of a row that
+# one lane holds -> taps it loads before their FMAs, for rows of few taps;
+# rows of many taps take _MANY_TAPS_SHAPE
+_LANE_FLOATS = {8: 2, 16: 1, 24: 1}
+_MANY_TAPS = 4.0  # taps per row from which taps in flight matter more than a row in one chunk
+_MANY_TAPS_SHAPE = (4, 4)
+_NARROW_TAPS = 4  # the narrow kernel's taps in flight
+
+
+def gather_launch_shape(q: int, aligned: bool = True, taps_per_row: float = 1.0) -> tuple:
+    """(vec, cols, taps, group) of a launch at row width `q`.
+
+    vec: float4 columns (4) where `q` is a multiple of 4 and both base
+    pointers are 16-byte `aligned`, else single floats (1).  Rows of at
+    most 32 columns (the rank path's Q = 4R) go to the narrow kernel: a lane
+    per column, group = q / vec, whole rows packed densely into warps.
+    Wider rows (the W-plane path's Q = W) are owned by a group of lanes, the
+    power of two ≤ 32 that covers the row.  cols is what one lane holds, 8,
+    16 or 24 floats — the least with which 32 lanes cover the row in one
+    chunk (the most for rows wider than 768), so that a row's fixed chain
+    of loads is paid once — and taps how many taps it loads at a time.
+    Wide rows of many taps (the forward gathers: few rows, `taps_per_row`
+    ≥ 4) take 4 floats and 4 taps, in chunks of 128 floats: they need taps
+    and warps in flight more."""
+    if q < 1:
+        raise ValueError(f"row width {q} < 1")
+    vec = 4 if q % 4 == 0 and aligned else 1
+    nvec = q // vec
+    if nvec <= 32:
+        return vec, 1, _NARROW_TAPS, nvec
+    if taps_per_row >= _MANY_TAPS:
+        floats, taps = _MANY_TAPS_SHAPE
+    else:
+        floats = next((f for f in _LANE_FLOATS if f // vec * 32 >= nvec), max(_LANE_FLOATS))
+        taps = _LANE_FLOATS[floats]
+    cols = floats // vec
+    group = 1
+    while group < min(-(-nvec // cols), 32):
+        group *= 2
+    return vec, cols, taps, group
 
 
 @dataclass(frozen=True)
@@ -108,7 +152,7 @@ def load_kernel():
 
         lib = build_library("gather_rows", ["gather_rows.cu"])
         fn = lib.surfh_gather_rows_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -130,17 +174,24 @@ def gather_rows_cuda(src: torch.Tensor, plan: RowGatherPlan) -> torch.Tensor:
             raise ValueError(f"plan.{name} must be contiguous on {src.device}")
     if plan.row_ptr.dtype != torch.int32 or plan.idx.dtype != torch.int32:
         raise TypeError("plan indices must be int32")
-    fn = load_kernel()
     out = torch.empty((plan.n_rows, src.shape[1]), device=src.device, dtype=torch.float32)
+    aligned = src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    _launch(src, plan, out,
+            *gather_launch_shape(int(src.shape[1]), aligned, plan.nnz / max(plan.n_rows, 1)))
+    return out
+
+
+def _launch(src, plan, out, vec: int, cols: int, taps: int, group: int) -> None:
+    """Launch the kernel on checked operands in the shape `gather_launch_shape` gives."""
+    fn = load_kernel()
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(src.data_ptr(), plan.row_ptr.data_ptr(), plan.idx.data_ptr(),
-                 plan.w.data_ptr(), out.data_ptr(), plan.n_rows, int(src.shape[1]), stream)
+        err = fn(src.data_ptr(), plan.row_ptr.data_ptr(), plan.idx.data_ptr(), plan.w.data_ptr(),
+                 out.data_ptr(), plan.n_rows, int(src.shape[1]), vec, cols, taps, group, stream)
     if err != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: cudaError {err}")
     global launches
     launches += 1
-    return out
 
 
 def gather_rows(src: torch.Tensor, plan: RowGatherPlan) -> torch.Tensor:

@@ -29,7 +29,12 @@ row gather leaves them (β-major, then λ), detector rows ``[S·A, K]``.
   versions: one matmul against the masked table.
 * `wblur_banded_cuda` / `wblur_banded_t_cuda` — the hand-written kernels
   (``csrc/wblur_banded.cu``), built with nvcc at first use; each counts its
-  launches in `launches` / `launches_t`.
+  launches in `launches` / `launches_t`.  The forward cuts its contraction
+  into `forward_launch_shape(...).split` parts over the β runs so that
+  every band fills the card; the parts are added in a fixed order by a
+  second small kernel (counted in `launches_sum`), never with atomics.
+* `wblur_banded_by_runs` — the forward spelled run by run in plain torch,
+  in the order the kernel sums: what "the sums repeat bit for bit" means.
 * `wblur_banded` / `wblur_banded_t` — the dispatch: a CPU tensor takes the
   plain version, a CUDA tensor launches the kernel or raises.  Never a
   fallback.
@@ -38,6 +43,7 @@ row gather leaves them (β-major, then λ), detector rows ``[S·A, K]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -47,12 +53,23 @@ import torch
 from .wblur import rows_table
 
 launches = 0  # forward kernel launches since the last reset_launches()
+launches_sum = 0  # launches of the forward's add-the-parts kernel (split > 1)
 launches_t = 0  # transpose kernel launches since the last reset_launches()
+
+# the forward kernel's tile (csrc/wblur_banded.cu: kFBM, kFBN, kFBK)
+FWD_BM, FWD_BN, FWD_BK = 64, 128, 8
+FWD_MAX_SPLIT = 16
+H100_SMS = 132
+# the split's cost model, in contraction steps of FWD_BK terms (forward_launch_shape)
+FWD_BLOCK_COST = 16  # a block's fixed cost
+FWD_PART_COST = 2  # the second pass, per part
+FWD_SHARED_RATE = (1.0, 1.0, 1.2)  # throughput of 1, 2, 3 blocks sharing an SM, one alone = 1
 
 
 def reset_launches() -> None:
-    global launches, launches_t
+    global launches, launches_sum, launches_t
     launches = 0
+    launches_sum = 0
     launches_t = 0
 
 
@@ -248,6 +265,89 @@ def wblur_banded_t_reference(y2d: torch.Tensor, bt: BandedTables) -> torch.Tenso
     return y2d @ bt.rows_t
 
 
+def wblur_banded_by_runs(win: torch.Tensor, bt: BandedTables, split: int) -> torch.Tensor:
+    """The forward in the forward kernel's order of summation: per λ'-tile
+    one product per β run (LB window columns from ``b·W + starts[t]``
+    against rows ``b·LB ...`` of the tile's block), the runs of a part added
+    in order, the `split` parts added in order.  Any device, any dtype."""
+    p = bt.plan
+    starts = [int(s) for s in p.starts]
+    out = None
+    for run0, run1 in forward_runs(p.B, split):
+        part = win.new_zeros((win.shape[0], p.n_tiles * p.TK))
+        for t, s in enumerate(starts):
+            acc = part[:, t * p.TK:(t + 1) * p.TK]
+            for b in range(run0, run1):
+                acc += win[:, b * p.W + s:b * p.W + s + p.LB] @ bt.blocks[t, b * p.LB:(b + 1) * p.LB]
+        out = part if out is None else out + part
+    return out[:, :p.K]
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's launch shape
+
+
+def forward_runs(b: int, split: int) -> tuple:
+    """The β runs [run0, run1) of each of the `split` parts: 0..B−1 once, in
+    order, sizes differing by at most one (the kernel computes the same)."""
+    if not 1 <= split <= b:
+        raise ValueError(f"split {split} is not in 1..B={b}")
+    return tuple((z * b // split, (z + 1) * b // split) for z in range(split))
+
+
+@dataclass(frozen=True)
+class ForwardShape:
+    """How one forward launch is cut: grid (row tiles of 64, λ'-tiles ×
+    column blocks of 128, split) and the scratch floats it needs."""
+
+    split: int
+    grid: tuple
+    runs: tuple
+    scratch: int  # floats of the [split, M, K] partial sums; 0 when split = 1
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def forward_shape(m: int, plan: BandPlan, split: int) -> ForwardShape:
+    """The launch of `m` rows with the contraction cut into `split` parts."""
+    grid = (-(-m // FWD_BM), plan.n_tiles * -(-plan.TK // FWD_BN), split)
+    return ForwardShape(split, grid, forward_runs(plan.B, split),
+                        split * m * plan.K if split > 1 else 0)
+
+
+def forward_launch_shape(m: int, plan: BandPlan, n_sm: int = H100_SMS) -> ForwardShape:
+    """Pick the split of the contraction over the B runs for `m` rows.
+
+    Unsplit, a band gives ⌈M/64⌉ · nT blocks (30–77 on the flagship) for
+    `n_sm` SMs, each block summing all B·LB terms.  Among the splits that
+    give at least `n_sm` blocks (all splits, if none does) take the one with
+    the least estimated time, in contraction steps: the blocks the busiest
+    SM gets, n = ⌈blocks / n_sm⌉, times the steps of the longest part plus
+    a fixed cost per block (pipeline fill, the store), over the throughput
+    n blocks sharing an SM reach relative to one alone, plus the second
+    pass's cost per part; ties go to the smaller split.  The constants are
+    fitted to `scripts/torch_kernel_sweep.py` on the H100: over the
+    flagship's bands the pick is 3 % above the best split's time on
+    average, 15 % at most."""
+    base = -(-m // FWD_BM) * plan.n_tiles * -(-plan.TK // FWD_BN)
+    return forward_shape(m, plan, _pick_split(base, plan.B, -(-plan.LB // FWD_BK), n_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _pick_split(base: int, b: int, steps: int, n_sm: int) -> int:
+    cands = range(1, min(b, FWD_MAX_SPLIT) + 1)
+    full = [s for s in cands if base * s >= n_sm]
+
+    def cost(s):
+        n = -(-base * s // n_sm)
+        rate = FWD_SHARED_RATE[min(n, len(FWD_SHARED_RATE)) - 1]
+        return n * (-(-b // s) * steps + FWD_BLOCK_COST) / rate + FWD_PART_COST * s * (s > 1), s
+
+    return min(full or cands, key=cost)
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 
@@ -262,9 +362,10 @@ def load_kernels():
 
         lib = build_library("wblur_banded", ["wblur_banded.cu"])
         fns = []
-        for name in ("surfh_wblur_banded_f32", "surfh_wblur_banded_t_f32"):
+        for name, n_ptr, n_int in (("surfh_wblur_banded_f32", 5, 8),
+                                   ("surfh_wblur_banded_t_f32", 4, 7)):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fns.append(fn)
         _fns = tuple(fns)
@@ -296,17 +397,35 @@ def _launch(fn, args, device) -> None:
         raise RuntimeError(f"wblur_banded kernel launch failed: cudaError {err}")
 
 
-def wblur_banded_cuda(win: torch.Tensor, bt: BandedTables) -> torch.Tensor:
-    """The forward kernel: f32 win [S·A, B·W] → [S·A, K] on the current stream."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _forward_launch(win: torch.Tensor, bt: BandedTables, shape: ForwardShape) -> torch.Tensor:
+    """Launch the forward kernel cut as `shape` says (and, for split > 1,
+    the kernel that adds the parts)."""
     p = bt.plan
     _check(win, p.B * p.W, bt, "wblur_banded kernel")
-    out = torch.empty((win.shape[0], p.K), device=win.device, dtype=torch.float32)
+    if p.TK % 4:
+        raise ValueError(f"wblur_banded kernel needs a λ' tile that is a multiple of 4 (got {p.TK})")
+    m = int(win.shape[0])
+    out = torch.empty((m, p.K), device=win.device, dtype=torch.float32)
+    parts = torch.empty(shape.scratch, device=win.device, dtype=torch.float32)
     _launch(load_kernels()[0],
             (win.data_ptr(), bt.blocks.data_ptr(), bt.starts.data_ptr(), out.data_ptr(),
-             int(win.shape[0]), p.W, p.B, p.K, p.n_tiles, p.LB, p.TK), win.device)
-    global launches
+             parts.data_ptr() if shape.split > 1 else None,
+             m, p.W, p.B, p.K, p.n_tiles, p.LB, p.TK, shape.split), win.device)
+    global launches, launches_sum
     launches += 1
+    launches_sum += shape.split > 1
     return out
+
+
+def wblur_banded_cuda(win: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """The forward kernel: f32 win [S·A, B·W] → [S·A, K] on the current stream."""
+    return _forward_launch(win, bt, forward_launch_shape(int(win.shape[0]), bt.plan,
+                                                         _sm_count(win.device)))
 
 
 def wblur_banded_t_cuda(y2d: torch.Tensor, bt: BandedTables) -> torch.Tensor:

@@ -19,20 +19,45 @@
 //
 // What bounds it on Hopper: device-memory (and L2) bytes, not arithmetic.
 // Each tap costs one 4-byte index, one 4-byte weight and one Q-float source
-// row read, for 2*Q flops: about 0.5 flop per byte.  The design spends its
-// effort on the bytes:
-//   * one thread per (row, 4-float slice): the nvec = Q/4 threads of a row
-//     read one source row as a single coalesced run of 16-byte float4 loads
-//     (scalar loads when Q % 4 != 0 or a base pointer is not 16-byte
-//     aligned; the flagship's Q = 4*R always takes the float4 path);
-//   * the threads of a row read the same index and weight, which the L1
-//     broadcasts, so tap tables cost about one transaction per row and tap;
-//   * taps are loaded four at a time before their FMAs, so four source-row
-//     reads are in flight per thread;
+// row read, for 2*Q flops: about 0.5 flop per byte; the W-plane transposes
+// have about one tap per row, so their work is writing the output once.
+// Two kernels, by row width.  gather_rows_narrow_kernel, for rows of a few
+// slices (the rank path's Q = 4R = 24-40: 6-10 float4), gives one thread one
+// 16-byte (or 4-byte) slice of a row; the thread loads the row pointers and
+// every index and weight of the row for its slice.  Its block is
+// two-dimensional (x = slice, y = row), and the hardware numbers threads
+// slice-first: a warp holds whole consecutive rows and writes one dense run,
+// and no index is divided.  On wide rows (the W-plane path's Q = W =
+// 241-613) that shape is bound by instructions, not bytes, and Q mod 4
+// decides its time (on the H100, 19-22 % of the byte bound at odd Q against
+// 70 % on float4).  gather_rows_kernel spends instructions once per row
+// there and keeps many bytes in flight per lane:
+//   * a group of G lanes (a power of two <= 32, picked by the wrapper from
+//     Q) owns one output row, 32 / G rows to a warp; the row comes from the
+//     block, warp and lane index, no division.  (The kernel takes any
+//     G <= 32; other widths measured slower on the H100.);
+//   * a lane holds 8, 16 or 24 floats of the row in registers and loads all
+//     of them for one tap (two at 8 floats) before their FMAs: 64-96 bytes
+//     in flight per lane, four or five blocks of 256 threads per SM.
+//     The wrapper picks the least width with which 32 lanes cover the row
+//     in one chunk (Q <= 256, 512, 768; wider rows are cut into chunks over
+//     blockIdx.x): the transposes have 0-7 taps per row and half their rows
+//     empty, so what counts is that a row's fixed chain (row pointers, taps,
+//     source, store) is paid once.  Rows of many taps (the forward gathers:
+//     a few thousand rows of 17-23 taps) take 4 floats a lane and four taps
+//     in flight instead, in chunks of 128 floats: taps and warps in flight
+//     matter more there;
+//   * the group's lanes load G taps of the row at a time, one index and one
+//     weight each (coalesced), and hand them round with __shfl_sync; rows
+//     with more than G taps loop over chunks of taps, rows with none write
+//     zeros;
+//   * lanes sweep the columns in coalesced steps (lane, lane + G, ...), so
+//     4-byte loads and stores reach memory as whole 128-byte lines at any Q
+//     and any base alignment.  Where Q is a multiple of 4 and both bases are
+//     16-byte aligned the same kernel runs on float4 columns;
 //   * the source (the rank-basis patch or the slit-window values, a few MB
 //     per pointing) stays resident in the 50 MB L2 across a launch, so the
 //     C-fold reuse of each source row is served from L2, not HBM.
-// A simple first design; not measured against the bandwidth roofline yet.
 
 #include <cuda_runtime.h>
 
@@ -60,64 +85,182 @@ template <>
 __device__ __forceinline__ float zero_of<float>() { return 0.f; }
 
 constexpr int kThreads = 256;
-constexpr int kTapBatch = 4;
 
-// V = float4 (Q % 4 == 0) or float.  nvec = Q / (sizeof(V) / 4).
+// Narrow rows: nvec <= 32 columns of V per row, one thread per (row, column),
+// block (nvec, kThreads / nvec).  The threads of a row read the same index
+// and weight, which the L1 broadcasts; taps are loaded four at a time before
+// their FMAs.
 template <typename V>
-__global__ void __launch_bounds__(kThreads) gather_rows_kernel(
+__global__ void __launch_bounds__(kThreads) gather_rows_narrow_kernel(
     const float* __restrict__ src, const int* __restrict__ row_ptr,
     const int* __restrict__ idx, const float* __restrict__ w,
     float* __restrict__ out, int n_rows, int nvec) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long r = t / nvec;
+  constexpr int kTaps = 4;
+  const long long r = static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (r >= n_rows) return;
-  const int v = static_cast<int>(t - r * nvec);
-  const V* __restrict__ s = reinterpret_cast<const V*>(src) + v;
+  const V* __restrict__ s = reinterpret_cast<const V*>(src) + threadIdx.x;
   const int k1 = __ldg(row_ptr + r + 1);
   int k = __ldg(row_ptr + r);
   V acc = zero_of<V>();
-  for (; k + kTapBatch <= k1; k += kTapBatch) {
-    int i[kTapBatch];
-    float wk[kTapBatch];
-    V x[kTapBatch];
+  for (; k + kTaps <= k1; k += kTaps) {
+    int i[kTaps];
+    float wk[kTaps];
+    V x[kTaps];
 #pragma unroll
-    for (int j = 0; j < kTapBatch; ++j) {
-      i[j] = __ldg(idx + k + j);
-      wk[j] = __ldg(w + k + j);
+    for (int t = 0; t < kTaps; ++t) {
+      i[t] = __ldg(idx + k + t);
+      wk[t] = __ldg(w + k + t);
     }
 #pragma unroll
-    for (int j = 0; j < kTapBatch; ++j) x[j] = __ldg(s + static_cast<long long>(i[j]) * nvec);
+    for (int t = 0; t < kTaps; ++t) x[t] = __ldg(s + static_cast<long long>(i[t]) * nvec);
 #pragma unroll
-    for (int j = 0; j < kTapBatch; ++j) fma_acc(acc, wk[j], x[j]);
+    for (int t = 0; t < kTaps; ++t) fma_acc(acc, wk[t], x[t]);
   }
-  for (; k < k1; ++k) {
+  for (; k < k1; ++k)
     fma_acc(acc, __ldg(w + k), __ldg(s + static_cast<long long>(__ldg(idx + k)) * nvec));
+  reinterpret_cast<V*>(out)[r * nvec + threadIdx.x] = acc;
+}
+
+// Wide rows.  V = float4 (Q % 4 == 0, aligned bases) or float; nvec = Q /
+// (sizeof(V) / 4) columns of V per row; g <= 32 lanes per row, 32 / g rows
+// per warp (the warp's other lanes idle); a lane holds kCols columns and
+// loads kTaps taps of them before their FMAs.  Four blocks per SM (64
+// registers); five at 8 floats a lane (51 registers, 8 bytes spilled): on
+// rows of up to 256 floats the blocks in flight count for more.
+// grid: x = chunks of kCols * g columns (so the blocks that write one row
+// run together), y and z = groups of (kThreads / 32) * (32 / g) rows.
+template <typename V, int kCols, int kTaps>
+__global__ void __launch_bounds__(kThreads, kCols * sizeof(V) == 32 ? 5 : 4) gather_rows_kernel(
+    const float* __restrict__ src, const int* __restrict__ row_ptr,
+    const int* __restrict__ idx, const float* __restrict__ w,
+    float* __restrict__ out, int n_rows, int nvec, int g) {
+  const int rows_per_warp = 32 / g;
+  const int sub = (threadIdx.x & 31) / g;  // this lane's group within its warp
+  if (sub >= rows_per_warp) return;
+  const int first = sub * g;  // the group's first lane
+  const int lane = (threadIdx.x & 31) - first;
+  const long long warp = (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * (kThreads / 32) +
+                         (threadIdx.x >> 5);
+  const long long r = warp * rows_per_warp + sub;
+  if (r >= n_rows) return;  // a whole group leaves together
+  // the lanes of this group: the shuffles below involve no other
+  const unsigned mask = (g == 32 ? 0xffffffffu : (1u << g) - 1u) << first;
+  const int c0 = blockIdx.x * (kCols * g) + lane;  // this lane's first column
+  const int k0 = __ldg(row_ptr + r);
+  const int k1 = __ldg(row_ptr + r + 1);
+  const V* __restrict__ s = reinterpret_cast<const V*>(src) + c0;
+
+  V acc[kCols];
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) acc[u] = zero_of<V>();
+
+  for (int kc = k0; kc < k1; kc += g) {  // G taps at a time, in plan order
+    int my_i = 0;
+    float my_w = 0.f;
+    if (kc + lane < k1) {
+      my_i = __ldg(idx + kc + lane);
+      my_w = __ldg(w + kc + lane);
+    }
+    const int n = min(g, k1 - kc);
+    int j = 0;
+    for (; j + kTaps <= n; j += kTaps) {
+      long long off[kTaps];
+      float wj[kTaps];
+      V x[kTaps][kCols];
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) {
+        off[t] = static_cast<long long>(__shfl_sync(mask, my_i, first + j + t)) * nvec;
+        wj[t] = __shfl_sync(mask, my_w, first + j + t);
+      }
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t)
+#pragma unroll
+        for (int u = 0; u < kCols; ++u)
+          x[t][u] = c0 + u * g < nvec ? __ldg(s + off[t] + u * g) : zero_of<V>();
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t)
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) fma_acc(acc[u], wj[t], x[t][u]);
+    }
+    for (; j < n; ++j) {
+      const long long off = static_cast<long long>(__shfl_sync(mask, my_i, first + j)) * nvec;
+      const float wj = __shfl_sync(mask, my_w, first + j);
+      V x[kCols];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u)
+        x[u] = c0 + u * g < nvec ? __ldg(s + off + u * g) : zero_of<V>();
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) fma_acc(acc[u], wj, x[u]);
+    }
   }
-  reinterpret_cast<V*>(out)[r * nvec + v] = acc;
+
+  V* __restrict__ o = reinterpret_cast<V*>(out) + r * nvec + c0;
+#pragma unroll
+  for (int u = 0; u < kCols; ++u)
+    if (c0 + u * g < nvec) o[u * g] = acc[u];
+}
+
+template <typename V, int kCols, int kTaps>
+int launch(const float* src, const int* row_ptr, const int* idx, const float* w, float* out,
+           int n_rows, int nvec, int g, cudaStream_t st) {
+  const long long rows_per_block = (kThreads / 32) * (32 / g);
+  const long long row_groups = (n_rows + rows_per_block - 1) / rows_per_block;
+  const long long per_chunk = static_cast<long long>(kCols) * g;
+  const long long gx = (nvec + per_chunk - 1) / per_chunk;
+  const long long gy = row_groups < 32768 ? row_groups : 32768;
+  const long long gz = (row_groups + gy - 1) / gy;
+  if (gx > INT_MAX || gz > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(gz));
+  gather_rows_kernel<V, kCols, kTaps>
+      <<<grid, kThreads, 0, st>>>(src, row_ptr, idx, w, out, n_rows, nvec, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V>
+int launch_narrow(const float* src, const int* row_ptr, const int* idx, const float* w, float* out,
+                  int n_rows, int nvec, cudaStream_t st) {
+  const dim3 block(nvec, kThreads / nvec);
+  const long long gx = (static_cast<long long>(n_rows) + block.y - 1) / block.y;
+  if (gx > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  gather_rows_narrow_kernel<V>
+      <<<static_cast<unsigned>(gx), block, 0, st>>>(src, row_ptr, idx, w, out, n_rows, nvec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // src [n_src, q], row_ptr [n_rows + 1], idx / w [nnz], out [n_rows, q]; all
-// device pointers, f32 / int32, contiguous.  Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 = launched).
+// device pointers, f32 / int32, contiguous.  `vec` is 4 (float4 columns: q a
+// multiple of 4, src and out 16-byte aligned) or 1; `group` the lanes per
+// row, 1 to 32.  group = q / vec (a lane per column) runs the narrow kernel;
+// else `cols * vec` are the floats a lane holds and `taps` the taps it loads
+// at a time: 4 x 4, 8 x 2, 16 x 1 or 24 x 1.  Launches on `stream`, does
+// not synchronise, and returns cudaGetLastError() (0 = launched).
 extern "C" int surfh_gather_rows_f32(const float* src, const int* row_ptr, const int* idx,
-                                     const float* w, float* out, int n_rows, int q,
-                                     void* stream) {
+                                     const float* w, float* out, int n_rows, int q, int vec,
+                                     int cols, int taps, int group, void* stream) {
   if (n_rows <= 0 || q <= 0) return static_cast<int>(cudaSuccess);
-  const bool vec4 = (q % 4 == 0) && (reinterpret_cast<std::uintptr_t>(src) % 16 == 0) &&
-                    (reinterpret_cast<std::uintptr_t>(out) % 16 == 0);
-  const int nvec = vec4 ? q / 4 : q;
-  const long long total = static_cast<long long>(n_rows) * nvec;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (group < 1 || group > 32 || (vec != 1 && vec != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 4 && (q % 4 != 0 || reinterpret_cast<std::uintptr_t>(src) % 16 != 0 ||
+                   reinterpret_cast<std::uintptr_t>(out) % 16 != 0))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    gather_rows_kernel<float4><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        src, row_ptr, idx, w, out, n_rows, nvec);
-  } else {
-    gather_rows_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        src, row_ptr, idx, w, out, n_rows, nvec);
+  if (group * vec == q) {
+    if (vec == 4) return launch_narrow<float4>(src, row_ptr, idx, w, out, n_rows, group, st);
+    return launch_narrow<float>(src, row_ptr, idx, w, out, n_rows, group, st);
   }
-  return static_cast<int>(cudaGetLastError());
+#define SURFH_GATHER_CASE(V, C, T)                    \
+  if (vec * 4 == sizeof(V) && cols == C && taps == T) \
+    return launch<V, C, T>(src, row_ptr, idx, w, out, n_rows, q / vec, group, st);
+  SURFH_GATHER_CASE(float4, 1, 4)
+  SURFH_GATHER_CASE(float4, 2, 2)
+  SURFH_GATHER_CASE(float4, 4, 1)
+  SURFH_GATHER_CASE(float4, 6, 1)
+  SURFH_GATHER_CASE(float, 4, 4)
+  SURFH_GATHER_CASE(float, 8, 2)
+  SURFH_GATHER_CASE(float, 16, 1)
+  SURFH_GATHER_CASE(float, 24, 1)
+#undef SURFH_GATHER_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

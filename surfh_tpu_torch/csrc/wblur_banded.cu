@@ -14,30 +14,243 @@
 // the tiling of the work is this card's.  The TPU-only choices are dropped:
 // no beta padding to the 8-row sublane (B is any width), no S*A padding to
 // 128 lanes (M is any count), no slab DMA into VMEM and no padding of the
-// input past its end: a slab that runs past the window (the transpose's
-// KB rounded up to 128 beyond K) reads zeros, and a partial last tile
-// writes only its valid columns.
+// input past its end.
 //
-// One GEMM per band tile, gathered on the fly: the A operand is the tile's
-// slab of the input rows (B runs of LB columns at stride W forward, one run
-// of KB columns transposed), the B operand the tile's re-laid table block,
-// and the result columns go to the tile's place in the output (one run of
-// TK columns forward, B runs of TL columns at stride W transposed).  Every
-// output element belongs to exactly one tile, so there are no atomics and
-// the sums repeat bit for bit.
+// What bounds both on Hopper: FP32 FFMA throughput.  No tensor cores: the
+// accuracy contract is full f32, no TF32.  The tables and the window rows of
+// one launch (a few tens of MB) stay in the 50 MB L2 across tiles, so device
+// memory is not the limit; the work per launch is 0.9-1.6 GFLOP against
+// 67 TFLOP/s, tens of microseconds, so the card has to be full for all of
+// them.
 //
-// What bounds it on Hopper: FP32 FFMA throughput (no tensor cores: the accuracy
-// contract is full f32, no TF32), with a 64 x 64 x 16 shared-memory tile
-// giving 16 FMAs per float loaded from L2 / HBM; the tables and the window
-// rows of one launch (a few tens of MB) stay in the 50 MB L2 across tiles.
-// A plain first design: no cp.async pipeline, no wgmma, not yet measured
-// against the FP32 roofline.
+// The forward (wblur_banded_fwd_kernel) is one GEMM per lambda'-tile,
+// gathered on the fly: the A operand is B runs of LB window columns at
+// stride W, the B operand the tile's re-laid [B*LB, TK] block.
+//   * Enough blocks on every band: M = 336-408 rows and 5-11 tiles give only
+//     30-77 blocks of 64 x 128, so the contraction is split over the B runs
+//     (blockIdx.z takes the runs [z*B/split, (z+1)*B/split)).  The wrapper
+//     picks the split from (M, tiles, B, LB) and the card's SM count.  Each
+//     part writes its partial sums to its own [M, K] slab of a scratch buffer
+//     and a second kernel adds the slabs in the order 0, 1, ..., split-1:
+//     no atomics anywhere, so the sums repeat bit for bit.  split = 1 writes
+//     the output directly.
+//   * More arithmetic per shared-memory load: 128 threads, each an 8 x 8
+//     register tile read as four 16-byte shared-memory loads per contraction
+//     term (A is stored contraction-major so a thread's rows are contiguous):
+//     4 LDS.128 for 64 FFMA.  The 8 rows / columns are two groups of 4, half
+//     a tile apart, and a warp covers 32 x 64 of the tile, so its 16-byte
+//     loads fall on distinct banks of one 128-byte span.
+//   * Loads that overlap the arithmetic: a ring of kStages stages of 8
+//     contraction terms, filled with cp.async one to three steps ahead, one
+//     __syncthreads() per step.  The table rows are 16-byte aligned (TK is a
+//     multiple of 4): 16-byte copies.  The window slab is not (starts[t] is
+//     any integer, W and B*W may be odd): 4-byte copies, transposed on the
+//     way into shared memory.  25 KB of shared memory and 145 registers
+//     (none spilled; capped at 128 the compiler spills and shuffles the
+//     accumulators): three blocks per SM.
+//   * Ragged edges: rows m >= M, terms past the end of a run (LB is a
+//     multiple of 8 unless it was clamped to W) and columns >= TK are filled
+//     with zeros by cp.async's source size (0: nothing is read); the last
+//     tile stores only k < K.
+//
+// The transpose (wblur_banded_t_kernel) is a plain tiled GEMM: one
+// 64 x 64 x 16 shared-memory tile per block, a 4 x 4 register tile per
+// thread, no pipeline.  A slab that runs past K (KB rounded up to 128) reads
+// zeros, and a partial last tile writes only its valid columns.  Every output
+// element belongs to exactly one block.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// forward
+
+constexpr int kFBM = 64;        // rows of M per block
+constexpr int kFBN = 128;       // columns of one lambda'-tile per block
+constexpr int kFBK = 8;         // contraction terms per pipeline step
+constexpr int kFThreads = 128;  // 8 row groups x 16 column groups, 8 x 8 outputs each
+constexpr int kFStages = 4;
+constexpr int kFAS = kFBM + 4;  // A stage stride: 4-byte transposed stores and 16-byte loads conflict-free
+
+struct FwdArgs {
+  const float* win;     // [m, b*w]
+  const float* blocks;  // [n_tiles, b*lb, tk]
+  const int* starts;    // [n_tiles]
+  float* dst;           // split == 1: out [m, k]; else the partial sums [split, m, k]
+  int m, w, b, k, lb, tk;
+  int n_col_blocks, split, steps_per_run;
+  int vec_store;  // rows of dst are 16-byte aligned
+};
+
+// cp.async of 4 / 16 bytes to the shared-memory address `dst`; an invalid
+// copy reads nothing (source size 0: its address is not used) and fills zeros.
+__device__ __forceinline__ void cp_async_4(unsigned dst, const float* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_16(unsigned dst, const float* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__global__ void __launch_bounds__(kFThreads, 3) wblur_banded_fwd_kernel(const FwdArgs p) {
+  __shared__ __align__(16) float as[kFStages][kFBK][kFAS];  // A, contraction-major
+  __shared__ __align__(16) float bs[kFStages][kFBK][kFBN];
+
+  const int tid = threadIdx.x;
+  // a warp is 4 row groups x 8 column groups (a 32 x 64 corner of the tile),
+  // the four warps 2 x 2: a warp's 16-byte loads of A and of B each touch
+  // one 64- or 128-byte span of shared memory
+  const int tx = ((tid >> 5) & 1) * 8 + (tid & 7);     // column group, 0..15
+  const int ty = (tid >> 6) * 4 + ((tid >> 3) & 3);    // row group, 0..7
+  const int m0 = blockIdx.x * kFBM;
+  const int tile = blockIdx.y / p.n_col_blocks;
+  const int n0 = (blockIdx.y % p.n_col_blocks) * kFBN;
+  const int part = blockIdx.z;
+  const int run0 = static_cast<int>(static_cast<long long>(part) * p.b / p.split);
+  const int run1 = static_cast<int>(static_cast<long long>(part + 1) * p.b / p.split);
+  const int s = __ldg(p.starts + tile);
+  const long long lda = static_cast<long long>(p.b) * p.w;
+  const float* __restrict__ blk = p.blocks + static_cast<long long>(tile) * p.b * p.lb * p.tk;
+
+  // this thread's copies of one step: A terms (a_kk, a_row + 16 r), r < 4,
+  // consecutive threads on consecutive window columns; B 16-byte chunks
+  // (b_kk + 4 r, b_col), r < 2, consecutive threads along a table row.
+  // Pointers and shared-memory addresses walk with the steps issued: no
+  // division, no address built from scratch in the loop.
+  const int a_kk = tid & 7;
+  const int a_row = tid >> 3;
+  const int b_kk = tid >> 5;
+  const int b_col = (tid & 31) * 4;
+  const bool b_col_ok = n0 + b_col < p.tk;
+  bool a_row_ok[kFBM / 16];
+#pragma unroll
+  for (int r = 0; r < kFBM / 16; ++r) a_row_ok[r] = m0 + a_row + 16 * r < p.m;
+  const long long a_rows16 = 16 * lda;
+  const long long b_rows4 = 4LL * p.tk;
+  const float* a_ptr = p.win + (m0 + a_row) * lda + static_cast<long long>(run0) * p.w + s + a_kk;
+  const float* b_ptr = blk + (static_cast<long long>(run0) * p.lb + b_kk) * p.tk + n0 + b_col;
+  constexpr unsigned kAStage = kFBK * kFAS * sizeof(float);
+  constexpr unsigned kBStage = kFBK * kFBN * sizeof(float);
+  const unsigned a_dst0 = static_cast<unsigned>(__cvta_generic_to_shared(&as[0][a_kk][a_row]));
+  const unsigned b_dst0 = static_cast<unsigned>(__cvta_generic_to_shared(&bs[0][b_kk][b_col]));
+  int j0 = 0;          // first term, within its run, of the next step to issue
+  int fill_stage = 0;  // the stage it goes to
+
+  const int total = (run1 - run0) * p.steps_per_run;
+
+  auto issue = [&]() {
+    const bool a_ok = j0 + a_kk < p.lb && s + j0 + a_kk < p.w;
+    const unsigned a_dst = a_dst0 + fill_stage * kAStage;
+    const unsigned b_dst = b_dst0 + fill_stage * kBStage;
+#pragma unroll
+    for (int r = 0; r < kFBM / 16; ++r)
+      cp_async_4(a_dst + r * 16 * sizeof(float), a_ptr + r * a_rows16, a_ok && a_row_ok[r]);
+#pragma unroll
+    for (int r = 0; r < kFBK / 4; ++r)
+      cp_async_16(b_dst + r * 4 * kFBN * sizeof(float), b_ptr + r * b_rows4,
+                  b_col_ok && j0 + b_kk + 4 * r < p.lb);
+    fill_stage = fill_stage + 1 == kFStages ? 0 : fill_stage + 1;
+    j0 += kFBK;
+    a_ptr += kFBK;
+    b_ptr += kFBK * static_cast<long long>(p.tk);
+    if (j0 >= p.lb) {  // on to the next run: W further in the window row, LB rows further in the block
+      a_ptr += p.w - j0;
+      b_ptr += (p.lb - j0) * static_cast<long long>(p.tk);
+      j0 = 0;
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kFStages - 1; ++st) {
+    if (st < total) issue();
+    cp_async_commit();  // one group per step, empty past the end: the wait below counts groups
+  }
+
+  const float* a_rd = &as[0][0][ty * 4];
+  const float* b_rd = &bs[0][0][tx * 4];
+  int stage = 0;
+  for (int step = 0; step < total; ++step) {
+    cp_async_wait<kFStages - 2>();  // this step's stage has landed (for this thread's copies)
+    __syncthreads();                // ... for everyone's, and everyone has left the stage refilled next
+    if (step + kFStages - 1 < total) issue();
+    cp_async_commit();
+
+    const float* a_st = a_rd + stage * (kFBK * kFAS);
+    const float* b_st = b_rd + stage * (kFBK * kFBN);
+    stage = stage + 1 == kFStages ? 0 : stage + 1;
+#pragma unroll
+    for (int kk = 0; kk < kFBK; ++kk) {
+      const float4 a_lo = *reinterpret_cast<const float4*>(a_st + kk * kFAS);
+      const float4 a_hi = *reinterpret_cast<const float4*>(a_st + kk * kFAS + kFBM / 2);
+      const float4 b_lo = *reinterpret_cast<const float4*>(b_st + kk * kFBN);
+      const float4 b_hi = *reinterpret_cast<const float4*>(b_st + kk * kFBN + kFBN / 2);
+      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+      const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* __restrict__ dst = p.dst + static_cast<long long>(part) * p.m * p.k;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : kFBM / 2 + ty * 4 + i - 4);
+    if (m >= p.m) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = n0 + h * (kFBN / 2) + tx * 4;  // column within the tile
+      const int col = tile * p.tk + n;             // column of the output
+      if (n >= p.tk || col >= p.k) continue;
+      float* o = dst + static_cast<long long>(m) * p.k + col;
+      if (p.vec_store) {  // k % 4 == 0: the four columns are all below k
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (col + c < p.k) o[c] = acc[i][4 * h + c];
+      }
+    }
+  }
+}
+
+// out[i] = parts[0][i] + parts[1][i] + ... + parts[split-1][i], in that order.
+__global__ void __launch_bounds__(256) wblur_banded_sum_parts_kernel(
+    const float* __restrict__ parts, float* __restrict__ out, long long n, int split) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = __ldg(parts + i);
+  for (int s = 1; s < split; ++s) acc += __ldg(parts + s * n + i);
+  out[i] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// transpose
 
 constexpr int kBM = 64;   // rows of M per block
 constexpr int kBN = 64;   // output columns of one tile per block
@@ -46,21 +259,20 @@ constexpr int kThreads = 256;
 constexpr int kTM = kBM / 16;  // rows per thread (strided by 16)
 constexpr int kTN = kBN / 16;  // columns per thread (strided by 16)
 
-struct BandedArgs {
-  const float* a;       // input rows [M, lda]
-  const float* blocks;  // re-laid table [n_tiles, kc, n]
+struct BandedTArgs {
+  const float* y;       // input rows [m, k]
+  const float* blocks;  // re-laid table [n_tiles, kb, b*tl]
   const int* starts;    // [n_tiles] slab offset of each tile
-  float* out;           // output rows [M, ldc]
-  int m, lda, ldc;
-  int n_tiles, kc, n, n_col_blocks;
-  int seg_in, stride_in, lim_in;     // slab: runs of seg_in at stride_in, valid below lim_in
-  int seg_out, stride_out, lim_out;  // result: runs of seg_out at stride_out, valid below lim_out
+  float* out;           // output rows [m, b*w]
+  int m, k, ldc;
+  int kb, n, n_col_blocks;  // n = b*tl columns per tile
+  int tl, w;                // result: runs of tl columns at stride w, valid below w
 };
 
-// kTranspose = false: the slab is B runs, the result one run.
-// kTranspose = true:  the slab is one run, the result B runs.
-template <bool kTranspose>
-__global__ void __launch_bounds__(kThreads) wblur_banded_kernel(const BandedArgs p) {
+// One GEMM per lambda-tile: the A operand is the tile's slab of KB input
+// columns from starts[t], the B operand the tile's block, and the result
+// columns go to B runs of TL columns at stride W.
+__global__ void __launch_bounds__(kThreads) wblur_banded_t_kernel(const BandedTArgs p) {
   __shared__ float as[kBK][kBM + 1];  // A tile, contraction-major (+1: no bank conflicts on store)
   __shared__ float bs[kBK][kBN];
 
@@ -71,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) wblur_banded_kernel(const BandedArgs
   const int tile = blockIdx.y / p.n_col_blocks;
   const int n0 = (blockIdx.y % p.n_col_blocks) * kBN;
   const int s = __ldg(p.starts + tile);
-  const float* __restrict__ blk = p.blocks + static_cast<long long>(tile) * p.kc * p.n;
+  const float* __restrict__ blk = p.blocks + static_cast<long long>(tile) * p.kb * p.n;
 
   float acc[kTM][kTN];
 #pragma unroll
@@ -79,7 +291,7 @@ __global__ void __launch_bounds__(kThreads) wblur_banded_kernel(const BandedArgs
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
 
-  for (int c0 = 0; c0 < p.kc; c0 += kBK) {
+  for (int c0 = 0; c0 < p.kb; c0 += kBK) {
     // A tile: kBM x kBK, consecutive threads on consecutive slab columns
 #pragma unroll
     for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
@@ -89,20 +301,8 @@ __global__ void __launch_bounds__(kThreads) wblur_banded_kernel(const BandedArgs
       const int c = c0 + cc;
       const int m = m0 + row;
       float v = 0.f;
-      if (m < p.m && c < p.kc) {
-        int col;
-        bool ok;
-        if (kTranspose) {
-          col = s + c;
-          ok = col < p.lim_in;
-        } else {
-          const int seg = c / p.seg_in;
-          const int within = c - seg * p.seg_in;
-          col = seg * p.stride_in + s + within;
-          ok = s + within < p.lim_in;
-        }
-        if (ok) v = __ldg(p.a + static_cast<long long>(m) * p.lda + col);
-      }
+      if (m < p.m && c < p.kb && s + c < p.k)
+        v = __ldg(p.y + static_cast<long long>(m) * p.k + s + c);
       as[cc][row] = v;
     }
     // B tile: kBK x kBN of the tile's block, consecutive threads on consecutive columns
@@ -113,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) wblur_banded_kernel(const BandedArgs
       const int col = e % kBN;
       const int c = c0 + row;
       const int n = n0 + col;
-      bs[row][col] = (c < p.kc && n < p.n)
+      bs[row][col] = (c < p.kb && n < p.n)
                          ? __ldg(blk + static_cast<long long>(c) * p.n + n)
                          : 0.f;
     }
@@ -137,19 +337,10 @@ __global__ void __launch_bounds__(kThreads) wblur_banded_kernel(const BandedArgs
   for (int j = 0; j < kTN; ++j) {
     const int n = n0 + tx + 16 * j;
     if (n >= p.n) continue;
-    int col;
-    bool ok;
-    if (kTranspose) {
-      const int seg = n / p.seg_out;
-      const int within = n - seg * p.seg_out;
-      const int pos = tile * p.seg_out + within;
-      col = seg * p.stride_out + pos;
-      ok = pos < p.lim_out;
-    } else {
-      col = tile * p.seg_out + n;
-      ok = col < p.lim_out;
-    }
-    if (!ok) continue;
+    const int seg = n / p.tl;
+    const int pos = tile * p.tl + n - seg * p.tl;
+    if (pos >= p.w) continue;
+    const int col = seg * p.w + pos;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
       const int m = m0 + ty + 16 * i;
@@ -158,45 +349,49 @@ __global__ void __launch_bounds__(kThreads) wblur_banded_kernel(const BandedArgs
   }
 }
 
-template <bool kTranspose>
-int launch(BandedArgs p, void* stream) {
-  if (p.m <= 0 || p.n_tiles <= 0 || p.n <= 0) return static_cast<int>(cudaSuccess);
-  p.n_col_blocks = (p.n + kBN - 1) / kBN;
-  const long long gy = static_cast<long long>(p.n_tiles) * p.n_col_blocks;
-  const long long gx = (p.m + kBM - 1) / kBM;
-  if (gy > 65535 || gx > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  wblur_banded_kernel<kTranspose>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Forward.  win [m, b*w], blocks [n_tiles, b*lb, tk], starts [n_tiles],
-// out [m, k]; device pointers, f32 / int32, contiguous.  Launches on
-// `stream`, does not synchronise, returns cudaGetLastError() (0 = launched).
+// out [m, k]; device pointers, f32 / int32, contiguous; tk a multiple of 4
+// and blocks 16-byte aligned.  The contraction is cut into `split` parts
+// (1 <= split <= b) over the b runs; for split > 1, `parts` is a scratch
+// buffer of split*m*k floats and a second kernel adds its slabs into `out`.
+// Launches on `stream`, does not synchronise, returns the first launch
+// error (0 = launched).
 extern "C" int surfh_wblur_banded_f32(const float* win, const float* blocks, const int* starts,
-                                      float* out, int m, int w, int b, int k, int n_tiles,
-                                      int lb, int tk, void* stream) {
-  BandedArgs p{};
-  p.a = win;
+                                      float* out, float* parts, int m, int w, int b, int k,
+                                      int n_tiles, int lb, int tk, int split, void* stream) {
+  if (m <= 0 || n_tiles <= 0 || k <= 0) return static_cast<int>(cudaSuccess);
+  if (b <= 0 || lb <= 0 || split < 1 || split > b || tk <= 0 || tk % 4 != 0 ||
+      reinterpret_cast<std::uintptr_t>(blocks) % 16 != 0 || (split > 1 && parts == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs p{};
+  p.win = win;
   p.blocks = blocks;
   p.starts = starts;
-  p.out = out;
+  p.dst = split > 1 ? parts : out;
   p.m = m;
-  p.lda = b * w;
-  p.ldc = k;
-  p.n_tiles = n_tiles;
-  p.kc = b * lb;
-  p.n = tk;
-  p.seg_in = lb;
-  p.stride_in = w;
-  p.lim_in = w;
-  p.seg_out = tk;
-  p.stride_out = 0;
-  p.lim_out = k;
-  return launch<false>(p, stream);
+  p.w = w;
+  p.b = b;
+  p.k = k;
+  p.lb = lb;
+  p.tk = tk;
+  p.n_col_blocks = (tk + kFBN - 1) / kFBN;
+  p.split = split;
+  p.steps_per_run = (lb + kFBK - 1) / kFBK;
+  p.vec_store = (k % 4 == 0) && (reinterpret_cast<std::uintptr_t>(p.dst) % 16 == 0);
+  const long long gy = static_cast<long long>(n_tiles) * p.n_col_blocks;
+  if (gy > 65535 || split > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(static_cast<unsigned>((m + kFBM - 1) / kFBM), static_cast<unsigned>(gy),
+            static_cast<unsigned>(split));
+  wblur_banded_fwd_kernel<<<grid, kFThreads, 0, st>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return static_cast<int>(err);
+  const long long n = static_cast<long long>(m) * k;
+  wblur_banded_sum_parts_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      parts, out, n, split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Transpose.  y [m, k], blocks_t [n_tiles, kb, b*tl], starts_t [n_tiles],
@@ -204,22 +399,23 @@ extern "C" int surfh_wblur_banded_f32(const float* win, const float* blocks, con
 extern "C" int surfh_wblur_banded_t_f32(const float* y, const float* blocks_t,
                                         const int* starts_t, float* out, int m, int w, int b,
                                         int k, int n_tiles, int tl, int kb, void* stream) {
-  BandedArgs p{};
-  p.a = y;
+  if (m <= 0 || n_tiles <= 0 || b <= 0 || tl <= 0) return static_cast<int>(cudaSuccess);
+  BandedTArgs p{};
+  p.y = y;
   p.blocks = blocks_t;
   p.starts = starts_t;
   p.out = out;
   p.m = m;
-  p.lda = k;
+  p.k = k;
   p.ldc = b * w;
-  p.n_tiles = n_tiles;
-  p.kc = kb;
+  p.kb = kb;
   p.n = b * tl;
-  p.seg_in = kb;
-  p.stride_in = 0;
-  p.lim_in = k;
-  p.seg_out = tl;
-  p.stride_out = w;
-  p.lim_out = w;
-  return launch<true>(p, stream);
+  p.n_col_blocks = (p.n + kBN - 1) / kBN;
+  p.tl = tl;
+  p.w = w;
+  const long long gy = static_cast<long long>(n_tiles) * p.n_col_blocks;
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dim3 grid(static_cast<unsigned>((m + kBM - 1) / kBM), static_cast<unsigned>(gy));
+  wblur_banded_t_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

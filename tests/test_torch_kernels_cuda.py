@@ -42,6 +42,37 @@ def test_gather_rows_kernel_matches_plain(q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("q", [1, 3, 24, 241, 466, 613, 1000])
+def test_gather_rows_kernel_shapes(q, misaligned):
+    """Every launch shape (1 to 32 lanes per row, 8 / 16 / 24 floats a lane,
+    float4 and single floats, two column chunks at Q = 1000): a third of the
+    rows empty, one row with more taps than two chunks of taps, base
+    pointers 16-byte aligned or one float into their storage."""
+    dev = _cuda()
+    rng = np.random.default_rng(q)
+    n_dst, n_src = 1501, 700
+    live = np.sort(rng.choice(n_dst, size=2 * n_dst // 3, replace=False))
+    cdst = np.sort(np.concatenate([np.repeat(live, rng.integers(1, 8, live.size)),
+                                   np.full(130, live[7])]))
+    csrc = rng.integers(0, n_src, cdst.size)
+    cw = rng.standard_normal(cdst.size)
+    plan = gr.build_row_gather_plan(csrc, cw, cdst, n_dst, n_src)
+    counts = np.diff(plan.row_ptr)
+    assert (counts == 0).sum() >= n_dst // 3 and counts.max() > 100
+    store = torch.as_tensor(rng.standard_normal(n_src * q + 1), dtype=torch.float32, device=dev)
+    src = store[1:].view(n_src, q) if misaligned else store[:-1].view(n_src, q)
+    assert src.is_contiguous() and (src.data_ptr() % 16 == 4) == misaligned
+    got = gr.gather_rows(src, plan.to(dev, torch.float32))
+    torch.cuda.synchronize()
+    want = gr.gather_rows_reference(src.double(), plan.to(dev, torch.float64))
+    # f32 FMAs over ≤ ~140 taps against the f64 plain version
+    assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
+    assert not got[torch.as_tensor(counts == 0, device=dev)].any()  # rows with no taps: zero
+    assert torch.equal(got, gr.gather_rows(src, plan.to(dev, torch.float32)))  # taps in plan order
+
+
+@pytest.mark.cuda
 def test_gather_rows_kernel_rejects_what_it_does_not_take():
     dev = _cuda()
     plan = _plan(np.random.default_rng(7), 40, 30, 100, 0, 0)
@@ -111,6 +142,47 @@ def test_wblur_banded_kernels_match_plain(K, W, B, rtol):
     # f32 FMAs over ≤ B·LB (forward) / KB (transpose) terms against f64
     assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
     assert float((got_t.double() - want_t).abs().max() / want_t.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, W, B, LB, m", [
+    (300, 90, 1, 24, 391),   # B = 1: no split; partial last λ'-tile (300 = 2·128 + 44)
+    (300, 90, 8, 24, 391),   # M = 6·64 + 7 rows
+    (200, 61, 27, 61, 70),   # LB = W = 61: the last step of a run is 5 terms of 8
+    (1124, 484, 12, 136, 408),  # band 2b's widths
+])
+def test_wblur_banded_forward_every_split(K, W, B, LB, m):
+    """The forward kernel at every split of the contraction: against the
+    run-by-run plain spelling in f64, odd slab offsets, and bit for bit the
+    same on a second launch."""
+    from surfh_tpu_torch.core import wblur_banded as wb
+
+    dev = _cuda()
+    rng = np.random.default_rng(K + B)
+    nT = -(-K // 128)
+    starts = np.minimum(np.round(np.linspace(0, W - LB, nT)).astype(np.int64) | 1, W - LB)
+    assert LB == W or (starts % 2 == 1).any()
+    plan = wb.BandPlan(starts.astype(np.int32), K, W, B, -(-B // 8) * 8, LB, 128)
+    wpsf = rng.uniform(0.5, 1.5, (K, W, B)) * plan.mask()[:, :, None]
+    plan_t = wb.build_band_plan_t(wpsf)
+    bt32 = wb.banded_tables(torch.as_tensor(wpsf, dtype=torch.float32, device=dev), plan, plan_t)
+    bt64 = wb.banded_tables(torch.as_tensor(wpsf, device=dev), plan, plan_t)
+    win = torch.as_tensor(rng.standard_normal((m, B * W)), dtype=torch.float32, device=dev)
+    want = wb.wblur_banded_reference(win.double(), bt64)
+    picked = wb.forward_launch_shape(m, plan, torch.cuda.get_device_properties(dev).multi_processor_count)
+    for split in range(1, min(B, wb.FWD_MAX_SPLIT) + 1):
+        shape = wb.forward_shape(m, plan, split)
+        before = (wb.launches, wb.launches_sum)
+        got = wb._forward_launch(win, bt32, shape)
+        again = wb._forward_launch(win, bt32, shape)
+        torch.cuda.synchronize()
+        assert (wb.launches, wb.launches_sum) == (before[0] + 2, before[1] + 2 * (split > 1))
+        # f32 FMAs over B·LB terms against f64
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
+        assert torch.equal(got, again)
+        by_runs = wb.wblur_banded_by_runs(win.double(), bt64, split)
+        assert float((by_runs - want).abs().max() / want.abs().max()) <= 1e-12
+    assert torch.equal(wb.wblur_banded(win, bt32), wb._forward_launch(win, bt32, picked))
 
 
 @pytest.mark.cuda
