@@ -27,7 +27,7 @@ and the composed-transpose prototype entry point
                  counted, then `run_proto` on every band's pointing-0
                  transpose of the flagship model at Q = W: K1–K3 against A,
                  their plain versions and the CSR kernel (errors, times,
-                 byte bound);
+                 byte bound, K2's launch shape);
 6. slice       — the rank path: upload, y = H·truth, an f64-accumulated dot
                  test, the fused normal through the kernel against the plain
                  version, launches per normal application, the main path
@@ -36,8 +36,9 @@ and the composed-transpose prototype entry point
                  model over the rank model's channels, the band plans;
 8. kernel      — both banded kernels against their plain versions and
                  cuBLAS on the masked table on every band's real plans
-                 (error, times, flop bound, the forward's split and blocks),
-                 the forward twice on one input bit for bit;
+                 (error, times, flop bound, the forward's split and blocks,
+                 the transpose's instance), each twice on one input bit for
+                 bit;
 9. wplane      — the W-plane path: FFT stage and relayout costs, y, the
                  dense pair's dot test, the banded pair's mismatch, banded
                  against dense, kernels against plain versions, launches per
@@ -143,9 +144,15 @@ def main(argv=None) -> int:
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] ptxas {name}: {line.strip()}")
-    # gather_fixed.cu holds 51 instances (static L = 1..8): the largest
-    # register count and every spill, not one line per instance
+    # gather_fixed.cu holds 58 instances (K1 / K3 at static L = 1..8): K2's
+    # lines, then the largest register count and every spill of them all
     flog = _build.build_logs.get("gather_fixed", "")
+    show = False
+    for line in flog.splitlines():
+        if "Compiling entry" in line:
+            show = "k2_" in line
+        if show and ("Compiling entry" in line or "registers" in line or "spill" in line):
+            log(f"[build] ptxas gather_fixed: {line.strip()}")
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", flog)]
     spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", flog)
               if int(m.group(1)) or int(m.group(2))]
@@ -246,7 +253,7 @@ def main(argv=None) -> int:
     del src, src_a, plan, spm
 
     # 5. the prototype entry point as a user runs it, counted; every band ---
-    # its defaults: band 1c alone, one pointing, 501², Q = W = 466 (float2)
+    # its defaults: band 1c alone, one pointing, 501², Q = W = 466 (float2 in K1 / K3)
     gf.reset_launches()
     t0 = time.perf_counter()
     pres = proto.run(device=dev, log=lambda m: log(f"[proto] {m}"))
@@ -394,6 +401,7 @@ def main(argv=None) -> int:
         win = torch.rand((S_ * A_, bt.plan.B * bt.plan.W), generator=gen, device=dev)
         y2d = torch.rand((S_ * A_, K_), generator=gen, device=dev)
         shape = wb.forward_launch_shape(S_ * A_, bt.plan, n_sm)
+        tshape = wb.transpose_launch_shape(S_ * A_, bt.plan_t, n_sm)
         for name, kfn, pfn, arg, table, starts, lib in (
                 ("wblur_banded", wb.wblur_banded_cuda, wb.wblur_banded_reference, win, bt.blocks,
                  bt.starts, lambda: torch.matmul(win, bt.rows.T)),
@@ -411,7 +419,10 @@ def main(argv=None) -> int:
             nbytes = 4.0 * (arg.numel() + table.numel() + starts.numel() + out_k.numel())
             b_ms, b_by = bound(nbytes, flops)
             cut = (f"split {shape.split} of B = {bt.plan.B}, {shape.blocks} blocks on {n_sm} SMs, "
-                   f"{shape.scratch * 4 / 1e6:.2f} MB of partial sums; " if name == "wblur_banded" else "")
+                   f"{shape.scratch * 4 / 1e6:.2f} MB of partial sums; " if name == "wblur_banded" else
+                   f"row tile {tshape.bm}, {tshape.cg} column groups ({8 * tshape.cg} columns for "
+                   f"n = {bt.plan_t.B * bt.plan_t.TL}{'' if tshape.vec else ', general instance'}), "
+                   f"{tshape.blocks} blocks of {tshape.threads} threads on {n_sm} SMs; ")
             log(f"[kernel] {chan.instr.name} {name}: [{arg.shape[0]} x {arg.shape[1]}] -> "
                 f"[{out_k.shape[0]} x {out_k.shape[1]}], {terms} terms per output: {cut}max rel err {err:.3e} "
                 f"(bound {tol_kernel:g}, f32 sums in another order), repeat bit-identical {same}; kernel "

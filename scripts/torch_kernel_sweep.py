@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Sweep the launch shapes of the two redesigned kernels on one NVIDIA card.
+"""Sweep the launch shapes of the redesigned kernels on one NVIDIA card.
 
     python3 scripts/torch_kernel_sweep.py [--reps 30]
 
@@ -13,15 +13,22 @@ random tables and taps from a seed.
   (≤ 1e-5), two launches bit-identical — its time beside the split that
   `forward_launch_shape` picks, cuBLAS on the masked table and the FP32
   bound;
+* the banded transpose (`core.wblur_banded`): every instance that takes the
+  band's table (row tile 64 / 32 × 12 / 14 / 16 column groups, and the
+  general instance) — checked against the plain version (≤ 1e-5), two
+  launches bit-identical — beside the instance `transpose_launch_shape`
+  picks, cuBLAS on the masked table and the FP32 bound;
 * the row gather (`core.gather_rows`): the wide-row kernel's group widths
   and instances (4 / 8 / 16 / 24 floats a lane, 1 to 4 taps at a time) and,
   on rows of at most 32 columns, the narrow kernel; float4 and single-float
   columns, aligned bases and bases one float into their storage, per shape —
   checked against the plain version — each time beside the shape
   `gather_launch_shape` picks, `torch.sparse.mm` and the byte bound; the
-  rank path's narrow rows (Q = 24, 40) too.  The taps are random, so a
-  source row is as likely far as near: the real plans' times are
-  chip_smoke.py's.
+  rank path's narrow rows (Q = 24, 40) too;
+* K2 (`core.gather_fixed`), the same lane shapes on the padded ``[Pp, L]``
+  table of the same kind of taps, beside the CSR kernel's pick on those taps.
+  The taps are random, so a source row is as likely far as near: the real
+  plans' times are chip_smoke.py's.
 
 Before the sweeps it prints each kernel's registers and spills (ptxas) and
 its SASS instruction mix (cuobjdump), and first of all the card's name and
@@ -105,16 +112,67 @@ def sweep_banded(dev, reps: int) -> None:
               f"{flops / FP32_FLOPS_PER_S * 1e3:.4f} ms ({flops / 1e9:.3f} GFLOP)", flush=True)
 
 
-def sweep_gather(dev, reps: int) -> None:
+def sweep_transpose(dev, reps: int) -> None:
     import torch
 
+    from surfh_tpu_torch.core import wblur_banded as wb
+
+    rng = np.random.default_rng(2)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    KB = 256  # every flagship band's slab at wblur_band_rtol 1e-4
+    for band, (m, K, W, B, _LB, _nT) in BANDS.items():
+        Bp = -(-B // 8) * 8
+        TL = max(1, 128 // Bp)
+        starts = np.round(np.linspace(0, K - KB, -(-W // TL))).astype(np.int32) | 1  # odd offsets
+        plan_t = wb.BandPlanT(starts.astype(np.int32), K, W, B, Bp, TL, KB)
+        wpsf = rng.uniform(0.5, 1.5, (K, W, B)) * plan_t.mask()[:, :, None]
+        bt = wb.banded_tables(torch.as_tensor(wpsf, dtype=torch.float32, device=dev),
+                              wb.build_band_plan(wpsf), plan_t)
+        y2d = torch.as_tensor(rng.standard_normal((m, K)), dtype=torch.float32, device=dev)
+        n = B * TL
+        flops = 2.0 * m * B * W * KB
+        picked = wb.transpose_launch_shape(m, plan_t, n_sm)
+        want = wb.wblur_banded_t_reference(y2d, bt)
+        ms_lib = event_ms(lambda: torch.matmul(y2d, bt.rows_t), reps)
+        shapes = [wb.transpose_shape(m, plan_t, bm, cg) for bm in wb.T_BMS for cg in wb.T_CGS
+                  if n % 4 == 0 and n <= 8 * cg]
+        shapes.append(wb.transpose_shape(m, plan_t, *wb.T_GENERAL, vec=False))
+        cells = []
+        for shape in shapes:
+            got = wb._transpose_launch(y2d, bt, shape)
+            again = wb._transpose_launch(y2d, bt, shape)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max() / want.abs().max())
+            if err > 1e-5 or not torch.equal(got, again):
+                raise SystemExit(f"band {band} transpose {shape}: rel {err:.3e}, repeat equal "
+                                 f"{torch.equal(got, again)}")
+            ms = event_ms(lambda: wb._transpose_launch(y2d, bt, shape), reps)
+            cells.append((ms, shape))
+        best = min(cells, key=lambda c: c[0])
+        mine = next(c for c in cells if c[1] == picked)
+        print(f"[transpose] {band}: M={m} K={K} W={W} B={B} TL={TL} n={n} nT={plan_t.n_tiles}: "
+              + " ".join(f"{sh.bm}x{8 * sh.cg}{'' if sh.vec else 'g'}({sh.blocks}):{ms:.4f}" for ms, sh in cells)
+              + f" | picked {mine[1].bm}x{8 * mine[1].cg} ({mine[1].blocks} blocks of {mine[1].threads} "
+              f"threads) {mine[0]:.4f} ms, best {best[1].bm}x{8 * best[1].cg} {best[0]:.4f} ms; cuBLAS on "
+              f"the masked table {ms_lib:.4f} ms; FP32 bound {flops / FP32_FLOPS_PER_S * 1e3:.4f} ms "
+              f"({flops / 1e9:.3f} GFLOP)", flush=True)
+
+
+def sweep_gather(dev, reps: int, k2: bool = False) -> None:
+    """The lane shapes of the CSR kernel or, `k2`, of K2 on the padded table
+    of taps of the same kind (without the one heavy row, which would pad
+    every row of the table to its count)."""
+    import torch
+
+    from surfh_tpu_torch.core import gather_fixed as gf
     from surfh_tpu_torch.core import gather_rows as gr
 
     rng = np.random.default_rng(1)
     for name, (n_rows, n_src, q, nnz) in GATHERS.items():
-        cdst = np.sort(np.concatenate([rng.integers(0, n_rows, nnz - 150), np.full(150, n_rows // 2)]))
-        plan = gr.build_row_gather_plan(rng.integers(0, n_src, nnz), rng.uniform(0.5, 1.5, nnz),
-                                        cdst, n_rows, n_src)
+        heavy = 0 if k2 else 150
+        cdst = np.sort(np.concatenate([rng.integers(0, n_rows, nnz - heavy), np.full(heavy, n_rows // 2)]))
+        csrc, cw = rng.integers(0, n_src, nnz), rng.uniform(0.5, 1.5, nnz)
+        plan = gr.build_row_gather_plan(csrc, cw, cdst, n_rows, n_src)
         dplan = plan.to(dev, torch.float32)
         src0 = torch.as_tensor(rng.standard_normal((n_src, q)), dtype=torch.float32, device=dev)
         store = torch.empty(n_src * q + 1, device=dev)
@@ -124,7 +182,19 @@ def sweep_gather(dev, reps: int) -> None:
             warnings.simplefilter("ignore", UserWarning)
             spm = torch.sparse_csr_tensor(dplan.row_ptr, dplan.idx, dplan.w, size=(n_rows, n_src))
         ms_lib = event_ms(lambda: torch.sparse.mm(spm, src0), reps)
-        want = gr.gather_rows_reference(src0, dplan)
+        if k2:
+            fplan = gf.build_fixed_fanin_plan(csrc, cw, cdst, n_rows, n_src, 8, ld=q).to(dev, torch.float32)
+            want = gf.gather_fixed_k2_reference(src0, fplan)
+            tol = 1e-6  # the same taps in the same order
+
+            def launch(src, out, *shape):
+                gf._launch_k2(src, fplan, out, *shape)
+        else:
+            want = gr.gather_rows_reference(src0, dplan)
+            tol = 1e-5
+
+            def launch(src, out, *shape):
+                gr._launch(src, dplan, out, *shape)
         cells = []
         for off in (0, 1):  # 1: both bases one float into their storage
             src = store[off:off + n_src * q].view(n_src, q).copy_(src0)
@@ -138,17 +208,23 @@ def sweep_gather(dev, reps: int) -> None:
             shapes += [(vec, 1, gr._NARROW_TAPS, q // vec) for vec in vecs if q // vec <= 32]
             for shape in shapes:
                 out.fill_(-1.0)
-                gr._launch(src, dplan, out, *shape)
+                launch(src, out, *shape)
                 torch.cuda.synchronize()
                 err = float((out - want).abs().max() / want.abs().max())
-                if err > 1e-5:
-                    raise SystemExit(f"gather {name} shape {shape} off {off}: rel {err:.3e}")
-                ms = event_ms(lambda: gr._launch(src, dplan, out, *shape), reps)
+                if err > tol:
+                    raise SystemExit(f"gather {name} shape {shape} off {off} k2 {k2}: rel {err:.3e}")
+                ms = event_ms(lambda: launch(src, out, *shape), reps)
                 cells.append((ms, shape, off))
         picked = {off: gr.gather_launch_shape(q, not off, plan.nnz / n_rows) for off in (0, 1)}
-        print(f"[gather] {name}: rows {n_rows} x Q {q}, n_src {n_src}, nnz {plan.nnz}: "
+        mine = next(ms for ms, shape, off in cells if not off and shape == picked[0])
+        beside = ""
+        if k2:
+            out = ostore[:n_rows * q].view(n_rows, q)
+            ms_csr = event_ms(lambda: gr._launch(src0, dplan, out, *picked[0]), reps)
+            beside = f" (L = {fplan.L}; the CSR kernel in that shape on these taps {ms_csr:.4f} ms)"
+        print(f"[{'k2' if k2 else 'gather'}] {name}: rows {n_rows} x Q {q}, n_src {n_src}, nnz {plan.nnz}: "
               + " ".join(f"v{v}c{c}t{t}g{g}{'+1' if o else ''}:{ms:.4f}" for ms, (v, c, t, g), o in cells)
-              + f" | picked aligned {picked[0]}, misaligned {picked[1]}; best "
+              + f" | picked aligned {picked[0]} {mine:.4f} ms{beside}, misaligned {picked[1]}; best "
               f"{min(cells)[0]:.4f} ms; torch.sparse.mm {ms_lib:.4f} ms; byte bound "
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
 
@@ -165,14 +241,12 @@ def instruction_mix() -> None:
 
     tool = shutil.which("cuobjdump") or os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     for so in sorted(_build.BUILD_DIR.glob("lib*.so")):
-        if "gather_fixed" in so.name:
-            continue
         sass = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True).stdout
         name, mix = None, collections.Counter()
         for line in sass.splitlines() + ["Function : end"]:
             m = re.search(r"Function : (\S+)", line)
             if m:
-                if name:
+                if name and not re.search(r"\dk[13]_kernel", name):  # not the 48 static-L instances of K1 / K3
                     keys = ("FFMA", "FADD", "LDS", "LDGSTS", "LDG", "STG", "STS", "SHFL", "BAR", "IMAD", "SEL")
                     print(f"[sass] {name[:80]}: {sum(mix.values())} instructions; "
                           + " ".join(f"{k} {mix[k]}" for k in keys if mix[k]), flush=True)
@@ -189,6 +263,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from surfh_tpu_torch.core import _build
+    from surfh_tpu_torch.core import gather_fixed as gf
     from surfh_tpu_torch.core import gather_rows as gr
     from surfh_tpu_torch.core import wblur_banded as wb
     from surfh_tpu_torch.core.precision import require_cuda
@@ -198,11 +273,17 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     gr.load_kernel()
     wb.load_kernels()
-    for name in ("gather_rows", "wblur_banded"):
+    gf.load_kernels()
+    for name in ("gather_rows", "wblur_banded", "gather_fixed"):
+        show = name != "gather_fixed"  # of gather_fixed.cu K2's kernels only, not K1 / K3's 48 instances
         for line in _build.build_logs.get(name, "").splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
+            if "Compiling entry" in line:
+                show = name != "gather_fixed" or "k2_" in line
+            if show and ("Compiling entry" in line or "registers" in line or "spill" in line):
                 print(f"[build] ptxas {name}: {line.strip()}", flush=True)
     instruction_mix()
+    sweep_transpose(dev, args.reps)
+    sweep_gather(dev, args.reps, k2=True)
     sweep_gather(dev, args.reps)
     sweep_banded(dev, args.reps)
     return 0

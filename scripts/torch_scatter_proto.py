@@ -113,8 +113,9 @@ def run_proto(chan, device, tp: int = 512, chain: int = 10, reps: int = 3, band:
     the CSR kernel, max rel), ``ms`` (CUDA events, mean of `EVENT_REPS`
     launches: K1, K2, K3, CSR, library), ``plain_ms`` (K1–K3's plain
     versions, mean of `PLAIN_REPS`), ``bound_ms`` / ``bound_mb`` (the byte
-    bound) and, when `chain` > 0, ``chained_ms`` (`chained_time`, as the
-    JAX script times: A, K1, K2, K3, CSR, library)."""
+    bound), ``k2_shape`` (K2's launch shape) and, when `chain` > 0,
+    ``chained_ms`` (`chained_time`, as the JAX script times: A, K1, K2, K3,
+    CSR, library)."""
     import torch
 
     from surfh_tpu_torch.core import bilinear
@@ -183,6 +184,9 @@ def run_proto(chan, device, tp: int = 512, chain: int = 10, reps: int = 3, band:
         log(f"  {k} against its plain version: max rel {out['vs_plain'][k]:.2e}; against the CSR "
             f"kernel {out['vs_csr'][k]:.2e}")
     del got
+    out["k2_shape"] = gr.gather_launch_shape(W, rows.data_ptr() % 16 == 0, dplan.nnz / max(P, 1))
+    log(f"  K2 launch shape (vec, cols, taps, group) {out['k2_shape']} at W = {W}, "
+        f"{dplan.nnz / max(P, 1):.2f} taps per row")
     out["ms"] = {name: event_ms(lambda: fns[name](rows), EVENT_REPS)
                  for name in ("K1", "K2", "K3", "CSR", "library")}
     nbytes = gather_bytes(P, np.unique(csr.idx).size, W, csr.nnz)

@@ -4,8 +4,10 @@ Each library is compiled at first use from ``surfh_tpu_torch/csrc/`` into
 ``build/surfh_tpu_torch/`` at the repository root (git-ignored), for
 ``sm_90a`` (Hopper), as a shared object with a plain C interface — no
 PyTorch headers, so a build takes seconds.  The file name carries a hash
-of the sources and flags, so an edited source rebuilds and a stale library
-is never loaded.  Nothing is downloaded; a missing nvcc raises.
+of the flags and of every file the build reads (the sources and the
+headers of ``csrc/`` that they include), so an edited source or header
+rebuilds and a stale library is never loaded.  Nothing is downloaded; a
+missing nvcc raises.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -24,6 +27,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / spills per kernel, kept in the build log
 ]
+
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 _loaded: dict = {}
 build_logs: dict = {}
@@ -44,14 +49,32 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME, $PATH, /usr/local/cuda)")
 
 
+def build_inputs(sources) -> list:
+    """Every file the build of `sources` reads: the sources and, followed
+    through, the files of csrc/ they include (``#include "name"``)."""
+    files = list(sources)
+    for f in files:  # grows while it is walked
+        for inc in _INCLUDE.findall((CSRC / f).read_text()):
+            if inc not in files:
+                files.append(inc)
+    return files
+
+
+def library_path(name: str, sources) -> Path:
+    """lib<name>-<hash>.so under BUILD_DIR, the hash over the flags and the
+    name and contents of every file of `build_inputs(sources)`."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in build_inputs(sources):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
 def build_library(name: str, sources) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>-<hash>.so
-    once per process and source version; return the loaded library."""
+    once per process and version of the files the build reads; return the
+    loaded library."""
     paths = [CSRC / s for s in sources]
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        h.update(p.read_bytes())
-    so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    so = library_path(name, sources)
     if so in _loaded:
         return _loaded[so]
     if not so.exists():

@@ -18,7 +18,10 @@ taps ``tsrc = 0``, ``tw = 0``) instead of CSR row pointers.  Rows are
   the taps in table order (no ``[P, L, W]`` temporary).
 * `gather_fixed_{k1,k2,k3}_cuda` — the hand-written kernels
   (``csrc/gather_fixed.cu``), built with nvcc at first use; each counts its
-  launches in `launches_k1` / `launches_k2` / `launches_k3`.
+  launches in `launches_k1` / `launches_k2` / `launches_k3`.  K2 runs the
+  CSR kernel's lane-group row gather (``csrc/gather_lanes.cuh``) on its own
+  taps, in the shape `gather_rows.gather_launch_shape` picks from W, the
+  bases' alignment and the plan's taps per row.
 * `gather_fixed_{k1,k2,k3}` — the dispatch: a CPU tensor takes the plain
   version, a CUDA tensor launches the kernel or raises.  Never a fallback.
 
@@ -38,6 +41,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from .gather_rows import gather_launch_shape
 
 MAX_L = 8  # K1 / K3's static fan-in instances (every flagship band has L = 7)
 UNROLL = 4  # rows per thread in K3
@@ -59,7 +64,9 @@ class FixedFaninPlan:
     tsrc: int32 [Pp, L] source rows; tw: float [Pp, L] weights (0 on padded
     taps and rows); cnt: int32 [Pp] taps per row; tsrc_s: int32 [Pp, L] the
     source offsets ``tsrc · ld`` in floats (K3); n_rows: P, the rows of the
-    output; n_src: source row count; ld: the source's row stride in floats."""
+    output; n_src: source row count; ld: the source's row stride in floats;
+    nnz: the taps of the table, ``cnt.sum()``, fixed when the plan is built
+    (a host number: K2's launch shape reads it without touching the device)."""
 
     tsrc: Any
     tw: Any
@@ -68,6 +75,7 @@ class FixedFaninPlan:
     n_rows: int
     n_src: int
     ld: int
+    nnz: int
 
     @property
     def L(self) -> int:
@@ -77,10 +85,6 @@ class FixedFaninPlan:
     def n_padded(self) -> int:
         return int(self.tsrc.shape[0])
 
-    @property
-    def nnz(self) -> int:
-        return int(self.cnt.sum())
-
     def to(self, device, dtype) -> "FixedFaninPlan":
         """Tensors on `device`; weights in `dtype`, indices int32."""
         def t(a, dt):
@@ -88,7 +92,7 @@ class FixedFaninPlan:
 
         return FixedFaninPlan(t(self.tsrc, torch.int32), t(self.tw, dtype),
                               t(self.cnt, torch.int32), t(self.tsrc_s, torch.int32),
-                              int(self.n_rows), int(self.n_src), int(self.ld))
+                              int(self.n_rows), int(self.n_src), int(self.ld), int(self.nnz))
 
 
 def build_fixed_fanin_plan(csrc, cw, cdst, n_rows: int, n_src: int, tp: int = 512,
@@ -124,7 +128,7 @@ def build_fixed_fanin_plan(csrc, cw, cdst, n_rows: int, n_src: int, tp: int = 51
     cnt = np.zeros((n_padded,), np.int32)
     cnt[:n_rows] = seg
     return FixedFaninPlan(tsrc, tw, cnt, (tsrc.astype(np.int64) * ld).astype(np.int32),
-                          int(n_rows), int(n_src), int(ld))
+                          int(n_rows), int(n_src), int(ld), int(cdst.size))
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +185,7 @@ def load_kernels():
         lib = build_library("gather_fixed", ["gather_fixed.cu"])
         k1, k2, k3 = lib.surfh_gather_fixed_k1_f32, lib.surfh_gather_fixed_k2_f32, lib.surfh_gather_fixed_k3_f32
         k1.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        k2.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        k2.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         k3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         for fn in (k1, k2, k3):
             fn.restype = ctypes.c_int
@@ -232,13 +236,20 @@ def gather_fixed_k2_cuda(src: torch.Tensor, plan: FixedFaninPlan) -> torch.Tenso
     """K2: f32 src [n_src, W] → [P, W], ``cnt[p]`` taps per row, on the current stream."""
     _check(src, plan, "gather_fixed K2 kernel", static_l=False)
     out = torch.empty((plan.n_rows, src.shape[1]), device=src.device, dtype=torch.float32)
+    aligned = src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    _launch_k2(src, plan, out,
+               *gather_launch_shape(int(src.shape[1]), aligned, plan.nnz / max(plan.n_rows, 1)))
+    return out
+
+
+def _launch_k2(src, plan, out, vec: int, cols: int, taps: int, group: int) -> None:
+    """Launch K2 on checked operands in the shape `gather_launch_shape` gives."""
     _launch(load_kernels()[1], (src.data_ptr(), plan.tsrc.data_ptr(), plan.tw.data_ptr(),
                                 plan.cnt.data_ptr(), out.data_ptr(), plan.n_rows, plan.L,
-                                int(src.shape[1])),
+                                int(src.shape[1]), vec, cols, taps, group),
             src, "gather_fixed K2 kernel")
     global launches_k2
     launches_k2 += 1
-    return out
 
 
 def gather_fixed_k3_cuda(src: torch.Tensor, plan: FixedFaninPlan) -> torch.Tensor:

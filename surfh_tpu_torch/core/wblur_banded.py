@@ -33,8 +33,13 @@ row gather leaves them (β-major, then λ), detector rows ``[S·A, K]``.
   into `forward_launch_shape(...).split` parts over the β runs so that
   every band fills the card; the parts are added in a fixed order by a
   second small kernel (counted in `launches_sum`), never with atomics.
+  The transpose runs one block per (row tile, λ-tile) over the tile's whole
+  width, in the instance `transpose_launch_shape` picks (row tile 64 or 32,
+  12 / 14 / 16 column groups of 8, or the general instance).
 * `wblur_banded_by_runs` — the forward spelled run by run in plain torch,
-  in the order the kernel sums: what "the sums repeat bit for bit" means.
+  in the order the kernel sums: what "the sums repeat bit for bit" means;
+  `wblur_banded_t_by_tiles` — the transpose spelled λ-tile by λ-tile from
+  the kernel's own operands (`blocks_t`, `starts_t`, runs of TL at stride W).
 * `wblur_banded` / `wblur_banded_t` — the dispatch: a CPU tensor takes the
   plain version, a CUDA tensor launches the kernel or raises.  Never a
   fallback.
@@ -64,6 +69,11 @@ H100_SMS = 132
 FWD_BLOCK_COST = 16  # a block's fixed cost
 FWD_PART_COST = 2  # the second pass, per part
 FWD_SHARED_RATE = (1.0, 1.0, 1.2)  # throughput of 1, 2, 3 blocks sharing an SM, one alone = 1
+# the transpose kernel's instances (csrc/wblur_banded.cu): rows per block,
+# column groups of 8 columns; the general instance takes any table
+T_BMS = (64, 32)
+T_CGS = (12, 14, 16)
+T_GENERAL = (64, 16)
 
 
 def reset_launches() -> None:
@@ -283,6 +293,25 @@ def wblur_banded_by_runs(win: torch.Tensor, bt: BandedTables, split: int) -> tor
     return out[:, :p.K]
 
 
+def wblur_banded_t_by_tiles(y2d: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """The transpose from the transpose kernel's own operands: per λ-tile t
+    one product of the slab of KB input columns from ``starts_t[t]`` (zeros
+    past K) with the tile's block ``blocks_t[t] [KB, B·TL]``, its B·TL result
+    columns written to B runs of TL columns at stride W (the last tile only
+    its columns below W).  Any device, any dtype."""
+    p = bt.plan_t
+    m = y2d.shape[0]
+    reach = max(int(p.starts.max()) + p.KB, p.K)
+    ypad = torch.cat([y2d, y2d.new_zeros((m, reach - p.K))], dim=1)
+    out = y2d.new_zeros((m, p.B, p.W))
+    for t, s in enumerate(int(s) for s in p.starts):
+        runs = (ypad[:, s:s + p.KB] @ bt.blocks_t[t]).view(m, p.B, p.TL)
+        l0 = t * p.TL
+        l1 = min(l0 + p.TL, p.W)
+        out[:, :, l0:l1] = runs[:, :, :l1 - l0]
+    return out.view(m, p.B * p.W)
+
+
 # ---------------------------------------------------------------------------
 # the forward kernel's launch shape
 
@@ -349,6 +378,71 @@ def _pick_split(base: int, b: int, steps: int, n_sm: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the transpose kernel's launch shape
+
+
+@dataclass(frozen=True)
+class TransposeShape:
+    """The instance of one transpose launch: a block is `bm` rows × 8·`cg`
+    columns of one λ-tile, BM/8 · CG threads; `vec`: 16-byte copies of the
+    table; grid (row tiles, λ-tiles × column blocks)."""
+
+    bm: int
+    cg: int
+    vec: bool
+    grid: tuple
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def threads(self) -> int:
+        return self.bm // 8 * self.cg
+
+
+def transpose_shape(m: int, plan_t: BandPlanT, bm: int, cg: int, vec: bool = True) -> TransposeShape:
+    """The launch of `m` rows in the instance (`bm`, `cg`, `vec`)."""
+    n = plan_t.B * plan_t.TL
+    if vec:
+        if bm not in T_BMS or cg not in T_CGS:
+            raise ValueError(f"no transpose instance bm={bm}, cg={cg}")
+        if n % 4 or n > 8 * cg:
+            raise ValueError(f"a tile's {n} columns are no multiple of 4 within {8 * cg}")
+    elif (bm, cg) != T_GENERAL:
+        raise ValueError(f"the general transpose instance is bm, cg = {T_GENERAL}")
+    return TransposeShape(bm, cg, vec, (-(-m // bm), plan_t.n_tiles * -(-n // (8 * cg))))
+
+
+def transpose_launch_shape(m: int, plan_t: BandPlanT, n_sm: int = H100_SMS,
+                           aligned: bool = True) -> TransposeShape:
+    """Pick the transpose kernel's instance for `m` rows.
+
+    A tile's n = B·TL columns (≤ 128 whenever B ≤ 128) go to one block: the
+    least of 12 / 14 / 16 column groups of 8 that holds them, so that n = 96
+    and n = 108 do not pay for 128 columns.  That needs rows of the table
+    that start on 16 bytes: n a multiple of 4 and an `aligned` base; any
+    other table (and n > 128) takes the general instance, 64 × 128 with
+    4-byte copies and column blocks.  Rows per block, 64 or 32: every warp
+    of either instance does the same work (8 × 8 outputs a lane over the
+    slab) and the warps of an SM share its shared-memory bandwidth, so the
+    time follows the warps the busiest SM gets, ⌈blocks / n_sm⌉ · ⌈threads /
+    32⌉ (a block of 96 columns × 32 rows is 48 threads and leaves half a
+    warp idle); ties go to the fewer padded rows.  Fitted to
+    `scripts/torch_kernel_sweep.py` on the H100 at the flagship's M = 336–408."""
+    n = plan_t.B * plan_t.TL
+    if n % 4 or n > 8 * max(T_CGS) or not aligned:
+        return transpose_shape(m, plan_t, *T_GENERAL, vec=False)
+    cg = next(c for c in T_CGS if n <= 8 * c)
+
+    def cost(bm):
+        blocks = -(-m // bm) * plan_t.n_tiles
+        return -(-blocks // n_sm) * -(-(bm // 8 * cg) // 32), -(-m // bm) * bm
+
+    return transpose_shape(m, plan_t, min(T_BMS, key=cost), cg)
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 
 _fns = None
@@ -363,7 +457,7 @@ def load_kernels():
         lib = build_library("wblur_banded", ["wblur_banded.cu"])
         fns = []
         for name, n_ptr, n_int in (("surfh_wblur_banded_f32", 5, 8),
-                                   ("surfh_wblur_banded_t_f32", 4, 7)):
+                                   ("surfh_wblur_banded_t_f32", 4, 10)):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -428,17 +522,24 @@ def wblur_banded_cuda(win: torch.Tensor, bt: BandedTables) -> torch.Tensor:
                                                          _sm_count(win.device)))
 
 
-def wblur_banded_t_cuda(y2d: torch.Tensor, bt: BandedTables) -> torch.Tensor:
-    """The transpose kernel: f32 y2d [S·A, K] → [S·A, B·W] on the current stream."""
+def _transpose_launch(y2d: torch.Tensor, bt: BandedTables, shape: TransposeShape) -> torch.Tensor:
+    """Launch the transpose kernel in the instance `shape` names."""
     p = bt.plan_t
     _check(y2d, p.K, bt, "wblur_banded_t kernel")
     out = torch.empty((y2d.shape[0], p.B * p.W), device=y2d.device, dtype=torch.float32)
     _launch(load_kernels()[1],
             (y2d.data_ptr(), bt.blocks_t.data_ptr(), bt.starts_t.data_ptr(), out.data_ptr(),
-             int(y2d.shape[0]), p.W, p.B, p.K, p.n_tiles, p.TL, p.KB), y2d.device)
+             int(y2d.shape[0]), p.W, p.B, p.K, p.n_tiles, p.TL, p.KB,
+             shape.bm, shape.cg, int(shape.vec)), y2d.device)
     global launches_t
     launches_t += 1
     return out
+
+
+def wblur_banded_t_cuda(y2d: torch.Tensor, bt: BandedTables) -> torch.Tensor:
+    """The transpose kernel: f32 y2d [S·A, K] → [S·A, B·W] on the current stream."""
+    return _transpose_launch(y2d, bt, transpose_launch_shape(
+        int(y2d.shape[0]), bt.plan_t, _sm_count(y2d.device), bt.blocks_t.data_ptr() % 16 == 0))
 
 
 def wblur_banded(win: torch.Tensor, bt: BandedTables) -> torch.Tensor:

@@ -16,9 +16,9 @@
 // They compute what the prototypes compute, on rows of W floats.  The TPU's
 // choices are dropped: no [n_src * SUB, 128] lane packing of the source, no
 // SMEM [TP, L] tap windows per grid step, no fori_loop over the rows of a
-// block.  Each thread owns one V-wide slice of one output row (of four rows
-// in K3); the row padding to Pp is kept only so that K3's groups of four
-// rows read inside the table.
+// block.  In K1 and K3 each thread owns one V-wide slice of one output row
+// (of four rows in K3); the row padding to Pp is kept only so that K3's
+// groups of four rows read inside the table.
 //
 // What bounds them on Hopper: bytes, not arithmetic.  The work the inputs
 // need is nnz taps (the CSR count, not Pp * L): the output P * W * 4 bytes
@@ -29,27 +29,43 @@
 //   * the source block (a few MB per pointing) stays resident in the 50 MB
 //     L2, so the C-fold reuse of its rows, and the ~4x padded taps of K1 and
 //     K3 (Pp * L against nnz), cost L2 traffic, not device-memory traffic;
-//   * the output is written once, in coalesced runs: the nvec = W / vw
-//     threads of a row write one row, vw = 4, 2 or 1 floats per thread
-//     chosen per launch from W and the base pointers' alignment (W = 466 and
-//     434 take float2, W = 181 scalar, a multiple of 4 float4) -- no padded
-//     leading dimension, so no padded copy of the source or the output;
-//   * the threads of a row read the same tap entries (an L1 broadcast);
-//     K1 issues all L source loads of a row before its FMAs, K2 four at a
-//     time, K3 the four rows' loads of one tap together: loads in flight.
-// Simple first kernels, not tuned.
+//   * the output is written once, in coalesced runs, with no padded leading
+//     dimension, so no padded copy of the source or the output.  In K1 and
+//     K3 the nvec = W / vw threads of a row write one row, vw = 4, 2 or 1
+//     floats per thread chosen per launch from W and the base pointers'
+//     alignment (W = 466 and 434 take float2, W = 181 scalar, a multiple of 4
+//     float4); the threads of a row read the same tap entries (an L1
+//     broadcast); K1 starts all L source loads of a row before its FMAs, K3
+//     the four rows' loads of one tap together: loads in flight;
+//   * K2's composed transposes have about one tap per row and half their
+//     rows empty, so a thread per slice is bound by instructions per byte
+//     (a division, the count, the taps, one load and one store for 4 bytes
+//     at odd W), not by bytes.  K2 runs the lane-group row gather of
+//     gather_lanes.cuh instead, the CSR kernel's: a power-of-two group of
+//     lanes owns a row, lane j loads tap j of the row's cnt[r] taps (at table
+//     stride L) once and the group hands them round by shuffle, a lane holds
+//     8 / 16 / 24 floats of the row (4 floats x 4 taps on rows of many
+//     taps), and the row's fixed chain is paid once per row.  The wrapper
+//     picks the shape from W, the bases' alignment and the taps per row.
+//     Rows of at most 32 columns keep a thread per (row, slice), in a
+//     two-dimensional block (x = slice, y = row) that divides no index.
+//     Either way K2 sums exactly cnt[r] taps in table order and reads
+//     nothing of src for a tap at or past cnt[r].
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "gather_lanes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxL = 8;  // static fan-in instances of K1 / K3 (surfh_tpu_torch.core.gather_fixed.MAX_L)
 constexpr int kUnroll = 4;  // rows per thread in K3
-constexpr int kTapBatch = 4;  // K2's loads in flight
+constexpr int kTapBatch = 4;  // the narrow K2's loads in flight
+static_assert(kThreads == gather_lanes::kThreads, "K2's wide kernel runs gather_lanes.cuh's blocks");
 
 __device__ __forceinline__ void fma_acc(float4& acc, float w, const float4& x) {
   acc.x = fmaf(w, x.x, acc.x);
@@ -106,16 +122,15 @@ __global__ void __launch_bounds__(kThreads) k1_kernel(
   reinterpret_cast<V*>(out)[r * nvec + v] = acc;
 }
 
-// K2: one thread per (row, V slice); exactly cnt[r] taps at table stride L.
+// K2, rows of at most 32 columns of V: one thread per (row, V slice), block
+// (nvec, kThreads / nvec); exactly cnt[r] taps at table stride L.
 template <typename V>
-__global__ void __launch_bounds__(kThreads) k2_kernel(
+__global__ void __launch_bounds__(kThreads) k2_narrow_kernel(
     const float* __restrict__ src, const int* __restrict__ tsrc, const float* __restrict__ tw,
     const int* __restrict__ cnt, float* __restrict__ out, int n_rows, int L, int nvec) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long r = t / nvec;
+  const long long r = static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
   if (r >= n_rows) return;
-  const int v = static_cast<int>(t - r * nvec);
-  const V* __restrict__ s = reinterpret_cast<const V*>(src) + v;
+  const V* __restrict__ s = reinterpret_cast<const V*>(src) + threadIdx.x;
   const int* ti = tsrc + r * L;
   const float* wi = tw + r * L;
   const int n = __ldg(cnt + r);
@@ -136,7 +151,20 @@ __global__ void __launch_bounds__(kThreads) k2_kernel(
     for (int j = 0; j < kTapBatch; ++j) fma_acc(acc, w[j], x[j]);
   }
   for (; l < n; ++l) fma_acc(acc, __ldg(wi + l), __ldg(s + static_cast<long long>(__ldg(ti + l)) * nvec));
-  reinterpret_cast<V*>(out)[r * nvec + v] = acc;
+  reinterpret_cast<V*>(out)[r * nvec + threadIdx.x] = acc;
+}
+
+// K2, wide rows: the lane-group row gather on taps 0 .. cnt[r] of row r of
+// the [Pp, L] table.  g <= 32 lanes per row; a lane holds kCols columns of V
+// and loads kTaps taps of them before their FMAs.
+template <typename V, int kCols, int kTaps>
+__global__ void __launch_bounds__(kThreads, gather_lanes::lane_blocks_per_sm<V, kCols>()) k2_kernel(
+    const float* __restrict__ src, const int* __restrict__ tsrc, const float* __restrict__ tw,
+    const int* __restrict__ cnt, float* __restrict__ out, int n_rows, int L, int nvec, int g) {
+  gather_lanes::LaneGroup q;
+  if (!gather_lanes::lane_group(g, n_rows, q)) return;
+  gather_lanes::gather_lane_row<V, kCols, kTaps>(src, tsrc + q.r * L, tw + q.r * L, 0,
+                                                 __ldg(cnt + q.r), out, nvec, g, q);
 }
 
 // K3: one thread per (group of four rows, V slice); for each tap l, the four
@@ -253,13 +281,38 @@ int launch_k3(int l, const float* src, const int* off, const float* tw, float* o
   }
 }
 
+template <typename V>
+int launch_k2_narrow(const float* src, const int* tsrc, const float* tw, const int* cnt, float* out,
+                     int n_rows, int L, int nvec, cudaStream_t st) {
+  const dim3 block(nvec, kThreads / nvec);
+  const long long gx = (static_cast<long long>(n_rows) + block.y - 1) / block.y;
+  if (gx > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  k2_narrow_kernel<V><<<static_cast<unsigned>(gx), block, 0, st>>>(src, tsrc, tw, cnt, out, n_rows, L, nvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V, int kCols, int kTaps>
+int launch_k2(const float* src, const int* tsrc, const float* tw, const int* cnt, float* out,
+              int n_rows, int L, int nvec, int g, cudaStream_t st) {
+  dim3 grid;
+  if (!gather_lanes::lane_grid<kCols>(n_rows, nvec, g, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  k2_kernel<V, kCols, kTaps><<<grid, kThreads, 0, st>>>(src, tsrc, tw, cnt, out, n_rows, L, nvec, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All pointers are device pointers, f32 / int32, contiguous: src [n_src, q],
 // tsrc / off / tw [Pp, L] (Pp >= n_rows; Pp % 4 == 0 for K3), cnt [Pp],
 // out [n_rows, q].  Each launches on `stream`, does not synchronise, and
 // returns cudaGetLastError() (0 = launched); an L outside 1 .. kMaxL (8) for
-// K1 / K3, or L <= 0 for K2, returns cudaErrorInvalidValue.
+// K1 / K3, or L <= 0 for K2, returns cudaErrorInvalidValue.  K2 takes its
+// launch shape as the CSR kernel of gather_rows.cu does: `vec` 4 (float4
+// columns: q a multiple of 4, src and out 16-byte aligned) or 1, `group` the
+// lanes per row; group = q / vec (a lane per column, at most 32) runs the
+// narrow kernel, else `cols * vec` are the floats a lane holds and `taps` the
+// taps it loads at a time: 4 x 4, 8 x 2, 16 x 1 or 24 x 1.
 extern "C" int surfh_gather_fixed_k1_f32(const float* src, const int* tsrc, const float* tw,
                                          float* out, int n_rows, int L, int q, void* stream) {
   if (n_rows <= 0 || q <= 0) return static_cast<int>(cudaSuccess);
@@ -268,22 +321,30 @@ extern "C" int surfh_gather_fixed_k1_f32(const float* src, const int* tsrc, cons
 
 extern "C" int surfh_gather_fixed_k2_f32(const float* src, const int* tsrc, const float* tw,
                                          const int* cnt, float* out, int n_rows, int L, int q,
-                                         void* stream) {
+                                         int vec, int cols, int taps, int group, void* stream) {
   if (n_rows <= 0 || q <= 0) return static_cast<int>(cudaSuccess);
-  if (L <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int vw = vec_width(q, src, out);
-  const int nvec = q / vw;
-  unsigned blocks;
-  if (!grid_of(static_cast<long long>(n_rows) * nvec, &blocks)) return cudaErrorInvalidConfiguration;
+  if (L <= 0 || group < 1 || group > 32 || (vec != 1 && vec != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 4 && (q % 4 != 0 || !aligned(src, 16) || !aligned(out, 16)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vw == 4) {
-    k2_kernel<float4><<<blocks, kThreads, 0, st>>>(src, tsrc, tw, cnt, out, n_rows, L, nvec);
-  } else if (vw == 2) {
-    k2_kernel<float2><<<blocks, kThreads, 0, st>>>(src, tsrc, tw, cnt, out, n_rows, L, nvec);
-  } else {
-    k2_kernel<float><<<blocks, kThreads, 0, st>>>(src, tsrc, tw, cnt, out, n_rows, L, nvec);
+  if (group * vec == q) {
+    if (vec == 4) return launch_k2_narrow<float4>(src, tsrc, tw, cnt, out, n_rows, L, group, st);
+    return launch_k2_narrow<float>(src, tsrc, tw, cnt, out, n_rows, L, group, st);
   }
-  return static_cast<int>(cudaGetLastError());
+#define SURFH_K2_CASE(V, C, T)                        \
+  if (vec * 4 == sizeof(V) && cols == C && taps == T) \
+    return launch_k2<V, C, T>(src, tsrc, tw, cnt, out, n_rows, L, q / vec, group, st);
+  SURFH_K2_CASE(float4, 1, 4)
+  SURFH_K2_CASE(float4, 2, 2)
+  SURFH_K2_CASE(float4, 4, 1)
+  SURFH_K2_CASE(float4, 6, 1)
+  SURFH_K2_CASE(float, 4, 4)
+  SURFH_K2_CASE(float, 8, 2)
+  SURFH_K2_CASE(float, 16, 1)
+  SURFH_K2_CASE(float, 24, 1)
+#undef SURFH_K2_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int surfh_gather_fixed_k3_f32(const float* src, const int* off, const float* tw,

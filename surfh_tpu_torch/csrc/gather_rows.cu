@@ -31,7 +31,8 @@
 // 241-613) that shape is bound by instructions, not bytes, and Q mod 4
 // decides its time (on the H100, 19-22 % of the byte bound at odd Q against
 // 70 % on float4).  gather_rows_kernel spends instructions once per row
-// there and keeps many bytes in flight per lane:
+// there and keeps many bytes in flight per lane (its row body is
+// gather_lanes.cuh, which K2 of gather_fixed.cu runs on its own taps):
 //   * a group of G lanes (a power of two <= 32, picked by the wrapper from
 //     Q) owns one output row, 32 / G rows to a warp; the row comes from the
 //     block, warp and lane index, no division.  (The kernel takes any
@@ -64,27 +65,13 @@
 #include <climits>
 #include <cstdint>
 
+#include "gather_lanes.cuh"
+
 namespace {
 
-__device__ __forceinline__ void fma_acc(float4& acc, float wk, const float4& x) {
-  acc.x = fmaf(wk, x.x, acc.x);
-  acc.y = fmaf(wk, x.y, acc.y);
-  acc.z = fmaf(wk, x.z, acc.z);
-  acc.w = fmaf(wk, x.w, acc.w);
-}
-
-__device__ __forceinline__ void fma_acc(float& acc, float wk, float x) {
-  acc = fmaf(wk, x, acc);
-}
-
-template <typename V>
-__device__ __forceinline__ V zero_of();
-template <>
-__device__ __forceinline__ float4 zero_of<float4>() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-template <>
-__device__ __forceinline__ float zero_of<float>() { return 0.f; }
-
-constexpr int kThreads = 256;
+using gather_lanes::kThreads;
+using gather_lanes::lane_fma;
+using gather_lanes::lane_zero;
 
 // Narrow rows: nvec <= 32 columns of V per row, one thread per (row, column),
 // block (nvec, kThreads / nvec).  The threads of a row read the same index
@@ -101,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) gather_rows_narrow_kernel(
   const V* __restrict__ s = reinterpret_cast<const V*>(src) + threadIdx.x;
   const int k1 = __ldg(row_ptr + r + 1);
   int k = __ldg(row_ptr + r);
-  V acc = zero_of<V>();
+  V acc = lane_zero<V>();
   for (; k + kTaps <= k1; k += kTaps) {
     int i[kTaps];
     float wk[kTaps];
@@ -114,103 +101,36 @@ __global__ void __launch_bounds__(kThreads) gather_rows_narrow_kernel(
 #pragma unroll
     for (int t = 0; t < kTaps; ++t) x[t] = __ldg(s + static_cast<long long>(i[t]) * nvec);
 #pragma unroll
-    for (int t = 0; t < kTaps; ++t) fma_acc(acc, wk[t], x[t]);
+    for (int t = 0; t < kTaps; ++t) lane_fma(acc, wk[t], x[t]);
   }
   for (; k < k1; ++k)
-    fma_acc(acc, __ldg(w + k), __ldg(s + static_cast<long long>(__ldg(idx + k)) * nvec));
+    lane_fma(acc, __ldg(w + k), __ldg(s + static_cast<long long>(__ldg(idx + k)) * nvec));
   reinterpret_cast<V*>(out)[r * nvec + threadIdx.x] = acc;
 }
 
-// Wide rows.  V = float4 (Q % 4 == 0, aligned bases) or float; nvec = Q /
-// (sizeof(V) / 4) columns of V per row; g <= 32 lanes per row, 32 / g rows
-// per warp (the warp's other lanes idle); a lane holds kCols columns and
-// loads kTaps taps of them before their FMAs.  Four blocks per SM (64
-// registers); five at 8 floats a lane (51 registers, 8 bytes spilled): on
-// rows of up to 256 floats the blocks in flight count for more.
-// grid: x = chunks of kCols * g columns (so the blocks that write one row
-// run together), y and z = groups of (kThreads / 32) * (32 / g) rows.
+// Wide rows: the lane-group row gather of gather_lanes.cuh on the CSR taps
+// row_ptr[r] .. row_ptr[r + 1] of row r.  V = float4 (Q % 4 == 0, aligned
+// bases) or float; nvec = Q / (sizeof(V) / 4) columns of V per row; g <= 32
+// lanes per row, 32 / g rows per warp (the warp's other lanes idle); a lane
+// holds kCols columns and loads kTaps taps of them before their FMAs.
 template <typename V, int kCols, int kTaps>
-__global__ void __launch_bounds__(kThreads, kCols * sizeof(V) == 32 ? 5 : 4) gather_rows_kernel(
+__global__ void __launch_bounds__(kThreads, gather_lanes::lane_blocks_per_sm<V, kCols>()) gather_rows_kernel(
     const float* __restrict__ src, const int* __restrict__ row_ptr,
     const int* __restrict__ idx, const float* __restrict__ w,
     float* __restrict__ out, int n_rows, int nvec, int g) {
-  const int rows_per_warp = 32 / g;
-  const int sub = (threadIdx.x & 31) / g;  // this lane's group within its warp
-  if (sub >= rows_per_warp) return;
-  const int first = sub * g;  // the group's first lane
-  const int lane = (threadIdx.x & 31) - first;
-  const long long warp = (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * (kThreads / 32) +
-                         (threadIdx.x >> 5);
-  const long long r = warp * rows_per_warp + sub;
-  if (r >= n_rows) return;  // a whole group leaves together
-  // the lanes of this group: the shuffles below involve no other
-  const unsigned mask = (g == 32 ? 0xffffffffu : (1u << g) - 1u) << first;
-  const int c0 = blockIdx.x * (kCols * g) + lane;  // this lane's first column
-  const int k0 = __ldg(row_ptr + r);
-  const int k1 = __ldg(row_ptr + r + 1);
-  const V* __restrict__ s = reinterpret_cast<const V*>(src) + c0;
-
-  V acc[kCols];
-#pragma unroll
-  for (int u = 0; u < kCols; ++u) acc[u] = zero_of<V>();
-
-  for (int kc = k0; kc < k1; kc += g) {  // G taps at a time, in plan order
-    int my_i = 0;
-    float my_w = 0.f;
-    if (kc + lane < k1) {
-      my_i = __ldg(idx + kc + lane);
-      my_w = __ldg(w + kc + lane);
-    }
-    const int n = min(g, k1 - kc);
-    int j = 0;
-    for (; j + kTaps <= n; j += kTaps) {
-      long long off[kTaps];
-      float wj[kTaps];
-      V x[kTaps][kCols];
-#pragma unroll
-      for (int t = 0; t < kTaps; ++t) {
-        off[t] = static_cast<long long>(__shfl_sync(mask, my_i, first + j + t)) * nvec;
-        wj[t] = __shfl_sync(mask, my_w, first + j + t);
-      }
-#pragma unroll
-      for (int t = 0; t < kTaps; ++t)
-#pragma unroll
-        for (int u = 0; u < kCols; ++u)
-          x[t][u] = c0 + u * g < nvec ? __ldg(s + off[t] + u * g) : zero_of<V>();
-#pragma unroll
-      for (int t = 0; t < kTaps; ++t)
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) fma_acc(acc[u], wj[t], x[t][u]);
-    }
-    for (; j < n; ++j) {
-      const long long off = static_cast<long long>(__shfl_sync(mask, my_i, first + j)) * nvec;
-      const float wj = __shfl_sync(mask, my_w, first + j);
-      V x[kCols];
-#pragma unroll
-      for (int u = 0; u < kCols; ++u)
-        x[u] = c0 + u * g < nvec ? __ldg(s + off + u * g) : zero_of<V>();
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) fma_acc(acc[u], wj, x[u]);
-    }
-  }
-
-  V* __restrict__ o = reinterpret_cast<V*>(out) + r * nvec + c0;
-#pragma unroll
-  for (int u = 0; u < kCols; ++u)
-    if (c0 + u * g < nvec) o[u * g] = acc[u];
+  gather_lanes::LaneGroup q;
+  if (!gather_lanes::lane_group(g, n_rows, q)) return;
+  const int k0 = __ldg(row_ptr + q.r);
+  const int k1 = __ldg(row_ptr + q.r + 1);
+  gather_lanes::gather_lane_row<V, kCols, kTaps>(src, idx, w, k0, k1, out, nvec, g, q);
 }
 
 template <typename V, int kCols, int kTaps>
 int launch(const float* src, const int* row_ptr, const int* idx, const float* w, float* out,
            int n_rows, int nvec, int g, cudaStream_t st) {
-  const long long rows_per_block = (kThreads / 32) * (32 / g);
-  const long long row_groups = (n_rows + rows_per_block - 1) / rows_per_block;
-  const long long per_chunk = static_cast<long long>(kCols) * g;
-  const long long gx = (nvec + per_chunk - 1) / per_chunk;
-  const long long gy = row_groups < 32768 ? row_groups : 32768;
-  const long long gz = (row_groups + gy - 1) / gy;
-  if (gx > INT_MAX || gz > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy), static_cast<unsigned>(gz));
+  dim3 grid;
+  if (!gather_lanes::lane_grid<kCols>(n_rows, nvec, g, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   gather_rows_kernel<V, kCols, kTaps>
       <<<grid, kThreads, 0, st>>>(src, row_ptr, idx, w, out, n_rows, nvec, g);
   return static_cast<int>(cudaGetLastError());

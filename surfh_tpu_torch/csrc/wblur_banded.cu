@@ -53,11 +53,44 @@
 //     with zeros by cp.async's source size (0: nothing is read); the last
 //     tile stores only k < K.
 //
-// The transpose (wblur_banded_t_kernel) is a plain tiled GEMM: one
-// 64 x 64 x 16 shared-memory tile per block, a 4 x 4 register tile per
-// thread, no pipeline.  A slab that runs past K (KB rounded up to 128) reads
-// zeros, and a partial last tile writes only its valid columns.  Every output
-// element belongs to exactly one block.
+// The transpose (wblur_banded_t_kernel) is one GEMM per lambda-tile too,
+// [M, KB] x [KB, n = B*TL]: the A operand is the slab of KB columns of y from
+// starts_t[t], the B operand the tile's block, and the n result columns go to
+// B runs of TL columns at stride W.  Same register tile and ring as the
+// forward (8 x 8 outputs a thread on 16-byte shared-memory loads, A stored
+// contraction-major, kStages stages of 8 terms filled by cp.async, one
+// __syncthreads() per step), shaped to these operands:
+//   * A block covers the whole width n <= 128 of one lambda-tile, so a slab
+//     element is loaded once per row block, and the width is a template
+//     parameter: CG column groups of 8 columns, 12 / 14 / 16 for n <= 96 /
+//     112 / 128 (8 * CG or, on 32-row tiles, 4 * CG threads), so that B = 12
+//     (n = 96) and B = 27 (n = 108) do not pay for 128 columns.
+//   * The slab is the unaligned operand (starts_t[t] is any integer, K may be
+//     odd): 4-byte copies, transposed on the way into shared memory.  The
+//     block's rows are 16-byte aligned when n % 4 == 0: 16-byte copies.  One
+//     general instance (4-byte copies of B, 128 columns, column blocks over
+//     blockIdx.y) takes every other table: n % 4 != 0, a misaligned base,
+//     n > 128.
+//   * Threads are laid out in aligned groups of eight (the unit in which a
+//     16-byte shared-memory load is served): the first BM threads are (row
+//     group, column group 0..7), the rest (row group, column group
+//     8..CG-1).  A group of eight then reads at most eight distinct 16-byte
+//     chunks of B that lie in distinct banks, and at most three of A.
+//   * Ragged edges: rows m >= M, slab columns with s + c outside [0, K) (KB
+//     rounded up to 128 can run past K) and columns >= n are filled with
+//     zeros by cp.async's source size; a partial last tile stores only its
+//     columns below W.
+//   * The stores are 4-byte (W is odd on most bands, so no run of the output
+//     is 16-byte aligned) and go through the ring's shared memory, half the
+//     tile's rows at a time, so that eight lanes write eight consecutive
+//     columns of one row: whole runs of TL = 4 or 8 columns in one
+//     instruction, where a thread's own 4 columns would be four partial
+//     writes of one 32-byte sector (on the H100 that cost band 4a, TL = 4,
+//     0.077 ms against 0.049 staged).
+//   * No split: the grid is (row blocks) x (lambda-tiles), 189-858 blocks on
+//     the flagship's bands.  The wrapper picks the row tile (64 or 32) and CG
+//     from the shapes.  Every output element belongs to exactly one block and
+//     is summed in one order: launches repeat bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -252,12 +285,8 @@ __global__ void __launch_bounds__(256) wblur_banded_sum_parts_kernel(
 // ---------------------------------------------------------------------------
 // transpose
 
-constexpr int kBM = 64;   // rows of M per block
-constexpr int kBN = 64;   // output columns of one tile per block
-constexpr int kBK = 16;   // contraction step
-constexpr int kThreads = 256;
-constexpr int kTM = kBM / 16;  // rows per thread (strided by 16)
-constexpr int kTN = kBN / 16;  // columns per thread (strided by 16)
+constexpr int kTBK = 8;     // contraction terms per pipeline step
+constexpr int kTStages = 4;
 
 struct BandedTArgs {
   const float* y;       // input rows [m, k]
@@ -269,84 +298,187 @@ struct BandedTArgs {
   int tl, w;                // result: runs of tl columns at stride w, valid below w
 };
 
-// One GEMM per lambda-tile: the A operand is the tile's slab of KB input
-// columns from starts[t], the B operand the tile's block, and the result
-// columns go to B runs of TL columns at stride W.
-__global__ void __launch_bounds__(kThreads) wblur_banded_t_kernel(const BandedTArgs p) {
-  __shared__ float as[kBK][kBM + 1];  // A tile, contraction-major (+1: no bank conflicts on store)
-  __shared__ float bs[kBK][kBN];
+// Blocks per SM so that a thread may hold up to 168 registers (the 8 x 8
+// accumulators need ~145): 12 warps per SM.
+constexpr int transpose_blocks_per_sm(int threads) { return 12 / ((threads + 31) / 32); }
+
+// BM rows x (8 * CG) columns of one lambda-tile per block; BM / 8 row groups
+// x CG column groups of threads, 8 x 8 outputs each (rows ty*4 + 0..3 and
+// BM/2 + ty*4 + 0..3, columns tx*4 + 0..3 and 4*CG + tx*4 + 0..3).  kVecB:
+// rows of the block are 16-byte aligned (n % 4 == 0, aligned base).
+template <int BM, int CG, bool kVecB>
+__global__ void __launch_bounds__(BM / 8 * CG, transpose_blocks_per_sm(BM / 8 * CG))
+    wblur_banded_t_kernel(const BandedTArgs p) {
+  static_assert(CG > 8 && CG <= 16 && BM % 8 == 0, "column groups 9..16, row groups of 8 rows");
+  constexpr int kThreads = BM / 8 * CG;
+  constexpr int BN = 8 * CG;
+  constexpr int kAS = BM + 4;  // A stage stride: 4-byte transposed stores and 16-byte loads conflict-free
+  constexpr int kTS = BN + 8;  // stride of the staged output rows: four rows of 8 columns on distinct banks
+  constexpr int kRing = kTStages * kTBK * (kAS + BN);
+  static_assert(BM / 2 * kTS <= kRing, "half the output tile is staged in the ring's memory");
+  // the ring: A [kTStages][kTBK][kAS], contraction-major, then B [kTStages][kTBK][BN]
+  __shared__ __align__(16) float smem[kRing];
+  float* const as = smem;
+  float* const bs = smem + kTStages * kTBK * kAS;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * kBM;
+  constexpr int kFirst = BM;  // threads of column groups 0..7: 8 per row group
+  const int ty = tid < kFirst ? tid >> 3 : (tid - kFirst) / (CG - 8);
+  const int tx = tid < kFirst ? tid & 7 : 8 + (tid - kFirst) % (CG - 8);
+  const int m0 = blockIdx.x * BM;
   const int tile = blockIdx.y / p.n_col_blocks;
-  const int n0 = (blockIdx.y % p.n_col_blocks) * kBN;
+  const int n0 = (blockIdx.y % p.n_col_blocks) * BN;
   const int s = __ldg(p.starts + tile);
   const float* __restrict__ blk = p.blocks + static_cast<long long>(tile) * p.kb * p.n;
 
-  float acc[kTM][kTN];
+  // this thread's copies of one step.  A: terms (a_kk, a_row + kARows * r),
+  // consecutive threads on consecutive slab columns.  B: 16-byte (4-byte)
+  // chunks (b_kk + kBRows * r, b_col), consecutive threads along a table row.
+  constexpr int kARows = kThreads / 8;
+  constexpr int kAPasses = (BM + kARows - 1) / kARows;
+  constexpr int kBW = kVecB ? 4 : 1;
+  constexpr int kBChunks = BN / kBW;
+  static_assert(kThreads % 8 == 0 && kThreads % kBChunks == 0, "whole rows of copies per pass");
+  constexpr int kBRows = kThreads / kBChunks;
+  constexpr int kBPasses = kTBK / kBRows;
+  static_assert(kBRows * kBPasses == kTBK, "the passes cover a step");
+  const int a_kk = tid & 7;
+  const int a_row = tid >> 3;
+  const int b_kk = tid / kBChunks;
+  const int b_col = (tid % kBChunks) * kBW;
+  const bool b_col_ok = n0 + b_col < p.n;
+  bool a_row_ok[kAPasses];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  for (int r = 0; r < kAPasses; ++r) a_row_ok[r] = m0 + a_row + kARows * r < p.m;
+  const long long a_pass = static_cast<long long>(kARows) * p.k;
+  const long long b_pass = static_cast<long long>(kBRows) * p.n;
+  const float* a_ptr = p.y + static_cast<long long>(m0 + a_row) * p.k + s + a_kk;
+  const float* b_ptr = blk + static_cast<long long>(b_kk) * p.n + n0 + b_col;
+  constexpr unsigned kAStage = kTBK * kAS * sizeof(float);
+  constexpr unsigned kBStage = kTBK * BN * sizeof(float);
+  const unsigned a_dst0 = static_cast<unsigned>(__cvta_generic_to_shared(as + a_kk * kAS + a_row));
+  const unsigned b_dst0 = static_cast<unsigned>(__cvta_generic_to_shared(bs + b_kk * BN + b_col));
+  int c0 = 0;          // first term of the next step to copy
+  int fill_stage = 0;  // the stage it goes to
 
-  for (int c0 = 0; c0 < p.kb; c0 += kBK) {
-    // A tile: kBM x kBK, consecutive threads on consecutive slab columns
+  const int total = (p.kb + kTBK - 1) / kTBK;
+
+  auto copy_step = [&]() {
+    const int c = c0 + a_kk;
+    const bool a_ok = c < p.kb && static_cast<unsigned>(s + c) < static_cast<unsigned>(p.k);
+    const unsigned a_dst = a_dst0 + fill_stage * kAStage;
+    const unsigned b_dst = b_dst0 + fill_stage * kBStage;
 #pragma unroll
-    for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      const int row = e / kBK;
-      const int cc = e % kBK;
-      const int c = c0 + cc;
-      const int m = m0 + row;
-      float v = 0.f;
-      if (m < p.m && c < p.kb && s + c < p.k)
-        v = __ldg(p.y + static_cast<long long>(m) * p.k + s + c);
-      as[cc][row] = v;
+    for (int r = 0; r < kAPasses; ++r)
+      if ((r + 1) * kARows <= BM || a_row + kARows * r < BM)  // the last pass may pass the tile's rows
+        cp_async_4(a_dst + r * kARows * sizeof(float), a_ptr + r * a_pass, a_ok && a_row_ok[r]);
+#pragma unroll
+    for (int r = 0; r < kBPasses; ++r) {
+      const bool ok = b_col_ok && c0 + b_kk + kBRows * r < p.kb;
+      if constexpr (kVecB) {
+        cp_async_16(b_dst + r * kBRows * BN * sizeof(float), b_ptr + r * b_pass, ok);
+      } else {
+        cp_async_4(b_dst + r * kBRows * BN * sizeof(float), b_ptr + r * b_pass, ok);
+      }
     }
-    // B tile: kBK x kBN of the tile's block, consecutive threads on consecutive columns
+    fill_stage = fill_stage + 1 == kTStages ? 0 : fill_stage + 1;
+    c0 += kTBK;
+    a_ptr += kTBK;
+    b_ptr += kTBK * static_cast<long long>(p.n);
+  };
+
+  float acc[8][8];
 #pragma unroll
-    for (int r = 0; r < (kBK * kBN) / kThreads; ++r) {
-      const int e = tid + r * kThreads;
-      const int row = e / kBN;
-      const int col = e % kBN;
-      const int c = c0 + row;
-      const int n = n0 + col;
-      bs[row][col] = (c < p.kb && n < p.n)
-                         ? __ldg(blk + static_cast<long long>(c) * p.n + n)
-                         : 0.f;
-    }
-    __syncthreads();
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM], bv[kTN];
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = as[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int st = 0; st < kTStages - 1; ++st) {
+    if (st < total) copy_step();
+    cp_async_commit();  // one group per step, empty past the end: the wait below counts groups
   }
 
+  const float* a_rd = as + ty * 4;
+  const float* b_rd = bs + tx * 4;
+  int stage = 0;
+  for (int step = 0; step < total; ++step) {
+    cp_async_wait<kTStages - 2>();  // this step's stage has landed (for this thread's copies)
+    __syncthreads();                // ... for everyone's, and everyone has left the stage refilled next
+    if (step + kTStages - 1 < total) copy_step();
+    cp_async_commit();
+
+    const float* a_st = a_rd + stage * (kTBK * kAS);
+    const float* b_st = b_rd + stage * (kTBK * BN);
+    stage = stage + 1 == kTStages ? 0 : stage + 1;
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int n = n0 + tx + 16 * j;
-    if (n >= p.n) continue;
-    const int seg = n / p.tl;
-    const int pos = tile * p.tl + n - seg * p.tl;
-    if (pos >= p.w) continue;
-    const int col = seg * p.w + pos;
+    for (int kk = 0; kk < kTBK; ++kk) {
+      const float4 a_lo = *reinterpret_cast<const float4*>(a_st + kk * kAS);
+      const float4 a_hi = *reinterpret_cast<const float4*>(a_st + kk * kAS + BM / 2);
+      const float4 b_lo = *reinterpret_cast<const float4*>(b_st + kk * BN);
+      const float4 b_hi = *reinterpret_cast<const float4*>(b_st + kk * BN + BN / 2);
+      const float av[8] = {a_lo.x, a_lo.y, a_lo.z, a_lo.w, a_hi.x, a_hi.y, a_hi.z, a_hi.w};
+      const float bv[8] = {b_lo.x, b_lo.y, b_lo.z, b_lo.w, b_hi.x, b_hi.y, b_hi.z, b_hi.w};
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int m = m0 + ty + 16 * i;
-      if (m < p.m) p.out[static_cast<long long>(m) * p.ldc + col] = acc[i][j];
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
   }
+  cp_async_wait<0>();
+
+  // The stores go through shared memory, half the tile's rows at a time: a
+  // thread's own 4 consecutive columns would reach memory as four 4-byte
+  // writes to one 32-byte sector, one per instruction.  Staged, a group of
+  // eight lanes writes eight consecutive columns of one row (whole runs of
+  // TL <= 8 columns, half a run of 16) in one instruction.
+  // Column j of the tile's n -> run j / tl, position tile*tl + j % tl of the
+  // run; -1: not a column of the output (past n, or past w in the last tile).
+  constexpr int kOct = kThreads / 8;
+  const int oct = tid >> 3;
+  const int l8 = tid & 7;
+  int col[CG];
+#pragma unroll
+  for (int q = 0; q < CG; ++q) {
+    const int n = n0 + l8 + 8 * q;
+    col[q] = -1;
+    if (n < p.n) {
+      const int seg = n / p.tl;
+      const int pos = tile * p.tl + n - seg * p.tl;
+      if (pos < p.w) col[q] = seg * p.w + pos;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    __syncthreads();  // everyone has left the ring (h = 0), the first half's rows (h = 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* t = smem + (ty * 4 + i) * kTS + tx * 4;
+      *reinterpret_cast<float4*>(t) =
+          make_float4(acc[4 * h + i][0], acc[4 * h + i][1], acc[4 * h + i][2], acc[4 * h + i][3]);
+      *reinterpret_cast<float4*>(t + BN / 2) =
+          make_float4(acc[4 * h + i][4], acc[4 * h + i][5], acc[4 * h + i][6], acc[4 * h + i][7]);
+    }
+    __syncthreads();
+    for (int row = oct; row < BM / 2; row += kOct) {
+      const int m = m0 + h * (BM / 2) + row;
+      if (m >= p.m) break;
+      float* __restrict__ o = p.out + static_cast<long long>(m) * p.ldc;
+      const float* t = smem + row * kTS + l8;
+#pragma unroll
+      for (int q = 0; q < CG; ++q)
+        if (col[q] >= 0) o[col[q]] = t[8 * q];
+    }
+  }
+}
+
+template <int BM, int CG, bool kVecB>
+int launch_transpose(const BandedTArgs& p, int n_tiles, cudaStream_t st) {
+  const long long gy = static_cast<long long>(n_tiles) * p.n_col_blocks;
+  if (gy > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dim3 grid(static_cast<unsigned>((p.m + BM - 1) / BM), static_cast<unsigned>(gy));
+  wblur_banded_t_kernel<BM, CG, kVecB><<<grid, BM / 8 * CG, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -395,10 +527,14 @@ extern "C" int surfh_wblur_banded_f32(const float* win, const float* blocks, con
 }
 
 // Transpose.  y [m, k], blocks_t [n_tiles, kb, b*tl], starts_t [n_tiles],
-// out [m, b*w]; same conventions.
+// out [m, b*w]; same conventions.  `bm` x (8 * `cg`) is the block's tile: bm
+// 64 or 32 and cg 12, 14 or 16 with `vec` = 1 (16-byte copies of the table:
+// b*tl a multiple of 4 and at most 8 * cg, blocks_t 16-byte aligned), or the
+// general instance bm = 64, cg = 16, vec = 0 for any table.
 extern "C" int surfh_wblur_banded_t_f32(const float* y, const float* blocks_t,
                                         const int* starts_t, float* out, int m, int w, int b,
-                                        int k, int n_tiles, int tl, int kb, void* stream) {
+                                        int k, int n_tiles, int tl, int kb, int bm, int cg,
+                                        int vec, void* stream) {
   if (m <= 0 || n_tiles <= 0 || b <= 0 || tl <= 0) return static_cast<int>(cudaSuccess);
   BandedTArgs p{};
   p.y = y;
@@ -410,12 +546,25 @@ extern "C" int surfh_wblur_banded_t_f32(const float* y, const float* blocks_t,
   p.ldc = b * w;
   p.kb = kb;
   p.n = b * tl;
-  p.n_col_blocks = (p.n + kBN - 1) / kBN;
+  p.n_col_blocks = (p.n + 8 * cg - 1) / (8 * cg);
   p.tl = tl;
   p.w = w;
-  const long long gy = static_cast<long long>(n_tiles) * p.n_col_blocks;
-  if (gy > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid(static_cast<unsigned>((m + kBM - 1) / kBM), static_cast<unsigned>(gy));
-  wblur_banded_t_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 0) {
+    if (bm != 64 || cg != 16) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_transpose<64, 16, false>(p, n_tiles, st);
+  }
+  if (p.n % 4 != 0 || p.n > 8 * cg) return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<std::uintptr_t>(blocks_t) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+#define SURFH_TRANSPOSE_CASE(BM, CG) \
+  if (bm == BM && cg == CG) return launch_transpose<BM, CG, true>(p, n_tiles, st);
+  SURFH_TRANSPOSE_CASE(64, 12)
+  SURFH_TRANSPOSE_CASE(64, 14)
+  SURFH_TRANSPOSE_CASE(64, 16)
+  SURFH_TRANSPOSE_CASE(32, 12)
+  SURFH_TRANSPOSE_CASE(32, 14)
+  SURFH_TRANSPOSE_CASE(32, 16)
+#undef SURFH_TRANSPOSE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,7 @@
 """The port's NumPy host table functions against the reference's, bit for bit:
 bilinear plans, the composed window plan, the Slicer tables, the PSF
-stack, the flagship problem generator, and the channel geometry."""
+stack, the flagship problem generator, and the channel geometry; and the
+name under which the port's CUDA libraries are built."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -83,3 +84,33 @@ def test_flagship_setup_matches_reference():
     for a, b in zip(got["instrs"], want["instrs"]):
         assert a.name == b.name and a.n_slit == b.n_slit
         np.testing.assert_array_equal(a.wavel_axis, b.wavel_axis)
+
+
+def test_library_name_hashes_every_file_the_build_reads(tmp_path, monkeypatch):
+    """An edited header renames the libraries that include it (a stale
+    library is never loaded), and no other."""
+    import shutil
+
+    from surfh_tpu_torch.core import _build
+
+    libs = {"gather_rows": ["gather_rows.cu"], "gather_fixed": ["gather_fixed.cu"],
+            "wblur_banded": ["wblur_banded.cu"]}
+    assert _build.build_inputs(libs["gather_rows"]) == ["gather_rows.cu", "gather_lanes.cuh"]
+    assert _build.build_inputs(libs["gather_fixed"]) == ["gather_fixed.cu", "gather_lanes.cuh"]
+    # every file of csrc/ is read by some build, and every include is a file there
+    read = {f for srcs in libs.values() for f in _build.build_inputs(srcs)}
+    assert read == {p.name for p in _build.CSRC.iterdir() if p.is_file()}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name, srcs) for name, srcs in libs.items()}
+    assert before == {name: _build.library_path(name, srcs) for name, srcs in libs.items()}
+    with open(csrc / "gather_lanes.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {name: _build.library_path(name, srcs) for name, srcs in libs.items()}
+    assert after["gather_rows"] != before["gather_rows"]
+    assert after["gather_fixed"] != before["gather_fixed"]
+    assert after["wblur_banded"] == before["wblur_banded"]
+    with open(csrc / "wblur_banded.cu", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path("wblur_banded", libs["wblur_banded"]) != before["wblur_banded"]

@@ -186,6 +186,69 @@ def test_wblur_banded_forward_every_split(K, W, B, LB, m):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [391, 70])
+@pytest.mark.parametrize("K, KB", [(300, 128), (200, 256)])  # a slab inside K; KB > K: it runs past K
+@pytest.mark.parametrize("B", [1, 5, 12, 20, 27, 33])  # n = B·TL = 16, 80, 96, 100, 108, 99
+def test_wblur_banded_transpose_every_instance(B, K, KB, m):
+    """The transpose kernel in every instance that takes the table (row tile
+    64 / 32, 12 / 14 / 16 column groups, the general instance; from an
+    aligned table and from one a float into its storage): odd slab offsets,
+    slabs that run past K, TL a power of two and not (5, 3), a partial last
+    λ-tile, against the f64 plain version and bit for bit on a second launch."""
+    import dataclasses
+
+    from surfh_tpu_torch.core import wblur_banded as wb
+
+    dev = _cuda()
+    rng = np.random.default_rng(100 * B + K)
+    W = 61
+    Bp = -(-B // 8) * 8
+    TL = max(1, 128 // Bp)
+    nT = -(-W // TL)
+    if KB < K:
+        starts = np.round(np.linspace(0, K - KB, nT)).astype(np.int64) | 1
+    else:
+        starts = 2 * (np.arange(nT) % 5) + 1
+    assert (starts % 2 == 1).all() and starts.max() + KB > K and W % TL
+    plan_t = wb.BandPlanT(starts.astype(np.int32), K, W, B, Bp, TL, KB)
+    wpsf = rng.uniform(0.5, 1.5, (K, W, B)) * plan_t.mask()[:, :, None]
+    plan = wb.build_band_plan(wpsf)
+    bt32 = wb.banded_tables(torch.as_tensor(wpsf, dtype=torch.float32, device=dev), plan, plan_t)
+    bt64 = wb.banded_tables(torch.as_tensor(wpsf, device=dev), plan, plan_t)
+    store = torch.empty(bt32.blocks_t.numel() + 1, device=dev)
+    off1 = dataclasses.replace(bt32, blocks_t=store[1:].view(bt32.blocks_t.shape).copy_(bt32.blocks_t))
+    assert off1.blocks_t.data_ptr() % 16 == 4 and off1.blocks_t.is_contiguous()
+    y2d = torch.as_tensor(rng.standard_normal((m, K)), dtype=torch.float32, device=dev)
+    want = wb.wblur_banded_t_reference(y2d.double(), bt64)
+    by_tiles = wb.wblur_banded_t_by_tiles(y2d.double(), bt64)
+    assert float((by_tiles - want).abs().max() / want.abs().max()) <= 1e-12
+    n = B * TL
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    picked = wb.transpose_launch_shape(m, plan_t, n_sm)
+    assert picked.vec == (n % 4 == 0)
+    shapes = [(bt32, wb.transpose_shape(m, plan_t, *wb.T_GENERAL, vec=False)),
+              (off1, wb.transpose_shape(m, plan_t, *wb.T_GENERAL, vec=False))]
+    if n % 4 == 0:
+        shapes += [(bt32, wb.transpose_shape(m, plan_t, bm, cg)) for bm in wb.T_BMS for cg in wb.T_CGS
+                   if n <= 8 * cg]
+    for bt, shape in shapes:
+        before = wb.launches_t
+        got = wb._transpose_launch(y2d, bt, shape)
+        again = wb._transpose_launch(y2d, bt, shape)
+        torch.cuda.synchronize()
+        assert wb.launches_t == before + 2
+        # f32 FMAs over ≤ KB terms against f64
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5, shape
+        assert torch.equal(got, again), shape
+    assert torch.equal(wb.wblur_banded_t(y2d, bt32), wb._transpose_launch(y2d, bt32, picked))
+    # a table that does not start on 16 bytes takes the general instance
+    assert float((wb.wblur_banded_t(y2d, off1).double() - want).abs().max() / want.abs().max()) <= 1e-5
+    if n % 4 == 0:
+        with pytest.raises(RuntimeError):  # 16-byte copies from a misaligned table: refused, not launched
+            wb._transpose_launch(y2d, off1, picked)
+
+
+@pytest.mark.cuda
 def test_wblur_banded_kernels_reject_what_they_do_not_take():
     from surfh_tpu_torch.core import wblur_banded as wb
 
@@ -292,3 +355,51 @@ def test_gather_fixed_kernels_reject_what_they_do_not_take():
     # K2's tap loop is dynamic: any L
     got, want = gf.gather_fixed_k2(src, w32), gf.gather_fixed_k2_reference(src, w32)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("L", [1, 7, 8, 40])
+@pytest.mark.parametrize("W", [13, 52, 181, 241, 466, 613, 1000])
+def test_gather_fixed_k2_shapes(W, L, misaligned):
+    """K2 in every launch shape (a lane per column; 1 to 32 lanes per row
+    with 8 / 16 / 24 floats a lane, 4 floats × 4 taps at L = 40; float4 and
+    single floats; two column chunks at W = 1000), bases 16-byte aligned or
+    one float into their storage: a third of the rows empty, rows of exactly
+    L taps (more than a group of lanes at L = 40), and a NaN in src[0] that
+    reaches only the rows whose taps name row 0 — the padded taps (tsrc = 0)
+    are never read."""
+    from surfh_tpu_torch.core import gather_fixed as gf
+
+    dev = _cuda()
+    rng = np.random.default_rng(1000 * L + W)
+    n_rows, n_src = 1501, 700
+    live = np.sort(rng.choice(n_rows, size=2 * n_rows // 3, replace=False))
+    per = rng.integers(1, L + 1, live.size)
+    per[:5] = L
+    cdst = np.repeat(live, per)
+    csrc = rng.integers(1, n_src, cdst.size)  # no tap names row 0 ...
+    named = rng.choice(cdst.size, size=9, replace=False)
+    csrc[named] = 0  # ... but these
+    cw = rng.uniform(0.5, 1.5, cdst.size) * rng.choice([-1.0, 1.0], cdst.size)
+    plan = gf.build_fixed_fanin_plan(csrc, cw, cdst, n_rows, n_src, 8, ld=W)
+    assert plan.L == L and plan.nnz == cdst.size and (plan.cnt[:n_rows] == 0).sum() >= n_rows // 3
+    store = torch.as_tensor(rng.standard_normal(n_src * W + 1), dtype=torch.float32, device=dev)
+    src = store[1:].view(n_src, W) if misaligned else store[:-1].view(n_src, W)
+    assert src.is_contiguous() and (src.data_ptr() % 16 == 4) == misaligned
+    src[0] = float("nan")
+    p32 = plan.to(dev, torch.float32)
+    before = gf.launches_k2
+    got = gf.gather_fixed_k2(src, p32)
+    torch.cuda.synchronize()
+    assert gf.launches_k2 == before + 1 and tuple(got.shape) == (n_rows, W)
+    want = gf.gather_fixed_k2_reference(src, p32)
+    poisoned = torch.zeros(n_rows, dtype=torch.bool, device=dev)
+    poisoned[torch.as_tensor(np.unique(cdst[named]), device=dev)] = True
+    assert torch.isnan(got[poisoned]).all() and torch.isfinite(got[~poisoned]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    # the same taps in the same order, f32 FMAs against separate mul/add
+    g, w_ = got[~poisoned], want[~poisoned]
+    assert float((g - w_).abs().max() / w_.abs().max()) <= 1e-6
+    assert not got[p32.cnt[:n_rows] == 0].any()  # rows with no taps: zero
+    assert torch.equal(got[~poisoned], gf.gather_fixed_k2(src, p32)[~poisoned])  # taps in table order

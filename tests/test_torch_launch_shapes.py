@@ -1,4 +1,4 @@
-"""The launch shapes that the port's wrappers choose for its two redesigned
+"""The launch shapes that the port's wrappers choose for its redesigned
 kernels, and the order in which the banded forward sums (CPU, pure Python /
 plain torch; the kernels themselves: test_torch_kernels_cuda.py).
 
@@ -7,7 +7,12 @@ plain torch; the kernels themselves: test_torch_kernels_cuda.py).
   port's plans give them at full width) and on test-size plans: the runs of
   the parts cover 0..B−1 once and in order, the grid fills the card wherever
   B allows, the scratch is what the wrapper allocates;
-* `gather_rows.gather_launch_shape` over the row widths of both solve paths;
+* `wblur_banded.transpose_launch_shape` on the same bands and on tables the
+  fast instances do not take: the instance, the grid, every output column
+  written by exactly one block;
+* `gather_rows.gather_launch_shape` over the row widths of both solve paths,
+  and that K2's wrapper launches in that shape from the plan's host-side
+  tap count;
 * `wblur_banded_by_runs`, the forward summed run by run and part by part as
   the kernel does, against `wblur_banded_reference` in f64 (≤ 1e-12).
 """
@@ -16,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from surfh_tpu_torch.core import gather_fixed as gf
 from surfh_tpu_torch.core import gather_rows as gr
 from surfh_tpu_torch.core import wblur_banded as wb
 
@@ -127,3 +133,109 @@ def test_forward_by_runs_is_the_masked_product(name):
         got = wb.wblur_banded_by_runs(win, bt, split)
         assert got.shape == want.shape
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+
+
+def _plan_t(K, W, B, KB=256):
+    Bp = -(-B // 8) * 8
+    TL = max(1, 128 // Bp)
+    nT = -(-W // TL)
+    starts = np.round(np.linspace(0, max(K - KB, 0), nT)).astype(np.int32)
+    return wb.BandPlanT(starts, K, W, B, Bp, TL, KB)
+
+
+# tables of the small problems and of no flagship band: M, K, W, B
+SMALL_T = {
+    "b1": (21, 40, 6, 1), "b5": (391, 300, 90, 5), "b20_tl5": (70, 300, 61, 20),
+    "b33_tl3": (391, 200, 61, 33), "b130_tl1": (21, 200, 9, 130),
+}
+# per flagship channel: TL, n = B·TL, column groups; per band on 132 SMs: the row tile
+FLAGSHIP_T = {"1": (16, 128, 16), "2": (8, 96, 12), "3": (8, 128, 16), "4": (4, 108, 14)}
+FLAGSHIP_BM = {"1a": 32, "1b": 32, "1c": 32, "2a": 32, "2b": 64, "2c": 64,
+               "3a": 32, "3b": 32, "3c": 32, "4a": 32, "4b": 32, "4c": 32}
+
+
+@pytest.mark.parametrize("name", list(FLAGSHIP) + list(SMALL_T))
+def test_transpose_launch_shape(name):
+    if name in FLAGSHIP:
+        m, K, W, B = FLAGSHIP[name][:4]
+    else:
+        m, K, W, B = SMALL_T[name]
+    plan_t = _plan_t(K, W, B)
+    n = B * plan_t.TL
+    shape = wb.transpose_launch_shape(m, plan_t)
+    # the instance: 16-byte copies of the table need rows of a multiple of 4
+    # floats within one block; the least column width that holds the tile
+    if n % 4 or n > 128:
+        assert (shape.bm, shape.cg, shape.vec) == (*wb.T_GENERAL, False)
+    else:
+        assert shape.vec and shape.bm in wb.T_BMS and shape.cg in wb.T_CGS
+        assert shape.cg == min(c for c in wb.T_CGS if n <= 8 * c)
+    assert shape == wb.transpose_shape(m, plan_t, shape.bm, shape.cg, shape.vec)
+    assert shape.threads == shape.bm // 8 * shape.cg and shape.threads % 8 == 0
+    col_blocks = -(-n // (8 * shape.cg))
+    assert shape.grid == (-(-m // shape.bm), plan_t.n_tiles * col_blocks)
+    assert shape.blocks == shape.grid[0] * shape.grid[1]
+    if name in FLAGSHIP:
+        tl, n_want, cg = FLAGSHIP_T[name[0]]
+        assert (plan_t.TL, n, shape.cg, col_blocks) == (tl, n_want, cg, 1)
+        assert shape.bm == FLAGSHIP_BM[name] and shape.blocks >= wb.H100_SMS
+        # the busiest SM's warps: no more than the other row tile would give it
+        other = wb.transpose_shape(m, plan_t, 96 - shape.bm, shape.cg)
+        busiest = [-(-sh.blocks // wb.H100_SMS) * -(-sh.threads // 32) for sh in (shape, other)]
+        assert busiest[0] <= busiest[1]
+    # the kernel's store: column j of block (t, cb) is run j // TL, position
+    # t·TL + j % TL; every output column is written exactly once
+    cols = []
+    for t in range(plan_t.n_tiles):
+        for cb in range(col_blocks):
+            j = np.arange(cb * 8 * shape.cg, min((cb + 1) * 8 * shape.cg, n))
+            pos = t * plan_t.TL + j % plan_t.TL
+            cols.append((j // plan_t.TL * W + pos)[pos < W])
+    assert sorted(np.concatenate(cols).tolist()) == list(range(B * W))
+
+
+def test_transpose_launch_shape_follows_the_sm_count_and_the_alignment():
+    m, K, W, B = FLAGSHIP["2c"][:4]
+    plan_t = _plan_t(K, W, B)
+    # 462 blocks of 3 warps or 858 of 2 (48 threads: half a warp idle)
+    assert wb.transpose_launch_shape(m, plan_t, n_sm=132).bm == 64  # 4 · 3 warps against 7 · 2
+    assert wb.transpose_launch_shape(m, plan_t, n_sm=429).bm == 32  # 2 · 3 against 2 · 2
+    off = wb.transpose_launch_shape(m, plan_t, aligned=False)
+    assert (off.bm, off.cg, off.vec) == (*wb.T_GENERAL, False)
+    for bad in ((48, 12, True), (64, 8, True), (32, 16, False)):  # no such instance
+        with pytest.raises(ValueError):
+            wb.transpose_shape(m, plan_t, *bad)
+    with pytest.raises(ValueError):  # 128 columns do not fit 96
+        wb.transpose_shape(FLAGSHIP["1a"][0], _plan_t(*FLAGSHIP["1a"][1:4]), 64, 12)
+
+
+@pytest.mark.parametrize("W, aligned", [(13, True), (52, True), (52, False), (241, True),
+                                        (466, True), (484, True), (484, False), (613, True)])
+def test_k2_launches_in_the_gather_launch_shape(monkeypatch, W, aligned):
+    """K2's wrapper takes `gather_launch_shape`'s shape for (W, the bases'
+    alignment, the plan's taps per row), the taps per row from the number
+    the host fixed when it built the plan: the launch reads nothing of the
+    table (here there is no `cnt` to read)."""
+    import dataclasses
+
+    rng = np.random.default_rng(W)
+    n_rows, n_src = 200, 50
+    cdst = np.sort(rng.integers(0, n_rows, 260))
+    plan = gf.build_fixed_fanin_plan(rng.integers(0, n_src, 260), rng.uniform(0.5, 1.5, 260), cdst,
+                                     n_rows, n_src, 8, ld=W)
+    assert plan.nnz == 260 == int(plan.cnt.sum())
+    dplan = plan.to("cpu", torch.float32)
+    assert isinstance(dplan.nnz, int) and dplan.nnz == 260  # carried through .to()
+    assert dplan.to("cpu", torch.float64).nnz == 260
+    store = torch.zeros(n_src * W + 4)
+    src = store[:n_src * W].view(n_src, W) if aligned else store[1:n_src * W + 1].view(n_src, W)
+    seen = []
+    monkeypatch.setattr(gf, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(gf, "_launch_k2", lambda src, plan, out, *shape: seen.append((shape, out)))
+    out = gf.gather_fixed_k2_cuda(src, dataclasses.replace(dplan, cnt=None))
+    (shape, launched_out), = seen
+    assert launched_out is out and tuple(out.shape) == (n_rows, W)
+    both = src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    assert shape == gr.gather_launch_shape(W, both, 260 / n_rows)
+    if not aligned:
+        assert shape[0] == 1  # single floats from a base that is not on 16 bytes

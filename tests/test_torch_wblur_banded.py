@@ -8,7 +8,10 @@ against the reference's `surfh_tpu/core/wblur_pallas.py` (CPU).
   Pallas kernels run in interpret mode, ≤1e-6 relative (the reference
   computes in f32);
 * in f64 the plain versions match a NumPy masked einsum with the masks
-  rebuilt from the reference's plans, ≤1e-12.
+  rebuilt from the reference's plans, ≤1e-12;
+* the transpose spelled λ-tile by λ-tile from the transpose kernel's own
+  operands (`wblur_banded_t_by_tiles`) is that masked product (f64, ≤1e-12)
+  and the reference's transpose kernel in interpret mode (f32, ≤1e-5).
 
 Cases: the banded synthetic wpsf of `tests/test_wblur_pallas.py` (K = 200,
 not a multiple of 128; B = 6, not a multiple of 8), a window shorter than 8
@@ -157,6 +160,30 @@ def test_plain_f64_matches_masked_einsum(case):
     y2d = torch.as_tensor(y).transpose(1, 2).reshape(S * A, K)
     got_t_out = wb.wblur_banded_t(y2d, bt).view(S, A, B, W).permute(0, 3, 1, 2).numpy()
     assert _rel(got_t_out, want_t) <= 1e-12
+
+
+def test_transpose_by_tiles_matches_masked_product_and_interpret_kernel(case):
+    """The transpose from the kernel's operands (blocks_t, starts_t, runs of
+    TL columns at stride W, slabs past K, a partial last tile): the masked
+    product in f64, and the reference's Pallas transpose in interpret mode
+    in f32 (≤ 1e-5, the banded bar: both sum ≤ KB f32 terms in their own
+    order)."""
+    _, wpsf, (ref, ref_t), (got, got_t) = case
+    K, W, B = wpsf.shape
+    rng = np.random.default_rng(2)
+    y = rng.standard_normal((S, K, A))
+    y2d = torch.as_tensor(y).transpose(1, 2).reshape(S * A, K)
+    bt = wb.banded_tables(torch.as_tensor(wpsf), got, got_t)
+    want = wb.wblur_banded_t_reference(y2d, bt)
+    by_tiles = wb.wblur_banded_t_by_tiles(y2d, bt)
+    assert by_tiles.shape == want.shape
+    assert _rel(by_tiles.numpy(), want.numpy()) <= 1e-12
+
+    bt32 = wb.banded_tables(torch.as_tensor(wpsf, dtype=torch.float32), got, got_t)
+    out_t = wb.wblur_banded_t_by_tiles(y2d.float(), bt32).view(S, A, B, W).permute(0, 3, 1, 2).numpy()
+    pallas_t = np.asarray(wp.wblur_sum_beta_t_banded(jnp.asarray(y.astype(np.float32)), ref_t,
+                                                      interpret=True))
+    assert _rel(out_t, pallas_t) <= 1e-5
 
 
 def test_tables_refuse_a_plan_of_another_wpsf():
