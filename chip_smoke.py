@@ -27,11 +27,13 @@ and the composed-transpose prototype entry point
                  counted, then `run_proto` on every band's pointing-0
                  transpose of the flagship model at Q = W: K1–K3 against A,
                  their plain versions and the CSR kernel (errors, times,
-                 byte bound, K2's launch shape);
+                 byte bound, K1 / K3 against K2, the launch shapes), and a
+                 NaN in src[0] through K1–K3 against their plain versions;
 6. slice       — the rank path: upload, y = H·truth, an f64-accumulated dot
                  test, the fused normal through the kernel against the plain
                  version, launches per normal application, the main path
-                 (y, b = µ·Hᵗy, 10 lcg iterations), timings;
+                 (y, b = µ·Hᵗy, 10 lcg iterations; the dispatch loop's 10
+                 against them), timings;
 7. wplane-host — the OTF built on the card from the PSF stamps, the W-plane
                  model over the rank model's channels, the band plans;
 8. kernel      — both banded kernels against their plain versions and
@@ -144,20 +146,18 @@ def main(argv=None) -> int:
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] ptxas {name}: {line.strip()}")
-    # gather_fixed.cu holds 58 instances (K1 / K3 at static L = 1..8): K2's
-    # lines, then the largest register count and every spill of them all
-    flog = _build.build_logs.get("gather_fixed", "")
-    show = False
-    for line in flog.splitlines():
-        if "Compiling entry" in line:
-            show = "k2_" in line
-        if show and ("Compiling entry" in line or "registers" in line or "spill" in line):
-            log(f"[build] ptxas gather_fixed: {line.strip()}")
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", flog)]
-    spills = [m.group(0) for m in re.finditer(r"(\d+) bytes spill stores, (\d+) bytes spill loads", flog)
-              if int(m.group(1)) or int(m.group(2))]
-    log(f"[build] ptxas gather_fixed: {len(regs)} kernel instances, at most {max(regs, default=0)} "
-        f"registers; spill lines with bytes: {spills or 'none'}")
+    # gather_fixed.cu (K1, K2, K3, each a narrow kernel and lane-group
+    # instances): one line per kernel, its registers and spills
+    name, spill = None, ""
+    for line in _build.build_logs.get("gather_fixed", "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            used = re.search(r"Used \d+ registers", line).group(0)
+            log(f"[build] ptxas gather_fixed: {name}: {used}; {spill}")
 
     # 3. host tables ----------------------------------------------------
     bands = args.bands.split(",") if args.bands else None
@@ -285,6 +285,35 @@ def main(argv=None) -> int:
         check_proto(proto.run_proto(chan, dev, chain=0, band=band, log=lambda m: log(f"[proto] {m}")),
                     band)
 
+    # a NaN in src[0]: K1 and K3 sum every tap, so it reaches the rows with
+    # a padded tap (fewer than L taps) and those whose taps name row 0, as in
+    # the plain versions; K2 reads no padded tap
+    ngen = torch.Generator(device=dev).manual_seed(1)  # leaves `gen`'s draws for the later phases as they were
+    for chan, band in zip(model.channels, setup["bands"]):
+        csrc, cw, cdst, P, n_out, W = proto.transpose_taps(chan)
+        fplan = gf.build_fixed_fanin_plan(csrc, cw, cdst, P, n_out, ld=W).to(dev, torch.float32)
+        src = torch.rand((n_out, W), generator=ngen, device=dev)
+        src[0] = float("nan")
+        names0 = np.zeros(P, bool)
+        names0[cdst[csrc == 0]] = True
+        padded = (fplan.cnt[:P] < fplan.L).cpu().numpy()
+        seen = {}
+        for k, kfn, pfn, want in (
+                ("K1", gf.gather_fixed_k1_cuda, gf.gather_fixed_k1_reference, padded | names0),
+                ("K2", gf.gather_fixed_k2_cuda, gf.gather_fixed_k2_reference, names0),
+                ("K3", gf.gather_fixed_k3_cuda, gf.gather_fixed_k3_reference, padded | names0)):
+            got, ref = kfn(src, fplan), pfn(src, fplan)
+            nan_rows = torch.isnan(got).any(1).cpu().numpy()
+            same = torch.equal(torch.isnan(got), torch.isnan(ref))
+            seen[k] = int(nan_rows.sum())
+            check(same and np.array_equal(nan_rows, want) and bool(torch.isnan(got[torch.as_tensor(want, device=dev)]).all()),
+                  f"{band} {k}: NaN in src[0] reaches {seen[k]} rows, expected {int(want.sum())} "
+                  f"(as the plain version: {same})")
+        log(f"[proto] {band}: NaN in src[0] reaches rows K1 {seen['K1']}, K2 {seen['K2']}, K3 {seen['K3']} of "
+            f"{P} ({int(padded.sum())} with a padded tap, {int(names0.sum())} naming row 0), as the plain "
+            f"versions")
+        del src, fplan
+
     # 6. slice ------------------------------------------------------------
     t0 = time.perf_counter()
     model.to(dev, torch.float32)
@@ -352,6 +381,14 @@ def main(argv=None) -> int:
     check(main_launches == expect and main_launches > 0, "main-path launches")
     check(bool(torch.isfinite(b).all()) and bool(torch.isfinite(res.x).all()), "b, x finite")
     check(res.n_iter == 10 and bool(np.isfinite(gn).all()) and gn[-1] < gn[0], "grad norms finite, falling")
+    # the reference's dispatch loop: ‖r‖ read at the end only, the same iterates
+    dres = crit.run_method("lcg", maximum_iterations=10, solver_loop="dispatch")
+    sync()
+    same_x = torch.equal(dres.x, res.x)
+    log(f"[slice] lcg dispatch loop: {dres.n_iter} it, iterate bit for bit the graph loop's {same_x}, "
+        f"grad norms equal {np.array_equal(dres.grad_norm, gn)}")
+    check(same_x and dres.n_iter == res.n_iter and np.array_equal(dres.grad_norm, gn),
+          "lcg dispatch loop against the graph loop")
     t0 = time.perf_counter()
     res2 = crit.run_method("lcg", maximum_iterations=10, solver_state=res.state)
     sync()

@@ -28,7 +28,13 @@ random tables and taps from a seed.
 * K2 (`core.gather_fixed`), the same lane shapes on the padded ``[Pp, L]``
   table of the same kind of taps, beside the CSR kernel's pick on those taps.
   The taps are random, so a source row is as likely far as near: the real
-  plans' times are chip_smoke.py's.
+  plans' times are chip_smoke.py's;
+* K1 and K3 (`core.gather_fixed`) on every band's composed transpose at
+  Q = W and at the entry point's W = 466 (`TRANSPOSES`: about one tap a
+  row, L = 7 as the real plans have, sources at random), every lane
+  instance (`FIXED_LANE_FLOATS`) at 16 and 32 lanes — checked against the
+  plain versions (≤ 1e-6) — beside the shape `fixed_launch_shape` picks, K2
+  on the same table and the byte bound.
 
 Before the sweeps it prints each kernel's registers and spills (ptxas) and
 its SASS instruction mix (cuobjdump), and first of all the card's name and
@@ -47,7 +53,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_scatter_proto import HBM_BYTES_PER_S, event_ms  # noqa: E402  (beside this script)
+from torch_scatter_proto import HBM_BYTES_PER_S, event_ms, gather_bytes  # noqa: E402  (beside this script)
 
 FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 
@@ -70,6 +76,11 @@ GATHERS = {
     "4a rank t": (170544, 9072, 24, 209781), "4a rank fwd": (9072, 170544, 24, 209781),
     "1c rank t": (54560, 3192, 40, 53479), "1c rank fwd": (3192, 54560, 40, 53479),
 }
+
+# band: composed-transpose rows, source rows, taps (pointing 0 at full width; W from BANDS)
+TRANSPOSES = {"1": (54560, 3192, 53479), "2": (76112, 4896, 81904), "3": (115500, 6400, 133993),
+              "4": (170544, 9072, 209781)}
+PADDED_L = 7  # every flagship band's transpose table
 
 
 def sweep_banded(dev, reps: int) -> None:
@@ -229,6 +240,51 @@ def sweep_gather(dev, reps: int, k2: bool = False) -> None:
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes / 1e6:.1f} MB)", flush=True)
 
 
+def sweep_fixed(dev, reps: int) -> None:
+    """K1 and K3 in every lane instance on a padded table with the
+    transposes' kind of taps (Poisson counts of mean nnz / P, at most L = 7,
+    some rows of 7), on every band and at the entry point's width."""
+    import torch
+
+    from surfh_tpu_torch.core import gather_fixed as gf
+
+    rng = np.random.default_rng(3)
+    cases = [(band, *TRANSPOSES[band[0]], BANDS[band][2]) for band in BANDS]
+    cases.append(("proto", 28836, 3192, 53479, 466))  # band 1c's rows at the entry point's 501² sky
+    for band, n_rows, n_src, nnz, W in cases:
+        per = np.minimum(rng.poisson(nnz / n_rows, n_rows), PADDED_L)
+        per[rng.choice(n_rows, 8, replace=False)] = PADDED_L
+        cdst = np.repeat(np.arange(n_rows), per)
+        csrc, cw = rng.integers(0, n_src, cdst.size), rng.uniform(0.5, 1.5, cdst.size)
+        plan = gf.build_fixed_fanin_plan(csrc, cw, cdst, n_rows, n_src, 512, ld=W).to(dev, torch.float32)
+        src = torch.as_tensor(rng.standard_normal((n_src, W)), dtype=torch.float32, device=dev)
+        out = torch.empty((n_rows, W), device=dev)
+        b_ms = gather_bytes(n_rows, np.unique(csrc).size, W, cdst.size) / HBM_BYTES_PER_S * 1e3
+        ms_k2 = event_ms(lambda: gf.gather_fixed_k2_cuda(src, plan), reps)
+        picked = gf.fixed_launch_shape(W, 16)
+        for name, launch, plain in (("K1", gf._launch_k1, gf.gather_fixed_k1_reference),
+                                    ("K3", gf._launch_k3, gf.gather_fixed_k3_reference)):
+            want = plain(src, plan)
+            cells = {}
+            for vec in [v for v in (4, 2, 1) if W % v == 0]:
+                for floats in gf.FIXED_LANE_FLOATS[vec]:
+                    for group in (16, 32):
+                        shape = (vec, floats // vec, 1, group)
+                        out.fill_(-1.0)
+                        launch(src, plan, out, *shape)
+                        torch.cuda.synchronize()
+                        err = float((out - want).abs().max() / want.abs().max())
+                        if err > 1e-6:
+                            raise SystemExit(f"{name} {band} shape {shape}: rel {err:.3e}")
+                        cells[shape] = event_ms(lambda: launch(src, plan, out, *shape), reps)
+            best = min((ms, shape) for shape, ms in cells.items())
+            print(f"[fixed] {band} {name}: rows {n_rows} x W {W}, n_src {n_src}, nnz {cdst.size}, L {plan.L}: "
+                  + " ".join(f"v{v}c{c}t{t}g{g}:{ms:.4f}" for (v, c, t, g), ms in cells.items())
+                  + f" | picked {picked} {cells[picked]:.4f} ms ({cells[picked] / ms_k2:.2f}x K2 "
+                  f"{ms_k2:.4f}, {100 * b_ms / cells[picked]:.1f} % of the byte bound {b_ms:.4f} ms); best "
+                  f"{best[1]} {best[0]:.4f} ms", flush=True)
+
+
 def instruction_mix() -> None:
     """Per kernel of both libraries, the SASS instruction counts that bound
     it (cuobjdump on the built libraries): the arithmetic, shared-memory and
@@ -246,7 +302,7 @@ def instruction_mix() -> None:
         for line in sass.splitlines() + ["Function : end"]:
             m = re.search(r"Function : (\S+)", line)
             if m:
-                if name and not re.search(r"\dk[13]_kernel", name):  # not the 48 static-L instances of K1 / K3
+                if name:
                     keys = ("FFMA", "FADD", "LDS", "LDGSTS", "LDG", "STG", "STS", "SHFL", "BAR", "IMAD", "SEL")
                     print(f"[sass] {name[:80]}: {sum(mix.values())} instructions; "
                           + " ".join(f"{k} {mix[k]}" for k in keys if mix[k]), flush=True)
@@ -275,13 +331,11 @@ def main(argv=None) -> int:
     wb.load_kernels()
     gf.load_kernels()
     for name in ("gather_rows", "wblur_banded", "gather_fixed"):
-        show = name != "gather_fixed"  # of gather_fixed.cu K2's kernels only, not K1 / K3's 48 instances
         for line in _build.build_logs.get(name, "").splitlines():
-            if "Compiling entry" in line:
-                show = name != "gather_fixed" or "k2_" in line
-            if show and ("Compiling entry" in line or "registers" in line or "spill" in line):
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"[build] ptxas {name}: {line.strip()}", flush=True)
     instruction_mix()
+    sweep_fixed(dev, args.reps)
     sweep_transpose(dev, args.reps)
     sweep_gather(dev, args.reps, k2=True)
     sweep_gather(dev, args.reps)

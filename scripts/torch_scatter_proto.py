@@ -10,8 +10,8 @@ pointing, rank-mode model):
 * A  — the COO transpose `core.bilinear.apply_composed_plan_t` (plain torch,
   index_add_), the reference of the checks;
 * K1 / K2 / K3 — the fixed-fan-in kernels of `core.gather_fixed`
-  (``csrc/gather_fixed.cu``): all L taps, ``cnt[p]`` taps, four rows per
-  thread from pre-scaled offsets;
+  (``csrc/gather_fixed.cu``): all L taps, ``cnt[p]`` taps, all L taps
+  from pre-scaled offsets;
 * and, as yardsticks that no path of the port uses, the CSR kernel of
   `core.gather_rows` and the library call
   ``torch.sparse.mm(torch.sparse_csr_tensor(row_ptr, idx, w), vals)``
@@ -102,6 +102,14 @@ def launches_per_run(chain: int = 10, reps: int = 3) -> int:
     return 1 + EVENT_WARMUP + EVENT_REPS + (reps + 1) * chain
 
 
+def transpose_taps(chan):
+    """`chan`'s pointing-0 composed transpose as COO taps without zero
+    weights: (source rows, weights, destination rows, P, source count, W)."""
+    _idx, _w, csrc, cw, cdst = (np.asarray(a[0]) for a in chan.composed_stack)
+    nz = cw != 0
+    return csrc[nz], cw[nz], cdst[nz], chan.tbbox[2] * chan.tbbox[3], _idx.shape[1], chan.n_wslice
+
+
 def run_proto(chan, device, tp: int = 512, chain: int = 10, reps: int = 3, band: str = "",
               log=print) -> dict:
     """Check and time the spellings on `chan`'s pointing-0 composed
@@ -113,7 +121,8 @@ def run_proto(chan, device, tp: int = 512, chain: int = 10, reps: int = 3, band:
     the CSR kernel, max rel), ``ms`` (CUDA events, mean of `EVENT_REPS`
     launches: K1, K2, K3, CSR, library), ``plain_ms`` (K1–K3's plain
     versions, mean of `PLAIN_REPS`), ``bound_ms`` / ``bound_mb`` (the byte
-    bound), ``k2_shape`` (K2's launch shape) and, when `chain` > 0,
+    bound), ``k2_shape`` / ``k13_shape`` (K2's and K1 / K3's launch shape)
+    and, when `chain` > 0,
     ``chained_ms`` (`chained_time`, as the JAX script times: A, K1, K2, K3,
     CSR, library)."""
     import torch
@@ -124,12 +133,7 @@ def run_proto(chan, device, tp: int = 512, chain: int = 10, reps: int = 3, band:
     from surfh_tpu_torch.utils.profiling import chained_time
 
     device = torch.device(device)
-    _idx, _w, csrc, cw, cdst = (np.asarray(a[0]) for a in chan.composed_stack)
-    P = chan.tbbox[2] * chan.tbbox[3]
-    n_out = _idx.shape[1]
-    W = chan.n_wslice
-    nz = cw != 0
-    csrc, cw, cdst = csrc[nz], cw[nz], cdst[nz]
+    csrc, cw, cdst, P, n_out, W = transpose_taps(chan)
     plan = gf.build_fixed_fanin_plan(csrc, cw, cdst, P, n_out, tp, ld=W)
     csr = gr.build_row_gather_plan(csrc, cw, cdst, P, n_out)
     out = dict(band=band, P=P, Pp=plan.n_padded, n_src=n_out, W=W, L=plan.L, nnz=csr.nnz,
@@ -184,20 +188,24 @@ def run_proto(chan, device, tp: int = 512, chain: int = 10, reps: int = 3, band:
         log(f"  {k} against its plain version: max rel {out['vs_plain'][k]:.2e}; against the CSR "
             f"kernel {out['vs_csr'][k]:.2e}")
     del got
-    out["k2_shape"] = gr.gather_launch_shape(W, rows.data_ptr() % 16 == 0, dplan.nnz / max(P, 1))
-    log(f"  K2 launch shape (vec, cols, taps, group) {out['k2_shape']} at W = {W}, "
-        f"{dplan.nnz / max(P, 1):.2f} taps per row")
+    aligned = rows.data_ptr() % 16 == 0
+    out["k2_shape"] = gr.gather_launch_shape(W, aligned, dplan.nnz / max(P, 1))
+    out["k13_shape"] = gf.fixed_launch_shape(W, gf._align(rows))
+    log(f"  launch shapes (vec, cols, taps, group) at W = {W}: K2 {out['k2_shape']} "
+        f"({dplan.nnz / max(P, 1):.2f} taps per row), K1 / K3 {out['k13_shape']} (all L = {dplan.L} taps)")
     out["ms"] = {name: event_ms(lambda: fns[name](rows), EVENT_REPS)
                  for name in ("K1", "K2", "K3", "CSR", "library")}
     nbytes = gather_bytes(P, np.unique(csr.idx).size, W, csr.nnz)
     out["bound_mb"], out["bound_ms"] = nbytes / 1e6, nbytes / HBM_BYTES_PER_S * 1e3
-    labels = {"A": "A  column scatter (plain torch)", "K1": "K1 CUDA static-L",
-              "K2": "K2 CUDA dynamic count", "K3": "K3 CUDA 4-row unroll",
+    labels = {"A": "A  column scatter (plain torch)", "K1": "K1 CUDA all L taps",
+              "K2": "K2 CUDA dynamic count", "K3": "K3 CUDA pre-scaled offsets",
               "CSR": "CSR kernel (gather_rows)", "library": "library torch.sparse.mm (CSR)"}
     log(f"  CUDA events, mean of {EVENT_REPS} launches; byte bound {out['bound_ms']:.4f} ms "
         f"({out['bound_mb']:.2f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
     for name, ms in out["ms"].items():
         extra = f", plain {out['plain_ms'][name]:.4f} ms" if name in plain else ""
+        if name in ("K1", "K3"):
+            extra += f"; {ms / out['ms']['K2']:.2f}x K2"
         log(f"  {labels[name]:32s} {ms:8.4f} ms ({100 * out['bound_ms'] / ms:.1f} % of the "
             f"bound{extra})")
     if chain > 0:

@@ -45,6 +45,15 @@ def ir2fr(imp_resp: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
     return np.fft.rfftn(padded, axes=list(range(imp_resp.ndim - ndim_s, imp_resp.ndim)))
 
 
+def laplacian(ndim: int) -> np.ndarray:
+    """Discrete Laplacian impulse response (sum of 1-D [-1, 2, -1] stencils)."""
+    lapl = np.zeros((3,) * ndim)
+    for dim in range(ndim):
+        idx = tuple([slice(1, 2)] * dim + [slice(None)] + [slice(1, 2)] * (ndim - dim - 1))
+        lapl[idx] += np.array([-1.0, 2.0, -1.0]).reshape([-1 if i == dim else 1 for i in range(ndim)])
+    return lapl
+
+
 def box_otf_sr(srf: int, im_shape: Tuple[int, int], dtype=np.complex64) -> np.ndarray:
     """OTF of the [srf, 1] box that accumulates `srf` oversampled α rows."""
     return ir2fr(np.ones((srf, 1)), im_shape)[np.newaxis, ...].astype(dtype)

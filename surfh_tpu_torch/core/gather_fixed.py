@@ -18,17 +18,18 @@ taps ``tsrc = 0``, ``tw = 0``) instead of CSR row pointers.  Rows are
   the taps in table order (no ``[P, L, W]`` temporary).
 * `gather_fixed_{k1,k2,k3}_cuda` — the hand-written kernels
   (``csrc/gather_fixed.cu``), built with nvcc at first use; each counts its
-  launches in `launches_k1` / `launches_k2` / `launches_k3`.  K2 runs the
-  CSR kernel's lane-group row gather (``csrc/gather_lanes.cuh``) on its own
-  taps, in the shape `gather_rows.gather_launch_shape` picks from W, the
-  bases' alignment and the plan's taps per row.
+  launches in `launches_k1` / `launches_k2` / `launches_k3`.  All three run
+  the CSR kernel's lane-group row gather (``csrc/gather_lanes.cuh``) on their
+  own taps: K2 in the shape `gather_rows.gather_launch_shape` picks from W,
+  the bases' alignment and the plan's taps per row, K1 and K3, which sum
+  every tap of the padded row, in the shape `fixed_launch_shape` picks.
 * `gather_fixed_{k1,k2,k3}` — the dispatch: a CPU tensor takes the plain
   version, a CUDA tensor launches the kernel or raises.  Never a fallback.
 
 K1 sums all L taps of every row (zero taps included), K2 exactly ``cnt[p]``
-taps, K3 all L taps of four rows at a time from the pre-scaled offsets.
-K1 and K3 multiply the padded taps by ``src[0]``: a non-finite ``src[0]``
-turns their rows to NaN, as the TPU prototypes' do.  None of the three is
+taps, K3 K1's taps read through the pre-scaled offsets.  K1 and K3 multiply
+the padded taps by ``src[0]``: a non-finite ``src[0]`` turns their rows
+with a padded tap to NaN, as the TPU prototypes' do.  None of the three is
 on a solve path of the port (the CSR kernel of `core.gather_rows` is); the
 entry point that runs them is `scripts/torch_scatter_proto.py`.
 """
@@ -44,8 +45,10 @@ import torch
 
 from .gather_rows import gather_launch_shape
 
-MAX_L = 8  # K1 / K3's static fan-in instances (every flagship band has L = 7)
-UNROLL = 4  # rows per thread in K3
+UNROLL = 4  # the prototype's K3 row groups: the plan pads P to a multiple of 4
+# K1 / K3's wide-row instances, per vec: the floats a lane holds, one tap at a
+# time (24 floats only as float4: at 2 or 1 floats a column, 24 spill)
+FIXED_LANE_FLOATS = {4: (8, 16, 24), 2: (8, 16), 1: (8, 16)}
 
 launches_k1 = 0  # kernel launches since the last reset_launches()
 launches_k2 = 0
@@ -55,6 +58,33 @@ launches_k3 = 0
 def reset_launches() -> None:
     global launches_k1, launches_k2, launches_k3
     launches_k1 = launches_k2 = launches_k3 = 0
+
+
+def fixed_launch_shape(q: int, align: int = 16) -> tuple:
+    """(vec, cols, taps, group) of a K1 / K3 launch at row width `q`, both
+    bases aligned to `align` bytes.
+
+    Rows of at most 32 columns: `gather_launch_shape`'s narrow kernel.
+    Wider rows sum all L taps of every row, and L = 7 where about one is
+    real, so they take one tap at a time and are bound by each row's chain
+    of taps: vec is 4 where `q` is a multiple of 4 and the bases 16-byte
+    aligned, else 2 where `q` is even and they are 8-byte aligned, else 1;
+    then the fewest lanes, 16 (two rows a warp) or 32, that hold the row in
+    one chunk at the floats a lane of `FIXED_LANE_FLOATS`, with the fewest
+    floats that do; a wider row takes the most floats on 16 lanes, in
+    chunks."""
+    shape = gather_launch_shape(q, align >= 16)
+    vec = shape[0]
+    if q // vec <= 32:
+        return shape
+    if vec == 1 and q % 2 == 0 and align >= 8:
+        vec = 2
+    nvec = q // vec
+    for group in (16, 32):
+        for floats in FIXED_LANE_FLOATS[vec]:
+            if floats // vec * group >= nvec:
+                return vec, floats // vec, 1, group
+    return vec, FIXED_LANE_FLOATS[vec][-1] // vec, 1, 16
 
 
 @dataclass(frozen=True)
@@ -184,16 +214,16 @@ def load_kernels():
 
         lib = build_library("gather_fixed", ["gather_fixed.cu"])
         k1, k2, k3 = lib.surfh_gather_fixed_k1_f32, lib.surfh_gather_fixed_k2_f32, lib.surfh_gather_fixed_k3_f32
-        k1.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        k1.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         k2.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        k3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        k3.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         for fn in (k1, k2, k3):
             fn.restype = ctypes.c_int
         _fns = (k1, k2, k3)
     return _fns
 
 
-def _check(src: torch.Tensor, plan: FixedFaninPlan, what: str, static_l: bool = True) -> None:
+def _check(src: torch.Tensor, plan: FixedFaninPlan, what: str) -> None:
     if not src.is_cuda:
         raise ValueError(f"{what} needs a CUDA tensor")
     if src.dtype != torch.float32 or plan.tw.dtype != torch.float32:
@@ -208,8 +238,8 @@ def _check(src: torch.Tensor, plan: FixedFaninPlan, what: str, static_l: bool = 
             raise ValueError(f"plan.{name} must be contiguous on {src.device}")
     if plan.tsrc.dtype != torch.int32 or plan.cnt.dtype != torch.int32 or plan.tsrc_s.dtype != torch.int32:
         raise TypeError("plan indices must be int32")
-    if static_l and plan.L > MAX_L:
-        raise ValueError(f"{what}: fan-in L={plan.L} > {MAX_L}, the kernel's largest static L")
+    if plan.n_padded < plan.n_rows:
+        raise ValueError(f"{what}: {plan.n_padded} table rows do not cover P={plan.n_rows}")
 
 
 def _launch(fn, args, src: torch.Tensor, what: str) -> None:
@@ -220,25 +250,39 @@ def _launch(fn, args, src: torch.Tensor, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
 
 
+def _out(src: torch.Tensor, plan: FixedFaninPlan) -> torch.Tensor:
+    return torch.empty((plan.n_rows, src.shape[1]), device=src.device, dtype=torch.float32)
+
+
+def _align(*tensors) -> int:
+    """The bytes, 16, 8 or 4, to which every tensor's base is aligned."""
+    return next(a for a in (16, 8, 4) if all(t.data_ptr() % a == 0 for t in tensors))
+
+
 def gather_fixed_k1_cuda(src: torch.Tensor, plan: FixedFaninPlan) -> torch.Tensor:
     """K1: f32 src [n_src, W] → [P, W], all L taps per row, on the current stream."""
     _check(src, plan, "gather_fixed K1 kernel")
-    out = torch.empty((plan.n_rows, src.shape[1]), device=src.device, dtype=torch.float32)
+    out = _out(src, plan)
+    _launch_k1(src, plan, out, *fixed_launch_shape(int(src.shape[1]), _align(src, out)))
+    return out
+
+
+def _launch_k1(src, plan, out, vec: int, cols: int, taps: int, group: int) -> None:
+    """Launch K1 on checked operands in the shape `fixed_launch_shape` gives."""
     _launch(load_kernels()[0], (src.data_ptr(), plan.tsrc.data_ptr(), plan.tw.data_ptr(),
-                                out.data_ptr(), plan.n_rows, plan.L, int(src.shape[1])),
+                                out.data_ptr(), plan.n_rows, plan.L, int(src.shape[1]),
+                                vec, cols, taps, group),
             src, "gather_fixed K1 kernel")
     global launches_k1
     launches_k1 += 1
-    return out
 
 
 def gather_fixed_k2_cuda(src: torch.Tensor, plan: FixedFaninPlan) -> torch.Tensor:
     """K2: f32 src [n_src, W] → [P, W], ``cnt[p]`` taps per row, on the current stream."""
-    _check(src, plan, "gather_fixed K2 kernel", static_l=False)
-    out = torch.empty((plan.n_rows, src.shape[1]), device=src.device, dtype=torch.float32)
-    aligned = src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    _launch_k2(src, plan, out,
-               *gather_launch_shape(int(src.shape[1]), aligned, plan.nnz / max(plan.n_rows, 1)))
+    _check(src, plan, "gather_fixed K2 kernel")
+    out = _out(src, plan)
+    _launch_k2(src, plan, out, *gather_launch_shape(int(src.shape[1]), _align(src, out) == 16,
+                                                    plan.nnz / max(plan.n_rows, 1)))
     return out
 
 
@@ -253,21 +297,24 @@ def _launch_k2(src, plan, out, vec: int, cols: int, taps: int, group: int) -> No
 
 
 def gather_fixed_k3_cuda(src: torch.Tensor, plan: FixedFaninPlan) -> torch.Tensor:
-    """K3: f32 src [n_src, W] → [P, W], four rows per thread from the
-    offsets ``tsrc · ld`` (``ld`` must be W), on the current stream."""
+    """K3: f32 src [n_src, W] → [P, W], K1's taps read through the offsets
+    ``tsrc · ld`` (``ld`` must be W), on the current stream."""
     _check(src, plan, "gather_fixed K3 kernel")
     if src.shape[1] != plan.ld:
         raise ValueError(f"gather_fixed K3 kernel: src width {src.shape[1]} is not the plan's ld={plan.ld}")
-    if plan.n_padded % UNROLL or plan.n_padded < plan.n_rows:
-        raise ValueError(f"gather_fixed K3 kernel: {plan.n_padded} padded rows are not "
-                         f"a multiple of {UNROLL} covering P={plan.n_rows}")
-    out = torch.empty((plan.n_rows, src.shape[1]), device=src.device, dtype=torch.float32)
+    out = _out(src, plan)
+    _launch_k3(src, plan, out, *fixed_launch_shape(int(src.shape[1]), _align(src, out)))
+    return out
+
+
+def _launch_k3(src, plan, out, vec: int, cols: int, taps: int, group: int) -> None:
+    """Launch K3 on checked operands in the shape `fixed_launch_shape` gives."""
     _launch(load_kernels()[2], (src.data_ptr(), plan.tsrc_s.data_ptr(), plan.tw.data_ptr(),
-                                out.data_ptr(), plan.n_rows, plan.L, int(src.shape[1])),
+                                out.data_ptr(), plan.n_rows, plan.L, int(src.shape[1]),
+                                vec, cols, taps, group),
             src, "gather_fixed K3 kernel")
     global launches_k3
     launches_k3 += 1
-    return out
 
 
 def _dispatch(kernel, plain, src: torch.Tensor, plan: FixedFaninPlan, what: str) -> torch.Tensor:

@@ -24,16 +24,18 @@ configurations:
 Channels are independent, so `workers > 1` builds them in parallel
 processes.
 
-Not ported yet (raise NotImplementedError): the dense W-plane matmul conv
-(`lmm_conv_otf_matmul`), taken by the reference's window-local mode when
-the rank gate declines (M·R ≥ W/2) or the rank conv is off, and the
-window-local OTF-window tables.
+Not ported yet (raise NotImplementedError, naming the ROADMAP item): the
+dense W-plane matmul conv (`lmm_conv_otf_matmul`), taken by the reference's
+window-local mode when the rank gate declines (M·R ≥ W/2) or the rank conv
+is off, the window-local OTF-window tables, cube mode and nearest-neighbour
+gridding.
 """
 
 from __future__ import annotations
 
 import multiprocessing
 import os
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 from typing import List, Optional
 
@@ -66,18 +68,13 @@ def rank_tables(chan: Channel, t: dict, psf_w: np.ndarray, tpl_w: np.ndarray,
         keep_frac=(1.0 if conv_freq_rtol <= 0.0
                    else len(sel_a) * kb_keep / (na_g * (imshape[1] // 2 + 1))),
     )
-    if conv_rank_rtol <= 0.0:
-        raise NotImplementedError(
-            f"channel {chan.instr.name}: conv_rank_rtol=0 selects the dense W-plane "
-            "path (lmm_conv_otf_matmul), which is not ported yet"
-        )
     cu, v_psf, tail = fft.lowrank_stamp_factor(psf_w, conv_rank_rtol)
     n_tpl = tpl_w.shape[0]
     if not n_tpl * cu.shape[1] < psf_w.shape[0] // 2:
         raise NotImplementedError(
             f"channel {chan.instr.name}: rank gate declined (M·R = {n_tpl * cu.shape[1]} "
             f"≥ W/2 = {psf_w.shape[0] // 2}); the dense W-plane path "
-            "(lmm_conv_otf_matmul) is not ported yet"
+            "(lmm_conv_otf_matmul) is ROADMAP A9, not ported yet"
         )
     t["cu"] = cu
     support["rank"] = int(cu.shape[1])
@@ -181,42 +178,61 @@ def device_tables(host: dict, device, dtype=torch.float32) -> dict:
     return {"chan": chans}
 
 
+def _np_dtype(dtype) -> np.dtype:
+    """A NumPy or torch float dtype as a NumPy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return np.dtype(torch.empty((), dtype=dtype).numpy().dtype)
+    return np.dtype(dtype)
+
+
 class SpectroSigRLSCT:
     """Multi-channel multi-observation spectro-imaging forward model.
     Inputs are template maps x [M, Na, Nb]; the output is the flat
     concatenation of per-channel blocks [P, S, λ_det, α_det].
 
-    Two modes, chosen as the reference's keywords choose them:
+    The reference's arguments, in its order and with its defaults, then the
+    port's own (`workers`, `channels`).  Two modes, chosen as the
+    reference's keywords choose them:
 
-    * ``window_local=True`` (default here; the flagship main path): PSF
-      stamps `psf_stack`, the λ-rank DFT-matmul conv per channel window
+    * ``window_local=True`` with `psf_stack` (the flagship main path, so a
+      rank-mode caller passes ``psf_stack=…, window_local=True`` and a
+      `conv_rank_rtol` > 0): the λ-rank DFT-matmul conv per channel window
       (`conv_freq_rtol`, `conv_rank_rtol`), the dense folded wblur;
-      `normal` fuses fwd∘adj per channel.
-    * ``window_local=False``: the materialized OTF `sotf` [L, Na, Nb//2+1]
-      (NumPy or a tensor, e.g. built on the card by `fft.ir2fr_device`),
-      ``T``, the full-cube FFT conv, then per channel and pointing the
-      composed gather on W λ-planes, the slit weights and the spectral blur
-      — dense (``wblur_impl="dense"``) or banded (``"banded"``, the
-      `wblur_banded` kernel pair with plans at `wblur_band_rtol`);
-      `normal` = adjoint∘forward, as the reference criterion composes it.
-      `wblur_impl` may be switched between "dense" and the constructed
-      impl after `to()`: the dense table is always on the device.
+      `normal` fuses fwd∘adj per channel.  `sotf` is not read there, as in
+      the reference's stamp mode.  A banded blur asked for here warns and
+      runs dense, as the reference does.
+    * ``window_local=False`` (the default): the materialized OTF `sotf`
+      [L, Na, Nb//2+1] (NumPy or a tensor, e.g. built on the card by
+      `fft.ir2fr_device`), ``T``, the full-cube FFT conv, then per channel
+      and pointing the composed gather on W λ-planes, the slit weights and
+      the spectral blur — dense (``wblur_impl="dense"``) or banded
+      (``"banded"``, the `wblur_banded` kernel pair with plans at
+      `wblur_band_rtol`); `normal` = adjoint∘forward, as the reference
+      criterion composes it.  `wblur_impl` may be switched between "dense"
+      and the constructed impl after `to()`: the dense table is always on
+      the device.  `psf_stack` is not read there.
 
-    Mixing the modes raises: `sotf` with ``window_local=True``,
-    `psf_stack` with ``window_local=False``, ``wblur_impl="banded"`` with
-    ``window_local=True`` (the reference turns it off there).
+    ``conv_impl="auto"`` is what the port runs in each mode: "matmul" (the
+    λ-rank conv) window-local, "fft" with a materialized sotf.  Not ported
+    (NotImplementedError, with the ROADMAP item): cube mode
+    (``templates=None``), ``gridding="nn"``, the window-local OTF-window
+    tables (`sotf` without `psf_stack`, or ``conv_impl="fft"``) and the
+    dense window-local matmul conv (``conv_rank_rtol=0``), all A9;
+    ``conv_precision`` other than "highest" (ROADMAP "Do not port": not
+    safe under CG).
 
-    `dtype` is the NumPy dtype of the host tables; :meth:`to` moves them to
-    a torch device and dtype.  `workers` > 1 builds channels in parallel
-    spawned processes, which re-import the calling script: call it from
-    under ``if __name__ == "__main__":``.  `channels` reuses the Channel
-    objects of another model over the same instruments, axes and
+    `dtype` (NumPy or torch) is the type of the host tables; :meth:`to`
+    moves them to a torch device and dtype.  `workers` > 1 builds channels
+    in parallel spawned processes, which re-import the calling script: call
+    it from under ``if __name__ == "__main__":``.  `channels` reuses the
+    Channel objects of another model over the same instruments, axes and
     pointings (their geometry, wpsf and gather plans), skipping the
     costliest host stages.
     """
 
     def __init__(
         self,
+        sotf,
         templates,
         alpha_axis,
         beta_axis,
@@ -224,38 +240,61 @@ class SpectroSigRLSCT:
         instrs: List[IFU],
         step_degree: float,
         pointings,
-        psf_stack=None,
         dtype=np.float32,
-        conv_freq_rtol: float = 0.0,
-        conv_rank_rtol: float = 1e-7,
-        workers: int = 1,
-        sotf=None,
-        window_local: bool = True,
+        gridding: str = "bilinear",
         wblur_impl: str = "dense",
         wblur_band_rtol: float = 0.0,
+        window_local: bool = False,
+        conv_impl: str = "auto",
+        conv_freq_rtol: float = 0.0,
+        psf_stack=None,
+        conv_precision: str = "highest",
+        conv_rank_rtol: float = 0.0,
+        workers: int = 1,
         channels: Optional[List[Channel]] = None,
     ):
         if wblur_impl not in ("dense", "banded"):
             raise ValueError(f"unknown wblur_impl {wblur_impl!r}")
+        if gridding not in ("bilinear", "nn"):
+            raise ValueError(f"unknown gridding mode {gridding!r}")
+        if conv_impl not in ("auto", "fft", "matmul"):
+            raise ValueError(f"unknown conv_impl {conv_impl!r}")
+        if conv_precision not in ("highest", "high", "default"):
+            raise ValueError(f"unknown conv_precision {conv_precision!r}")
+        if sotf is None and psf_stack is None:
+            raise ValueError("need sotf or psf_stack")
         self.window_local = bool(window_local)
+        if conv_impl == "auto":
+            conv_impl = "matmul" if self.window_local else "fft"
+        if sotf is None and not (self.window_local and conv_impl == "matmul"):
+            raise ValueError("psf_stack-only mode requires window_local=True and "
+                             "conv_impl='matmul' (FFT paths need a materialized sotf)")
+        if templates is None:
+            raise NotImplementedError("templates=None (cube mode) is ROADMAP A9, not ported yet")
+        if gridding == "nn":
+            raise NotImplementedError("gridding='nn' (core/nearest.py) is ROADMAP A9, not ported yet")
+        if conv_precision != "highest":
+            raise NotImplementedError(
+                f"conv_precision={conv_precision!r}: not ported (ROADMAP 'Do not port': "
+                "a reduced-precision conv is not safe under CG)")
         if self.window_local:
-            if sotf is not None:
-                raise ValueError(
-                    "window_local=True is the PSF-stamp rank mode; a materialized sotf "
-                    "(the reference's OTF-window tables) is not ported there — pass "
-                    "window_local=False for the materialized-OTF path")
-            if psf_stack is None:
-                raise ValueError("window_local=True needs psf_stack")
+            if conv_impl == "fft" or psf_stack is None:
+                raise NotImplementedError(
+                    "window_local=True with a materialized sotf (the OTF-window tables, "
+                    "conv_impl='fft' or sotf without psf_stack) is ROADMAP A9, not ported yet; "
+                    "pass psf_stack for the λ-rank mode, or window_local=False")
+            if conv_rank_rtol <= 0.0:
+                raise NotImplementedError(
+                    "window_local=True with conv_rank_rtol=0 selects the dense window-local "
+                    "matmul conv (lmm_conv_otf_matmul), ROADMAP A9, not ported yet")
             if wblur_impl == "banded":
-                raise ValueError(
-                    "wblur_impl='banded' runs only in the materialized-OTF path "
-                    "(window_local=False); the reference turns it off in window-local mode")
-        else:
-            if sotf is None:
-                raise ValueError("window_local=False needs the materialized sotf")
-            if psf_stack is not None:
-                raise ValueError("window_local=False takes sotf, not psf_stack "
-                                 "(psf_stack-only mode requires window_local=True)")
+                warnings.warn(
+                    "wblur_impl='banded' is not supported in window_local mode; "
+                    "falling back to the dense MXU spectral blur",
+                    stacklevel=2,
+                )
+                wblur_impl = "dense"
+        self.conv_impl = conv_impl
         self.wblur_impl = wblur_impl
         self.wblur_band_rtol = float(wblur_band_rtol)
         self.templates = np.asarray(templates)
@@ -265,7 +304,7 @@ class SpectroSigRLSCT:
         self.step_degree = float(step_degree)
         self.psf_stack = None if psf_stack is None else np.asarray(psf_stack)
         self.sotf = sotf
-        self.npdtype = np.dtype(dtype)
+        self.npdtype = _np_dtype(dtype)
         self.conv_freq_rtol = float(conv_freq_rtol)
         self.conv_rank_rtol = float(conv_rank_rtol)
         self.srfs = get_srf([chan.det_pix_size for chan in instrs], self.step_degree * 3600)

@@ -117,11 +117,11 @@ def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32,
         raise ValueError("the materialized-OTF model needs the sotf — rebuild the setup "
                          "with make_flagship_setup(build_sotf=True)")
     model = SpectroSigRLSCT(
-        setup["templates"], setup["alpha_axis"], setup["beta_axis"],
-        setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
-        setup["pointings"], setup["psf_stack"] if window_local else None, dtype=dtype,
-        conv_freq_rtol=conv_freq_rtol, conv_rank_rtol=conv_rank_rtol, workers=workers,
-        sotf=None if window_local else setup["sotf"], window_local=window_local,
-        wblur_impl=wblur_impl, wblur_band_rtol=wblur_band_rtol, channels=channels,
+        None if window_local else setup["sotf"], setup["templates"], setup["alpha_axis"],
+        setup["beta_axis"], setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
+        setup["pointings"], dtype=dtype, wblur_impl=wblur_impl,
+        wblur_band_rtol=wblur_band_rtol, window_local=window_local,
+        conv_freq_rtol=conv_freq_rtol, psf_stack=setup["psf_stack"] if window_local else None,
+        conv_rank_rtol=conv_rank_rtol, workers=workers, channels=channels,
     )
     return model, setup

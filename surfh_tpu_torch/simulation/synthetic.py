@@ -119,11 +119,11 @@ def make_model(setup: Optional[dict] = None, dtype=np.float64, conv_freq_rtol: f
     if setup is None:
         setup = make_setup(**kwargs)
     model = SpectroSigRLSCT(
-        setup["templates"], setup["alpha_axis"], setup["beta_axis"],
-        setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
-        setup["pointings"], setup["spsf"] if window_local else None, dtype=dtype,
-        conv_freq_rtol=conv_freq_rtol, conv_rank_rtol=conv_rank_rtol, workers=workers,
-        sotf=None if window_local else setup["sotf"], window_local=window_local,
-        wblur_impl=wblur_impl, wblur_band_rtol=wblur_band_rtol,
+        None if window_local else setup["sotf"], setup["templates"], setup["alpha_axis"],
+        setup["beta_axis"], setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
+        setup["pointings"], dtype=dtype, wblur_impl=wblur_impl,
+        wblur_band_rtol=wblur_band_rtol, window_local=window_local,
+        conv_freq_rtol=conv_freq_rtol, psf_stack=setup["spsf"] if window_local else None,
+        conv_rank_rtol=conv_rank_rtol, workers=workers,
     )
     return model, setup

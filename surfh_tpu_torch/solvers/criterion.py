@@ -1,20 +1,23 @@
 """Regularized least squares for MRS fusion (counterpart of
-`surfh_tpu/solvers/criterion.py::QuadCriterion_MRS`, separated prior).
+`surfh_tpu/solvers/criterion.py::QuadCriterion_MRS`).
 
-J(x) = µ_s/2·‖Hx − y‖² + µ_r/2·(‖D_r x‖² + ‖D_c x‖²) with circular first
-differences over the two spatial axes of each map.  The normal operator
-Q = µ_s·HᵗH + µ_r·DᵀD uses the model's fused `normal`; the µ's ride as
-tensors in `op_args`, so one `normal_op` serves every µ.  Nothing is
-cached per model: eager PyTorch has no compiled program to reuse.
+J(x) = µ_s/2·‖Hx − y‖² + µ_r/2·‖Dx‖², D the circular first differences over
+the two spatial axes of each map (``gradient="separated"``) or the joint
+Fourier Laplacian (``"joint"``).  The normal operator Q = µ_s·HᵗH + µ_r·DᵀD
+uses the model's fused `normal`; the µ's ride as tensors in `op_args`, so
+one `normal_op` serves every µ.  Nothing is cached per model: eager
+PyTorch has no compiled program to reuse.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Union
 
 import numpy as np
 import torch
 
+from ..core import fft
 from .cg import SolverResult, lcg
 
 
@@ -39,23 +42,58 @@ def dtd_separated(x):
     )
 
 
+class DifferenceOperatorJoint:
+    """Joint Laplacian prior in Fourier (reference
+    `criterion.py::DifferenceOperatorJoint`): D x = idft(dft(x)·d̂) per map,
+    d̂ the non-unitary transfer function of the 2-D Laplacian."""
+
+    def __init__(self, shape_target, device, dtype):
+        ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+        self.shape_target = tuple(shape_target)
+        d_freq = fft.ir2fr(fft.laplacian(2), self.shape_target)[np.newaxis]
+        self.d_freq = torch.as_tensor(d_freq).to(device=device, dtype=ctype)
+
+    def D(self, x):
+        return fft.idft(fft.dft(x) * self.d_freq, self.shape_target)
+
+    def DtD(self, x):
+        return fft.idft(fft.dft(x) * self.d_freq.abs() ** 2, self.shape_target)
+
+
 class QuadCriterion_MRS:
     """J(x) = µ_s/2‖Hx−y‖² + µ_r/2‖Dx‖², minimized by `lcg`.
 
     `model_spectro` exposes `forward`, `adjoint`, `normal`, `ishape`,
-    `device` and `dtype` (the port's `SpectroSigRLSCT` after `.to()`)."""
+    `device` and `dtype` (the port's `SpectroSigRLSCT` after `.to()`).
+    `printing` prints the solve's time; `gradient` is "separated" or
+    "joint".  `use_fwadj` (a model's fused `fwadj` Hessian) is not ported."""
 
-    def __init__(self, mu_spectro, y_spectro, model_spectro, mu_reg):
+    def __init__(self, mu_spectro, y_spectro, model_spectro, mu_reg, printing: bool = False,
+                 gradient: str = "separated", use_fwadj: bool = False):
+        if gradient not in ("separated", "joint"):
+            raise ValueError(f"unknown gradient mode {gradient!r}")
+        if use_fwadj:
+            raise NotImplementedError(
+                "use_fwadj=True: the models with a fused fwadj Hessian (Model_WCT) are "
+                "ROADMAP A10, not ported yet")
         self.model = model_spectro
+        self.printing = printing
+        self.gradient = gradient
         self.shape_of_output = tuple(model_spectro.ishape)
         dev, dt = model_spectro.device, model_spectro.dtype
         self.mu_spectro = torch.as_tensor(mu_spectro, device=dev, dtype=dt)
         self.mu_reg = torch.as_tensor(mu_reg, device=dev, dtype=dt)
         self.y_spectro = torch.as_tensor(y_spectro).to(device=dev, dtype=dt).reshape(-1)
+        self._joint = (DifferenceOperatorJoint(self.shape_of_output[1:], dev, dt)
+                       if gradient == "joint" else None)
         self._b = None
+        self.L_crit_val: list = []
+
+    def _dtd(self, x):
+        return dtd_separated(x) if self._joint is None else self._joint.DtD(x)
 
     def normal_op(self, x, mu_s, mu_r):
-        return mu_s * self.model.normal(x) + mu_r * dtd_separated(x)
+        return mu_s * self.model.normal(x) + mu_r * self._dtd(x)
 
     @property
     def b(self) -> torch.Tensor:
@@ -69,24 +107,44 @@ class QuadCriterion_MRS:
         method: str = "lcg",
         maximum_iterations: int = 10,
         tolerance: float = 1e-12,
+        calc_crit: bool = False,
+        perf_crit=None,
         value_init: Union[float, np.ndarray, torch.Tensor] = 0.5,
         solver_state=None,
         return_state: bool = False,
+        solver_loop: str = "graph",
+        solver_chain: int = 1,
     ) -> SolverResult:
+        """Solve with `method` from `value_init` (or resume `solver_state`);
+        `calc_crit` appends J(x̂) to `L_crit_val` and sets the result's
+        `crit_val` to all values so far.  `solver_loop` / `solver_chain`
+        are `lcg`'s `loop` / `chain_steps`."""
         if method != "lcg":
-            raise NotImplementedError(f"method={method!r}: only lcg is ported")
+            raise NotImplementedError(f"method={method!r}: only lcg is ported; mmmg is ROADMAP A11")
+        if perf_crit is not None:
+            raise NotImplementedError("perf_crit is not ported (ROADMAP A11)")
         dev, dt = self.model.device, self.model.dtype
         if isinstance(value_init, (int, float)):
             init = torch.full(self.shape_of_output, float(value_init), device=dev, dtype=dt)
         else:
             init = torch.as_tensor(value_init).to(device=dev, dtype=dt).reshape(self.shape_of_output)
-        return lcg(self.normal_op, self.b, init, max_iter=maximum_iterations,
-                   tol=tolerance, state=solver_state, return_state=return_state,
-                   op_args=(self.mu_spectro, self.mu_reg))
+        t0 = time.perf_counter()
+        res = lcg(self.normal_op, self.b, init, max_iter=maximum_iterations, tol=tolerance,
+                  state=solver_state, return_state=return_state,
+                  op_args=(self.mu_spectro, self.mu_reg), loop=solver_loop, chain_steps=solver_chain)
+        if self.printing:
+            print(f"Total time needed for {method}: {time.perf_counter() - t0:.3f}s")
+        if calc_crit:
+            self.L_crit_val.append(self.get_crit_val(res.x))
+            res.crit_val = np.asarray(self.L_crit_val)
+        return res
 
     def get_crit_val(self, x_hat) -> float:
         x_hat = torch.as_tensor(x_hat).to(device=self.model.device, dtype=self.model.dtype)
         x_hat = x_hat.reshape(self.shape_of_output)
         data_term = self.mu_spectro * torch.sum((self.y_spectro - self.model.forward(x_hat)) ** 2)
-        reg = self.mu_reg * torch.sum(diff_rows(x_hat) ** 2 + diff_cols(x_hat) ** 2)
+        if self._joint is None:
+            reg = self.mu_reg * torch.sum(diff_rows(x_hat) ** 2 + diff_cols(x_hat) ** 2)
+        else:
+            reg = self.mu_reg * torch.sum(self._joint.D(x_hat) ** 2)
         return float((data_term + reg) / 2)

@@ -301,15 +301,18 @@ def _fixed_case(rng, n_rows, n_src, max_per_row, tp, ld):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("W", [52, 466, 181])  # float4, float2 and scalar paths
-@pytest.mark.parametrize("n_rows, tp, max_per_row", [(3001, 512, 7), (1022, 8, 8), (999, 4, 1)])
+@pytest.mark.parametrize("n_rows, tp, max_per_row", [(3001, 512, 7), (1022, 8, 8), (999, 4, 1),
+                                                     (1501, 8, 11)])
 def test_gather_fixed_kernels_match_plain(W, n_rows, tp, max_per_row):
+    """Each kernel once against its plain version (a launch counted, rows
+    without taps zero) and a second launch bit for bit the first."""
     from surfh_tpu_torch.core import gather_fixed as gf
 
     dev = _cuda()
     rng = np.random.default_rng(W + n_rows)
     n_src = 700
     plan, empty = _fixed_case(rng, n_rows, n_src, max_per_row, tp, W)
-    assert empty.any() and n_rows % 4 and plan.L <= gf.MAX_L
+    assert empty.any() and n_rows % 4 and plan.L == max_per_row
     src = torch.as_tensor(rng.standard_normal((n_src, W)), dtype=torch.float32, device=dev)
     p32, p64 = plan.to(dev, torch.float32), plan.to(dev, torch.float64)
     for kernel, plain in ((gf.gather_fixed_k1, gf.gather_fixed_k1_reference),
@@ -327,6 +330,7 @@ def test_gather_fixed_kernels_match_plain(W, n_rows, tp, max_per_row):
         want = plain(src.double(), p64)
         assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
         assert not got[torch.as_tensor(empty, device=dev)].any()  # rows with no taps: zero
+        assert torch.equal(got, kernel(src, p32))
 
 
 @pytest.mark.cuda
@@ -346,15 +350,15 @@ def test_gather_fixed_kernels_reject_what_they_do_not_take():
             kernel(torch.zeros((8, 30), device=dev).T, p32)
     with pytest.raises(ValueError, match="ld"):
         gf.gather_fixed_k3(torch.zeros((30, 12), device=dev), p32)
-    wide, _ = _fixed_case(rng, 40, 30, gf.MAX_L + 3, 8, 8)
-    assert wide.L > gf.MAX_L
+    # no static fan-in: every kernel takes L = 11 (more than the prototype's 7 or 8)
+    wide, _ = _fixed_case(rng, 40, 30, 11, 8, 8)
+    assert wide.L == 11
     w32, src = wide.to(dev, torch.float32), torch.randn((30, 8), device=dev)
-    for kernel in (gf.gather_fixed_k1, gf.gather_fixed_k3):
-        with pytest.raises(ValueError, match="static L"):
-            kernel(src, w32)
-    # K2's tap loop is dynamic: any L
-    got, want = gf.gather_fixed_k2(src, w32), gf.gather_fixed_k2_reference(src, w32)
-    assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
+    for kernel, plain in ((gf.gather_fixed_k1, gf.gather_fixed_k1_reference),
+                          (gf.gather_fixed_k2, gf.gather_fixed_k2_reference),
+                          (gf.gather_fixed_k3, gf.gather_fixed_k3_reference)):
+        got, want = kernel(src, w32), plain(src, w32)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -403,3 +407,54 @@ def test_gather_fixed_k2_shapes(W, L, misaligned):
     assert float((g - w_).abs().max() / w_.abs().max()) <= 1e-6
     assert not got[p32.cnt[:n_rows] == 0].any()  # rows with no taps: zero
     assert torch.equal(got[~poisoned], gf.gather_fixed_k2(src, p32)[~poisoned])  # taps in table order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("L", [1, 7, 11, 40])
+@pytest.mark.parametrize("W", [13, 52, 181, 241, 466, 613, 1000])
+def test_gather_fixed_k1_k3_shapes(W, L, misaligned):
+    """K1 and K3 in the shape `fixed_launch_shape` picks (a lane per column;
+    16 or 32 lanes a row; float4, float2 and single floats; several column
+    chunks at W = 1000), bases 16-byte aligned or one float into their
+    storage: a third
+    of the rows empty, some rows of exactly L taps, and a NaN in src[0].
+    Every tap is summed, so the NaN reaches exactly the rows with a padded
+    tap (fewer than L taps) and those whose taps name row 0, as in the plain
+    versions; the rest agree with them ≤1e-6, and a second launch is bit for
+    bit the first."""
+    from surfh_tpu_torch.core import gather_fixed as gf
+
+    dev = _cuda()
+    rng = np.random.default_rng(100 * L + W)
+    n_rows, n_src = 1501, 700
+    live = np.sort(rng.choice(n_rows, size=2 * n_rows // 3, replace=False))
+    per = rng.integers(1, L + 1, live.size)
+    per[:5] = L
+    cdst = np.repeat(live, per)
+    csrc = rng.integers(1, n_src, cdst.size)
+    named = rng.choice(cdst.size, size=9, replace=False)
+    csrc[named] = 0
+    cw = rng.uniform(0.5, 1.5, cdst.size) * rng.choice([-1.0, 1.0], cdst.size)
+    plan = gf.build_fixed_fanin_plan(csrc, cw, cdst, n_rows, n_src, 8, ld=W)
+    assert plan.L == L
+    store = torch.as_tensor(rng.standard_normal(n_src * W + 1), dtype=torch.float32, device=dev)
+    src = store[1:].view(n_src, W) if misaligned else store[:-1].view(n_src, W)
+    assert src.is_contiguous() and (src.data_ptr() % 16 == 4) == misaligned
+    src[0] = float("nan")
+    p32 = plan.to(dev, torch.float32)
+    poisoned = (p32.cnt[:n_rows] < L).clone()
+    poisoned[torch.as_tensor(np.unique(cdst[named]), device=dev)] = True
+    assert not poisoned.all()
+    for kernel, plain, count in ((gf.gather_fixed_k1, gf.gather_fixed_k1_reference, "launches_k1"),
+                                 (gf.gather_fixed_k3, gf.gather_fixed_k3_reference, "launches_k3")):
+        before = getattr(gf, count)
+        got = kernel(src, p32)
+        torch.cuda.synchronize()
+        assert getattr(gf, count) == before + 1 and tuple(got.shape) == (n_rows, W)
+        want = plain(src, p32)
+        assert torch.isnan(got[poisoned]).all() and torch.isfinite(got[~poisoned]).all()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        g, w_ = got[~poisoned], want[~poisoned]
+        assert float((g - w_).abs().max() / w_.abs().max()) <= 1e-6
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(kernel(src, p32)))

@@ -239,3 +239,52 @@ def test_k2_launches_in_the_gather_launch_shape(monkeypatch, W, aligned):
     assert shape == gr.gather_launch_shape(W, both, 260 / n_rows)
     if not aligned:
         assert shape[0] == 1  # single floats from a base that is not on 16 bytes
+
+
+# K1 / K3 (every tap of the padded row) on every band's transpose and at the
+# entry point's W = 466: (vec, cols, taps, group) from 16-byte aligned bases
+K13_SHAPES = {
+    "1a": (1, 16, 1, 32), "1b": (4, 6, 1, 32), "1c": (1, 16, 1, 16), "2a": (1, 16, 1, 32),
+    "2b": (4, 4, 1, 32), "2c": (4, 6, 1, 32), "3a": (4, 6, 1, 16), "3b": (4, 6, 1, 16),
+    "3c": (1, 16, 1, 32), "4a": (4, 4, 1, 16), "4b": (1, 16, 1, 16), "4c": (1, 16, 1, 16),
+    "proto": (2, 8, 1, 32),
+}
+
+
+@pytest.mark.parametrize("align", [16, 4])
+@pytest.mark.parametrize("band", list(K13_SHAPES))
+def test_k1_k3_launch_shape_on_every_band(monkeypatch, band, align):
+    """K1's and K3's wrappers launch in `fixed_launch_shape`'s shape for W
+    and the bases' alignment: one tap at a time, one chunk of the row on 16
+    lanes where 16 hold it, else on 32 where they do (up to 16 floats a lane,
+    24 as float4), else chunks of the widest on 16 lanes (1c: W = 613 at
+    single floats); float2 where W is even but not a multiple of 4, from
+    8-byte aligned bases; single floats from a base one float into its
+    storage.  Pinned on the flagship's widths."""
+    W = FLAGSHIP[band][2] if band in FLAGSHIP else 466
+    rng = np.random.default_rng(len(band) + W)
+    n_rows, n_src = 64, 40
+    plan = gf.build_fixed_fanin_plan(rng.integers(0, n_src, 90), rng.uniform(0.5, 1.5, 90),
+                                     np.sort(rng.integers(0, n_rows, 90)), n_rows, n_src, 8, ld=W)
+    store = torch.zeros(n_src * W + 4)
+    src = store[:n_src * W].view(n_src, W) if align == 16 else store[1:n_src * W + 1].view(n_src, W)
+    seen = []
+    monkeypatch.setattr(gf, "_check", lambda *a, **k: None)
+    for launch in ("_launch_k1", "_launch_k3"):
+        monkeypatch.setattr(gf, launch, lambda src, plan, out, *shape: seen.append((shape, out)))
+    outs = [gf.gather_fixed_k1_cuda(src, plan), gf.gather_fixed_k3_cuda(src, plan)]
+    assert [o for _, o in seen] == outs
+    both = gf._align(src, *outs)
+    want = gf.fixed_launch_shape(W, both)
+    assert [s for s, _ in seen] == [want, want]
+    if both == 16:
+        assert want == K13_SHAPES[band]
+    else:
+        assert want[0] == 1  # single floats from a base that is not on 8 bytes
+    vec, cols, taps, group = want
+    nvec, widest = W // vec, gf.FIXED_LANE_FLOATS[vec][-1] // vec
+    assert W % vec == 0 and vec * cols in gf.FIXED_LANE_FLOATS[vec] and taps == 1
+    if widest * 32 >= nvec:  # one chunk, on 16 lanes where they hold it
+        assert cols * group >= nvec and group == (16 if widest * 16 >= nvec else 32)
+    else:  # chunks of the widest on 16 lanes
+        assert (cols, group) == (widest, 16)
