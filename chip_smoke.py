@@ -47,7 +47,20 @@ and the composed-transpose prototype entry point
                  normal application, times for both blurs, the main path
                  (y, b, 10 lcg iterations);
 10. small      — the card's f32 operators (both modes) against the CPU f64
-                 ones on small synthetic problems.
+                 ones on small synthetic problems;
+11. pipeline   — the real-data path through the port's CLI at full width
+                 (band 1c, 4 pointings, 501² at 0.025″, the whole 1400-row
+                 detector λ table, µ = 5e3, 400 iterations): `rehearse`
+                 (synthetic stage-2 files,
+                 Shepard correction, median filter, corrected-slice FITS,
+                 the checkpointed W-plane fusion, the flux comparison)
+                 against the reference's quality bars, with its row-gather
+                 launches counted; Shepard on the card against a dense
+                 float64 version for one slit; the fusion model rebuilt from
+                 the slices (kernels against plain gathers, launches per
+                 normal, the dense blur's dot test, times, peak memory);
+                 `fusion --fusion-data` uninterrupted and stopped after 20
+                 iterations then resumed, bit for bit.
 
 Prints the kernels' JSON record, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -77,6 +90,210 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"CHECK FAILED: {what}")
+
+
+REHEARSE_BAND, REHEARSE_NPIX, REHEARSE_STEP = "1c", 501, 0.025
+# At the rehearse command's defaults (µ = 1, 60 iterations) this geometry
+# misses the flux bar at any iteration count: the sky outside band 1c's FOV
+# (~8 % of the 501² grid) keeps CG's initial 0.5 and adds a flat spectrum to
+# the fused cube's mean (flux_ratio_median 1.118-1.119 from 20 to 400
+# iterations; the JAX package's rehearsal gives the same ratio, PERF.md
+# section 6).  At the fusion's own default µ = 5e3 (`fusion`,
+# `run_real_fusion`) CG pulls that sky in: 1.0942 at 400 iterations.
+REHEARSE_MU, REHEARSE_NITER = 5e3, 400
+FUSION_NITER, FUSION_SEGMENT = 60, 20  # `fusion --checkpoint-every 20 -ni 60`, stopped after 20
+REHEARSE_BARS = "residual_rel < 0.10, 0.9 < flux_ratio_median < 1.1, flux_shape_corr > 0.9, flux_points > 50"
+
+
+def shepard_plain(pa, pl, vals, am, lm, p=2.0, alpha=2.0, pixel_cutoff=1.0, alpha_res=1.0,
+                  lambda_res=1.0, epsilon=1e-6, device=None, rows=512):
+    """Float64 plain Shepard: every sample for every grid row, on `device`,
+    from the float32 inputs the port's version reads."""
+    import numpy as np
+    import torch
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float32).ravel()).to(device, torch.float64)
+
+    pa, pl, vals, ga, gl = f(pa), f(pl), f(vals), f(am), f(lm)
+    out = torch.empty_like(ga)
+    for i in range(0, ga.numel(), rows):
+        da = (pa[None] - ga[i : i + rows, None]) / alpha_res
+        dl = (pl[None] - gl[i : i + rows, None]) / lambda_res
+        dist = torch.sqrt(da * da + dl * dl) + epsilon
+        w = torch.where(dist <= pixel_cutoff, torch.exp(-alpha * dist**p), 0.0)
+        den = w.sum(1)
+        out[i : i + rows] = torch.where(den != 0, (w @ vals) / torch.where(den != 0, den, 1.0), 0.0)
+    return out.reshape(np.shape(am))
+
+
+def run_pipeline_phase(dev, card: str, cuda_ms, gen) -> dict:
+    """11. The real-data path at full width through the port's CLI; returns
+    the row-gather launches of the rehearsal and the phase's numbers."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import cli as tcli
+    from surfh_tpu_torch import pipeline as tpl
+    from surfh_tpu_torch.core import fft
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.preprocessing import distortion
+    from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def run_cli(argv, tag):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tcli.main(argv)
+        lines = out.getvalue().strip().splitlines()
+        for line in lines[:-1]:
+            log(f"[pipeline] {tag}: {line}")
+        check(rc == 0 and bool(lines), f"{tag}: exit code {rc}")
+        log(f"[pipeline] {tag}: {lines[-1]} ({time.perf_counter() - t0:.2f} s)")
+        return json.loads(lines[-1])
+
+    work = tempfile.mkdtemp(prefix="surfh_rehearse_")
+    res = {}
+    shepard = distortion.exponential_modified_shepard
+    try:
+        # 1. the rehearsal through the port's CLI, Shepard timed, gathers counted
+        shep = {"calls": 0, "s": 0.0, "first": None}
+
+        def timed_shepard(*a, **k):
+            t0 = time.perf_counter()
+            out = shepard(*a, **k)  # a host array: the card has finished
+            shep["s"] += time.perf_counter() - t0
+            shep["calls"] += 1
+            if shep["first"] is None:
+                shep["first"] = (a, k, out)
+            return out
+
+        distortion.exponential_modified_shepard = timed_shepard
+        torch.cuda.reset_peak_memory_stats(dev)
+        gr.reset_launches()
+        try:
+            rep = run_cli(["rehearse", "-w", work, "--band", REHEARSE_BAND, "--pointings", "4",
+                           "-np", str(REHEARSE_NPIX), "--step", str(REHEARSE_STEP),
+                           "--lambda-subsample", "1", "-hp", str(REHEARSE_MU), "-ni", str(REHEARSE_NITER)],
+                          "rehearse")
+        finally:
+            distortion.exponential_modified_shepard = shepard
+        sync()
+        res["launches"] = gr.launches
+        n_it = rep["n_iterations"] - 1
+        # µ·Hᵗy, the initial residual, one normal per iteration, the final forward: 8 a normal
+        expect = 4 + 8 * (n_it + 1) + 4
+        log(f"[pipeline] {card}: rehearse band {rep['band']}, {rep['n_pointings']} pointings, "
+            f"npix {rep['npix']}: stage-2 {rep['t_stage2_s']} s, correction {rep['t_correct_s']} s "
+            f"(Shepard {shep['calls']} slits, {1e3 * shep['s']:.1f} ms in all), fusion "
+            f"{rep['t_fusion_s']} s ({n_it} iterations); residual_rel {rep['residual_rel']:.4e}, "
+            f"flux_ratio_median {rep['flux_ratio_median']:.4f}, flux_shape_corr "
+            f"{rep['flux_shape_corr']:.4f}, flux_points {rep['flux_points']} (bars: {REHEARSE_BARS}); "
+            f"gather_rows launches {res['launches']} (expected {expect}); peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        check(rep["band"] == REHEARSE_BAND and rep["npix"] == REHEARSE_NPIX and n_it == REHEARSE_NITER,
+              "rehearse configuration")
+        check(rep["residual_rel"] < 0.10 and 0.9 < rep["flux_ratio_median"] < 1.1
+              and rep["flux_shape_corr"] > 0.9 and rep["flux_points"] > 50,
+              f"rehearse quality bars ({REHEARSE_BARS}): {rep}")
+        check(res["launches"] == expect, "rehearse gather_rows launches")
+        os.remove(os.path.join(work, "out", "res_cube.npy"))
+
+        # 2. Shepard on the card against the dense float64 version, one slit of pointing 0
+        a, k, got = shep["first"]
+        t0 = time.perf_counter()
+        want = shepard_plain(*a, **{**k, "device": dev}).cpu().numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"[pipeline] Shepard, slit 1 of pointing 0: grid {np.shape(a[3])} x {np.size(a[0])} samples: "
+            f"card f32 vs dense f64 max rel {err:.3e} (bound 1e-5), zero cells {int((got == 0).sum())} / "
+            f"{int((want == 0).sum())} ({time.perf_counter() - t0:.2f} s for the f64 version)")
+        check(err <= 1e-5, "Shepard vs float64")
+        res["shepard_ms"] = 1e3 * shep["s"]
+
+        # 3. the fusion model rebuilt from the corrected slices
+        step = REHEARSE_STEP / 3600.0
+        t0 = time.perf_counter()
+        templates = np.load(os.path.join(work, "Templates", "templates.npy"))
+        wavel = np.load(os.path.join(work, "Templates", "wavel_axis.npy"))
+        spsf = tpl.crop_psf_stack(np.load(os.path.join(work, "PSF", "psf.npy")), REHEARSE_NPIX)
+        alpha = np.arange(REHEARSE_NPIX) * step
+        alpha -= alpha.mean()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sotf = fft.ir2fr_device(spsf, (REHEARSE_NPIX, REHEARSE_NPIX), dev)
+        dd = tpl.load_corrected_data(os.path.join(work, "Filtered_slices"), [REHEARSE_BAND])
+        pm = tpl.create_model(sotf, templates, alpha, alpha.copy(), wavel,
+                              tpl.create_instruments(dd, [REHEARSE_BAND]), step, dd, device=dev)
+        y = pm.real_data_janskySR_to_jansky(tpl.assemble_data_vector(pm, dd, [REHEARSE_BAND]))
+        sync()
+        chan = pm.channels[0]
+        log(f"[pipeline] model from Filtered_slices in {time.perf_counter() - t0:.2f} s: cube "
+            f"{pm.cube_shape}, maps {pm.ishape}, y {pm.oshape[0]}, oshape {chan.oshape}, W "
+            f"{chan.n_wslice}, bbox {chan.tbbox}, box offset {chan.box_offset}")
+        x = torch.rand(pm.ishape, generator=gen, device=dev)
+        n_k, n_p = pm.normal(x), pm.normal(x, plain=True)
+        sync()
+        nrm = float((n_k - n_p).abs().max() / n_p.abs().max())
+        gr.reset_launches()
+        pm.normal(x)
+        sync()
+        per_app = gr.launches
+        xr = torch.rand(pm.ishape, generator=gen, device=dev)
+        yr = torch.rand(pm.oshape, generator=gen, device=dev)
+        lhs = float(torch.dot(pm.forward(xr).double(), yr.double()))
+        rhs = float(torch.dot(xr.reshape(-1).double(), pm.adjoint(yr).reshape(-1).double()))
+        dot = abs(lhs - rhs) / abs(lhs)
+        log(f"[pipeline] normal, kernels vs plain gathers: max rel {nrm:.3e} (bound 1e-5); gather_rows "
+            f"launches per normal {per_app} (expected 8: 4 pointings x 2 directions); dense-blur dot "
+            f"test (f64 sums) <Hx,y>={lhs:.9e} <x,H'y>={rhs:.9e} rel {dot:.3e} (bound 1e-5)")
+        check(bool(torch.isfinite(n_k).all()) and nrm <= 1e-5, "pipeline normal kernels vs plain")
+        check(per_app == 8, "pipeline gather_rows launches per normal")
+        check(dot <= 1e-5, "pipeline dense dot test")
+        del n_k, n_p, xr, yr
+        res["normal_ms"] = cuda_ms(lambda: pm.normal(x), REPS)
+        crit = QuadCriterion_MRS(1.0, y, pm, REHEARSE_MU)
+        crit.b
+        sync()
+        t0 = time.perf_counter()
+        cres = crit.run_method("lcg", maximum_iterations=10)
+        sync()
+        res["cg_s_it"] = (time.perf_counter() - t0) / cres.n_iter
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        vox = float(np.prod(pm.cube_shape))
+        log(f"[pipeline] {card}: normal {res['normal_ms']:.3f} ms/app ({2 * vox / (res['normal_ms'] * 1e-3) / 1e9:.2f} "
+            f"GVox/s, 2 x {int(vox)} voxels), CG {res['cg_s_it']:.4f} s/iteration (10 iterations, host "
+            f"clock), peak {res['peak_gib']:.2f} GiB (model, OTF, CG)")
+        check(cres.n_iter == 10 and bool(np.isfinite(cres.grad_norm).all()), "pipeline CG")
+        del pm, crit, cres, sotf, x, y
+        torch.cuda.empty_cache()
+
+        # 4. fusion --fusion-data: uninterrupted, and stopped after 20 then resumed
+        base = ["fusion", "--fusion-data", work, "-np", str(REHEARSE_NPIX), "-hp", str(REHEARSE_MU), "-sd",
+                "--checkpoint-every", str(FUSION_SEGMENT)]
+        out_a, out_b = os.path.join(work, "fused_a"), os.path.join(work, "fused_b")
+        n, seg = str(FUSION_NITER), str(FUSION_SEGMENT)
+        ra = run_cli(base + ["-ni", n, "-o", out_a], f"fusion, {n} iterations")
+        os.remove(os.path.join(out_a, "res_cube.npy"))
+        rb = run_cli(base + ["-ni", seg, "-o", out_b], f"fusion, stopped after {seg}")
+        rb = run_cli(base + ["-ni", n, "-o", out_b], f"fusion, resumed to {n}")
+        xa = np.load(os.path.join(out_a, "res_x.npy"))
+        xb = np.load(os.path.join(out_b, "res_x.npy"))
+        same = np.array_equal(xa, xb)
+        log(f"[pipeline] resumed fusion bit for bit the uninterrupted one: {same} (max abs diff "
+            f"{float(np.abs(xa - xb).max()):.3e}); final grad norm {ra['final_grad_norm']:.6e} / "
+            f"{rb['final_grad_norm']:.6e}")
+        check(ra["niter"] == rb["niter"] == FUSION_NITER and same,
+              "checkpointed fusion resumed vs uninterrupted")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
 
 
 def main(argv=None) -> int:
@@ -593,6 +810,12 @@ def main(argv=None) -> int:
         e_y, e_n = rel(got_y, ref_y), rel(got_n, ref_n)
         log(f"[small] {mode}: card f32 vs CPU f64: forward {e_y:.3e}, normal {e_n:.3e} (bound 1e-5)")
         check(e_y <= 1e-5 and e_n <= 1e-5, f"small {mode} problem vs CPU f64")
+
+    # 11. the real-data path through the port's CLI, band 1c at full width --
+    t0 = time.perf_counter()
+    pipe = run_pipeline_phase(dev, card, cuda_ms, gen)
+    log(f"[pipeline] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on the "
+        f"rehearsal {pipe['launches']}")
 
     log(json.dumps({"kernels": [{
         "name": "gather_rows",

@@ -16,13 +16,19 @@ Layer map (bottom-up), first slice = the flagship rank-mode fusion solve:
                 their build (`core._build`).
 ``models``      Slicer, the composed-path Channel and the rank-mode
                 `SpectroSigRLSCT` (forward, adjoint, fused normal).
-``solvers``     `lcg` and `QuadCriterion_MRS`.
-``simulation``  synthetic and flagship problem generators.
+``solvers``     `lcg`, `QuadCriterion_MRS` and the checkpointed solve.
+``simulation``  synthetic and flagship problem generators, synthetic
+                stage-2 files.
+``preprocessing`` FITS I/O, header metadata, the Shepard regrid (torch on
+                a device), the distortion correction and its driver.
+``pipeline``    the real-data fusion and the rehearsal chain; ``cli`` the
+                command line (`python -m surfh_tpu_torch.cli`).
 ``convert``     the reference model's tables carried across.
 
 ``instrument``  the port's own copy of `surfh_tpu.instrument` (geometry,
                 IFU, spectral blur, MIRI band and wavelength tables).
-``utils``       PSF stamps, phase timers and the chained kernel timer.
+``utils``       PSF stamps, phase timers, the chained kernel timer and the
+                reconstruction metrics.
 
 Nothing of `surfh_tpu` is imported, not even its JAX-free modules.
 """

@@ -1,0 +1,343 @@
+"""Command-line entry points of the port (argparse; no click).
+
+Counterpart of `surfh_tpu/cli.py`: the same subcommand names, options,
+defaults and JSON last line for `fusion` (real data, or `--simulated`),
+`rehearse`, `make-cube`, `compare-flux` and `info`.  Everything runs on the
+card; ``SURFH_CPU=1`` (the reference's switch) runs it on the host CPU
+instead.  Without a card and without that switch, every subcommand raises.
+
+Not ported yet (NotImplementedError, naming the ROADMAP item):
+``--method mmmg`` (A11), ``--sharded`` (A13) and the subcommands
+`deconv-cube`, `deconv2d`, `allband`, `metadata`, `gen-psf` and `warmup`.
+
+Usage:
+    python -m surfh_tpu_torch.cli rehearse --band 1c --pointings 4 -np 501 --step 0.025 \\
+        --lambda-subsample 1
+    python -m surfh_tpu_torch.cli fusion --fusion-data DIR -np 501
+    SURFH_CPU=1 python -m surfh_tpu_torch.cli fusion --simulated -np 31 --n-lambda 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .core.precision import require_cuda
+
+logger = logging.getLogger("surfh_tpu_torch")
+
+NOT_PORTED = {
+    "deconv-cube": "the blind-2D models (models/blind2d.py) are ROADMAP A10",
+    "deconv2d": "the blind-2D models (models/blind2d.py) are ROADMAP A10",
+    "allband": "the all-band NMF pipeline (learning/decomposition.py, "
+               "flagship.make_allband_setup) is ROADMAP A12",
+    "metadata": "the metadata subcommand is ROADMAP A12",
+    "gen-psf": "the diffraction PSF (utils/jwst_psf.py) is ROADMAP A9",
+    "warmup": "warmup is ROADMAP A12",
+}
+
+
+def _device() -> torch.device:
+    """The card, or the host CPU under ``SURFH_CPU`` (any non-empty value)."""
+    if os.environ.get("SURFH_CPU"):
+        return torch.device("cpu")
+    return require_cuda()
+
+
+def _check_solver(method: str, sharded: bool = False) -> None:
+    if method != "lcg":
+        raise NotImplementedError(f"--method {method}: only lcg is ported; mmmg is ROADMAP A11")
+    if sharded:
+        raise NotImplementedError("--sharded: the channel-sharded solve (parallel/fusion.py) "
+                                  "is ROADMAP A13")
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cmd_fusion(args, parser) -> None:
+    """Multi-channel multi-observation LMM fusion (the flagship run)."""
+    from .simulation.synthetic import make_model
+    from .solvers.checkpoint import run_checkpointed
+    from .solvers.criterion import QuadCriterion_MRS
+    from .utils import metrics
+
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if not args.simulated and args.fusion_data is None:
+        parser.error("provide --fusion-data DIR or --simulated")
+    _check_solver(args.method, args.sharded)
+    device = _device()
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    if not args.simulated:
+        from .pipeline import run_real_fusion
+
+        slices = os.path.join(args.fusion_data, "Filtered_slices")
+        bands = sorted({f.split("_")[0].lower() for f in os.listdir(slices) if f.endswith(".fits")})
+        logger.info("real-data fusion: bands %s", bands)
+        res, _model = run_real_fusion(
+            args.fusion_data, bands, npix=args.npix, mu=args.hyper_parameter,
+            niter=args.niter, method=args.method, scale_data=args.scale_data,
+            output_dir=args.output_dir, checkpoint_every=args.checkpoint_every,
+            device=device,
+        )
+        _emit({"method": args.method, "niter": int(res.n_iter),
+               "final_grad_norm": float(res.grad_norm[-1])})
+        return
+
+    logger.info("building simulated model: %d² grid, %dλ, %d bands, %d pointings",
+                args.npix, args.n_lambda, args.channels, args.pointings)
+    model, setup = make_model(
+        dtype=np.float32, window_local=False, im_size=args.npix, n_lambda=args.n_lambda,
+        n_tpl=args.n_templates, n_channels=args.channels, n_pointings=args.pointings,
+    )
+    model.to(device, torch.float32)
+    truth = np.asarray(setup["maps"], np.float32)
+    t0 = time.perf_counter()
+    y = model.forward(truth).cpu().numpy()
+    if args.noise_snr > 0:
+        rng = np.random.default_rng(0)
+        sigma = np.sqrt(np.mean(y**2) / 10 ** (args.noise_snr / 10))
+        y = y + rng.normal(0, sigma, y.shape).astype(y.dtype)
+    logger.info("data synthesized in %.2fs (%d samples)", time.perf_counter() - t0, y.size)
+
+    t0 = time.perf_counter()
+    crit = QuadCriterion_MRS(1.0, y, model, args.hyper_parameter, printing=args.verbose)
+    res = run_checkpointed(
+        crit, method=args.method, niter=args.niter,
+        checkpoint_path=os.path.join(args.output_dir, "solver_state.npz"),
+        checkpoint_every=args.checkpoint_every,
+    )
+    x = res.x.cpu().numpy()
+    dt = time.perf_counter() - t0
+    logger.info("%s: %d iterations in %.2fs (%.2f it/s)", args.method, res.n_iter, dt,
+                res.n_iter / max(dt, 1e-9))
+
+    np.save(os.path.join(args.output_dir, "res_x.npy"), x)
+    np.save(os.path.join(args.output_dir, "res_cube.npy"), model.mapsToCube(res.x).cpu().numpy())
+    np.save(os.path.join(args.output_dir, "criterion.npy"), res.grad_norm)
+    _emit({
+        "method": args.method,
+        "niter": int(res.n_iter),
+        "seconds": dt,
+        "iters_per_s": res.n_iter / max(dt, 1e-9),
+        "psnr_maps": metrics.psnr(truth, x),
+        "relative_error_pct": metrics.relative_error(truth, x),
+    })
+
+
+def cmd_make_cube(args, parser) -> None:
+    """Mix abundance maps with spectral templates into a hyperspectral cube
+    (cube[λ] = Σ_m maps[m]·templates[m, λ], on the device)."""
+    from .core.lmm import lmm_maps2cube
+
+    maps = np.load(args.maps_path)
+    templates = np.load(args.templates_path)
+    if templates.ndim == 1:
+        templates = templates[np.newaxis, ...]
+    if maps.ndim == 2:
+        maps = maps[np.newaxis, ...]
+    if templates.ndim != 2 or maps.ndim != 3:
+        parser.error(f"expected maps (m, Nα, Nβ) and templates (m, λ); got "
+                     f"{maps.shape} and {templates.shape}")
+    if maps.shape[0] != templates.shape[0]:
+        parser.error(f"maps ({maps.shape[0]}) and templates ({templates.shape[0]}) "
+                     "disagree on the number of components")
+    device = _device()
+    dtype = torch.float64 if np.result_type(maps, templates) == np.float64 else torch.float32
+    cube = lmm_maps2cube(torch.as_tensor(maps).to(device, dtype),
+                         torch.as_tensor(templates).to(device, dtype)).cpu().numpy()
+    if args.output.endswith(".fits"):
+        from .preprocessing import fits_write
+
+        header = {}
+        if args.wavel_path:
+            wavel = np.load(args.wavel_path)
+            header = {"CRVAL3": float(wavel[0]), "CRPIX3": 1.0,
+                      "CDELT3": float(wavel[1] - wavel[0]) if len(wavel) > 1 else 1.0,
+                      "CUNIT3": "um", "CTYPE3": "WAVE"}
+        fits_write(args.output, cube.astype(np.float32), header=header)
+    else:
+        np.save(args.output, cube)
+    _emit({"cube_shape": list(cube.shape), "output": args.output})
+
+
+def cmd_compare_flux(args, parser) -> None:
+    """Mean-flux comparison of a fused cube vs a real data cube, per λ-slice
+    (non-zero mean per slice, optional polygon-region spectrum, λ median
+    filter); host NumPy."""
+    from .preprocessing import median_filter_slices
+    from .utils import metrics
+
+    fused = np.load(args.fusion_cube)
+    if args.mask:
+        fused = fused * np.load(args.mask)[np.newaxis, ...]
+    if args.real_cube.endswith(".npy"):
+        real = np.load(args.real_cube)
+    else:
+        from .preprocessing import fits_open
+
+        hdus = fits_open(args.real_cube)
+        real = np.asarray(next(h.data for h in hdus if h.data is not None
+                               and np.ndim(h.data) == 3), np.float64)
+    real = np.nan_to_num(real)
+    if args.median_size:
+        real = median_filter_slices(real.reshape(real.shape[0], -1),
+                                    size=args.median_size).reshape(real.shape)
+    out = {
+        "mean_flux_fusion": metrics.nonzero_mean_per_slice(fused),
+        "mean_flux_real": metrics.nonzero_mean_per_slice(real),
+    }
+    if args.region:
+        poly = [tuple(map(float, p.split(","))) for p in args.region.split(";")]
+        out["region_spectrum"] = metrics.region_mean_spectrum(fused, poly)
+    if args.output:
+        np.savez(args.output, **out)
+    _emit({k: [float(v[0]), float(v[-1])] for k, v in out.items()}
+          | {"n_lambda": int(fused.shape[0])})
+
+
+def cmd_rehearse(args, parser) -> None:
+    """The production real-data flow, chained end to end in one command:
+    synthetic stage-2 cal.fits → distortion correction (Shepard, slit
+    reorder) → median λ-filter → fusion → flux comparison."""
+    from .pipeline import run_rehearsal
+
+    _check_solver(args.method)
+    device = _device()
+    band = args.band
+    geo = {}
+    if args.header is not None:
+        from .preprocessing.metadata import header_geometry
+
+        parsed = header_geometry(args.header)
+        geo = {k: parsed[k] for k in ("targ_ra", "targ_dec", "pa_v3")}
+        if band is None and parsed["band"]:
+            band = parsed["band"]
+    for key in ("targ_ra", "targ_dec", "pa_v3"):
+        if getattr(args, key) is not None:
+            geo[key] = getattr(args, key)
+    rep = run_rehearsal(
+        args.work_dir, band=band or "4a", n_pointings=args.pointings, npix=args.npix,
+        step_arcsec=args.step, lambda_subsample=args.lambda_subsample, mu=args.mu,
+        niter=args.niter, method=args.method, noise_rms=args.noise_rms, device=device, **geo,
+    )
+    _emit(rep)
+
+
+def cmd_info(args, parser) -> None:
+    """Print device information (the card's, or the CPU's under SURFH_CPU)."""
+    device = _device()
+    cuda = device.type == "cuda"
+    _emit({
+        "torch": torch.__version__,
+        "backend": device.type,
+        "devices": ([torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())]
+                    if cuda else ["cpu"]),
+    })
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m surfh_tpu_torch.cli",
+        description="surfh_tpu_torch — JWST MRS super-resolution and fusion on an NVIDIA "
+                    "card. Set SURFH_CPU=1 to run on the host CPU instead.")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    f = sub.add_parser("fusion", help=cmd_fusion.__doc__)
+    f.add_argument("--fusion-data", "-fd", default=None,
+                   help="Directory with Templates/, PSF/ and Filtered_slices/ (real-data mode).")
+    f.add_argument("--simulated", action="store_true", help="Run a fully simulated fusion.")
+    f.add_argument("--npix", "-np", type=int, default=81, help="Spatial grid size (default 81).")
+    f.add_argument("--n-lambda", type=int, default=60, help="Cube λ samples (simulated mode).")
+    f.add_argument("--channels", "-nc", type=int, default=2, help="Number of bands (simulated mode).")
+    f.add_argument("--pointings", type=int, default=2, help="Dither pointings (simulated mode).")
+    f.add_argument("--hyper-parameter", "-hp", type=float, default=5e3, help="Regularization µ.")
+    f.add_argument("--niter", "-ni", type=int, default=50)
+    f.add_argument("--n-templates", "-nt", type=int, default=4)
+    f.add_argument("--scale-data", "-sd", action="store_true",
+                   help="Apply Jy/SR → Jy flux normalization (real data).")
+    f.add_argument("--method", "-m", default="lcg", choices=["lcg", "mmmg"])
+    f.add_argument("--noise-snr", type=float, default=0.0,
+                   help="Add white noise at this SNR (dB) to simulated data.")
+    f.add_argument("--sharded", action="store_true", help="Shard channels over devices.")
+    f.add_argument("--checkpoint-every", type=int, default=0,
+                   help="Checkpoint the solver state every N iterations.")
+    f.add_argument("--output-dir", "-o", default="./surfh_results")
+    f.add_argument("--verbose", "-v", action="store_true")
+    f.set_defaults(run=cmd_fusion)
+
+    m = sub.add_parser("make-cube", help=cmd_make_cube.__doc__)
+    m.add_argument("--maps", dest="maps_path", required=True,
+                   help=".npy abundance maps (m, Nα, Nβ) — e.g. a fusion res_x.npy.")
+    m.add_argument("--templates", dest="templates_path", required=True,
+                   help=".npy spectral templates (m, λ).")
+    m.add_argument("--wavel-axis", dest="wavel_path", default=None,
+                   help=".npy λ axis (for FITS WCS headers).")
+    m.add_argument("--output", "-o", required=True,
+                   help="Output cube path (.npy, or .fits with λ WCS when --wavel-axis is given).")
+    m.set_defaults(run=cmd_make_cube)
+
+    c = sub.add_parser("compare-flux", help=cmd_compare_flux.__doc__)
+    c.add_argument("--fusion-cube", required=True, help=".npy fused cube (λ, y, x).")
+    c.add_argument("--real-cube", required=True, help=".npy or FITS s3d real cube.")
+    c.add_argument("--mask", default=None, help="Optional .npy binary mask applied to the fused cube.")
+    c.add_argument("--median-size", type=int, default=15,
+                   help="λ median filter on the real cube (0 = off).")
+    c.add_argument("--region", default=None,
+                   help="Polygon vertices 'r1,c1;r2,c2;...' for a region spectrum.")
+    c.add_argument("--output", "-o", default=None, help="Save curves to this .npz.")
+    c.set_defaults(run=cmd_compare_flux)
+
+    r = sub.add_parser("rehearse", help=cmd_rehearse.__doc__)
+    r.add_argument("--work-dir", "-w", default="./surfh_rehearsal",
+                   help="Working directory (raw/, Filtered_slices/, out/ created inside).")
+    r.add_argument("--band", "-b", default=None, help="MRS band (default 4a, or the --header's).")
+    r.add_argument("--pointings", type=int, default=2)
+    r.add_argument("--npix", "-np", type=int, default=101)
+    r.add_argument("--step", type=float, default=0.1, help="Grid step (arcsec).")
+    r.add_argument("--lambda-subsample", type=int, default=4)
+    r.add_argument("--hyper-parameter", "-hp", dest="mu", type=float, default=1.0)
+    r.add_argument("--niter", "-ni", type=int, default=60)
+    r.add_argument("--method", "-m", default="lcg", choices=["lcg", "mmmg"])
+    r.add_argument("--noise-rms", type=float, default=0.0,
+                   help="Gaussian noise added to the synthetic detector frames.")
+    r.add_argument("--header", default=None,
+                   help="Seed TARG_RA/TARG_DEC/PA_V3 (and the band, unless --band is given) "
+                        "from a real stage-2 FITS file or header card dump.")
+    r.add_argument("--targ-ra", type=float, default=None, help="Target RA (deg); overrides --header.")
+    r.add_argument("--targ-dec", type=float, default=None, help="Target Dec (deg); overrides --header.")
+    r.add_argument("--pa-v3", type=float, default=None,
+                   help="Telescope V3 position angle (deg); overrides --header.")
+    r.set_defaults(run=cmd_rehearse)
+
+    i = sub.add_parser("info", help=cmd_info.__doc__)
+    i.set_defaults(run=cmd_info)
+
+    for name in NOT_PORTED:  # listed in the help; `main` refuses them before parsing
+        sub.add_parser(name, help=f"not ported yet: {NOT_PORTED[name]}")
+    return p
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in NOT_PORTED:
+        raise NotImplementedError(f"{argv[0]}: not ported yet; {NOT_PORTED[argv[0]]}")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    args.run(args, parser)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -33,6 +33,10 @@ class BilinearPlan:
     w: np.ndarray
     shape: Tuple[int, int]
 
+    @property
+    def npoints(self) -> int:
+        return self.idx.shape[1]
+
 
 def _find_interval(grid: np.ndarray, values: np.ndarray):
     """Clamped interval search: i with grid[i] <= v < grid[i+1], i ∈ [0, n-2]
@@ -44,9 +48,10 @@ def _find_interval(grid: np.ndarray, values: np.ndarray):
     return i.astype(np.int64), t
 
 
-def bilinear_plan(alpha_axis, beta_axis, points) -> BilinearPlan:
+def bilinear_plan(alpha_axis, beta_axis, points, fill_out_of_bounds: bool = False) -> BilinearPlan:
     """Plan interpolating the (α, β) grid at ``points`` [P, 2]; outside points
-    extrapolate linearly."""
+    extrapolate linearly, or with `fill_out_of_bounds` get zero weights (the
+    local → cube direction of the data re-projections)."""
     alpha_axis = np.asarray(alpha_axis, np.float64)
     beta_axis = np.asarray(beta_axis, np.float64)
     pa = np.asarray(points[:, 0], np.float64)
@@ -57,6 +62,10 @@ def bilinear_plan(alpha_axis, beta_axis, points) -> BilinearPlan:
     base = ia * nb + ib
     idx = np.stack([base, base + 1, base + nb, base + nb + 1])
     w = np.stack([(1 - ta) * (1 - tb), (1 - ta) * tb, ta * (1 - tb), ta * tb])
+    if fill_out_of_bounds:
+        oob = ((pa < alpha_axis[0]) | (pa > alpha_axis[-1])
+               | (pb < beta_axis[0]) | (pb > beta_axis[-1]))
+        w = np.where(oob[np.newaxis, :], 0.0, w)
     return BilinearPlan(idx.astype(np.int32), w, (alpha_axis.shape[0], nb))
 
 

@@ -23,3 +23,8 @@ def require_cuda() -> torch.device:
             f"(torch {torch.__version__}, built for CUDA {torch.version.cuda})"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def pick_device(device=None) -> torch.device:
+    """`device` as a torch device; None means the card (raise without one)."""
+    return require_cuda() if device is None else torch.device(device)

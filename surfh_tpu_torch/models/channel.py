@@ -17,6 +17,12 @@ transpose (blur transpose → slit weights → composed transpose, reference
 Both composed stages run the row-gather kernel on ``[n, Q]`` rows; the
 blur is the dense GEMM or the banded kernel pair (`core.wblur_banded`).
 
+Data side (host NumPy float64, as in the reference): `sliceToCube`,
+`realData_cubeToSlice` and `realData_sliceToCube` re-project detector
+slices and cubes through the SRF-box OTF (`_otf_sr`, `decalf`), the dirac
+spectral response (`wpsf_dirac`) and the per-pointing bilinear plans
+(`plans_fwd`, and `plans_rev` local → cube, built at first use).
+
 Not ported yet (raise NotImplementedError): the staged gridding path and
 the FFT box-sum fallback, used when the direct box-sum is not exact.
 """
@@ -28,14 +34,14 @@ from math import ceil
 import numpy as np
 import torch
 
-from ..core import bilinear, fft
+from ..core import bilinear, fft, numpy_ref
 from ..core.gather_rows import (build_row_gather_plan, gather_rows, gather_rows_reference,
                                 plan_from_gather_table)
 from ..core.wblur import wblur_rows, wblur_rows_t
 from ..core.wblur_banded import (BandPlan, BandPlanT, build_band_plan, build_band_plan_t,
                                  wblur_banded, wblur_banded_reference, wblur_banded_t,
                                  wblur_banded_t_reference)
-from ..instrument.geometry import CoordList
+from ..instrument.geometry import Coord, CoordList
 from ..instrument.ifu import IFU
 from .slicer import Slicer
 
@@ -80,6 +86,8 @@ class Channel:
         local_alpha_axis, local_beta_axis = self.instr.fov.local_coords(
             step_degree, alpha_margin=5 * step_degree, beta_margin=5 * step_degree
         )
+        self.local_alpha_axis = local_alpha_axis
+        self.local_beta_axis = local_beta_axis
         self.slicer = Slicer(
             self.instr,
             wavelength_axis=self.global_wavelength_axis,
@@ -97,6 +105,9 @@ class Channel:
         )
         self.local_im_shape = (len(local_alpha_axis), len(local_beta_axis))
         self.imshape = (len(self.alpha_axis), len(self.beta_axis))
+        # SRF box-sum OTF and the half-SRF phase shift, on the local grid
+        self._otf_sr = fft.box_otf_sr(self.srf, self.local_im_shape, np.complex128)
+        self.decalf = fft.half_srf_shift_otf(self.srf, self.local_im_shape, np.complex128)
 
         # per-pointing bilinear plans (cube grid → rotated local grid)
         plans = []
@@ -105,6 +116,8 @@ class Channel:
             ga, gb = fov.local2global(local_alpha_axis, local_beta_axis)
             plans.append(bilinear.bilinear_plan(
                 self.alpha_axis, self.beta_axis, bilinear.grid_points(ga, gb)))
+        self.plans_fwd = plans
+        self._plans_rev = None
         # FOV bbox: union over pointings of every nonzero-weight source pixel
         nb_g = self.imshape[1]
         nz = [p.idx[p.w != 0] for p in plans]
@@ -154,6 +167,7 @@ class Channel:
             np.stack([padc(c.cdst, n_patch - 1) for c in cplans]),
         )
         self._wpsf = None
+        self._wpsf_dirac = None
         self._gather_plans = None
         self._band_plans = {}
 
@@ -183,8 +197,7 @@ class Channel:
         b0 = int(self.slit_b_starts[0])
         rng = np.random.default_rng(0)
         g = rng.standard_normal((2, nla, nlb))
-        otf = (fft.box_otf_sr(srf, self.local_im_shape, np.complex128)
-               * fft.half_srf_shift_otf(srf, self.local_im_shape, np.complex128))
+        otf = self._otf_sr * self.decalf
         summed = np.fft.irfftn(
             np.fft.rfftn(g, axes=(-2, -1), norm="ortho") * otf,
             s=(nla, nlb), axes=(-2, -1), norm="ortho",
@@ -207,16 +220,39 @@ class Channel:
                     return off
         return None
 
-    def _build_wpsf(self) -> np.ndarray:
-        """wpsf [λ_det, λ_window, β_slit] of the band's spectral response."""
+    def _build_wpsf(self, kind: str = "mrs") -> np.ndarray:
+        """wpsf [λ_det, λ_window, β_slit] of the band's spectral response
+        ("mrs"), or its nearest-sample indicator ("dirac")."""
         length = self.slicer.npix_slit_beta_width
         beta_in_slit = np.arange(0, length) * (self.beta_axis[1] - self.beta_axis[0])
         return self.instr.spectral_psf(
             beta_in_slit - np.mean(beta_in_slit),
             self.global_wavelength_axis[self.wslice],
             arcsec2micron=self.instr.wavel_step / self.instr.det_pix_size,
-            type="mrs",
+            type=kind,
         )
+
+    @property
+    def wpsf_dirac(self) -> np.ndarray:
+        """Nearest-sample re-projection response (float64, built on first use)."""
+        if self._wpsf_dirac is None:
+            self._wpsf_dirac = self._build_wpsf("dirac")
+        return self._wpsf_dirac
+
+    @property
+    def plans_rev(self):
+        """Reverse (local → cube grid) interpolation plans per pointing,
+        zero outside the local grid; built on first use (they evaluate at
+        every cube pixel) for the data re-projections."""
+        if self._plans_rev is None:
+            self._plans_rev = []
+            for pointing in self.pointings:
+                fov = self.instr.fov + pointing
+                la, lb = fov.global2local(self.alpha_axis, self.beta_axis)
+                self._plans_rev.append(bilinear.bilinear_plan(
+                    self.local_alpha_axis, self.local_beta_axis,
+                    bilinear.grid_points(la, lb), fill_out_of_bounds=True))
+        return self._plans_rev
 
     @property
     def wpsf(self) -> np.ndarray:
@@ -261,6 +297,83 @@ class Channel:
             "gather_fwd": fwd,
             "gather_t": adj,
         }
+
+    # ------------------------------------------------------------------
+    # data ↔ cube re-projections (host NumPy float64, reference :1326-1410)
+    def sliceToCube(self, data) -> np.ndarray:
+        """Re-project detector data of pointing 0 into a full-axis cube using
+        the dirac spectral response (visualization / initialization aid).
+
+        The reference's arithmetic in float64, in three cheaper spellings
+        that give its numbers for finite data: the per-slit β-repeat and
+        einsum as one contraction over λ_det for all slits, the slit
+        scatter added in place, and the reverse bilinear gather over the
+        cube pixels the local grid reaches (the others get zero weights)."""
+        y = np.asarray(data).reshape(self.oshape)
+        n_aout = self.oshape[3]
+        srf = self.srf
+        nla, nlb = self.local_im_shape
+        W = self.n_wslice
+        sa, sb = self.slit_shape[1], self.slit_shape[2]
+        # Σ_k y[0, s, k, a]·wpsf[k, l, b] → [S, A, W, sb]
+        blurred_t = np.tensordot(y[0], self.wpsf_dirac, axes=([1], [0]))
+        local_cube = np.zeros((W, nla, nlb))
+        for s in range(self.instr.n_slit):
+            full = np.zeros((W, sa, sb))
+            full[:, : n_aout * srf : srf, :] = blurred_t[s].transpose(1, 0, 2)
+            sl = self.slicer.get_slit_slices(s)
+            local_cube[:, sl[0], sl[1]] += full * self.slicer.get_slit_weights(s, sl)
+        sum_t = np.fft.irfftn(
+            np.fft.rfftn(local_cube, axes=(-2, -1), norm="ortho")
+            * (self._otf_sr.conj() * self.decalf.conj()),
+            s=(nla, nlb), axes=(-2, -1), norm="ortho",
+        )
+        plan = self.plans_rev[0]
+        keep = np.flatnonzero((plan.w != 0).any(axis=0))
+        part = bilinear.BilinearPlan(plan.idx[:, keep], plan.w[:, keep], plan.shape)
+        out = np.zeros((len(self.global_wavelength_axis), self.imshape[0] * self.imshape[1]))
+        out[self.wslice][:, keep] = numpy_ref.apply_plan(part, sum_t)
+        return out.reshape((len(self.global_wavelength_axis),) + self.imshape)
+
+    def realData_cubeToSlice(self, cube) -> np.ndarray:
+        """Project a λ-window cube to detector slices without spectral blur
+        (β-sum only, at the unshifted FOV; reference :303-309)."""
+        cube = np.asarray(cube)
+        n_aout = self.oshape[3]
+        fov = self.instr.fov + Coord(0, 0)
+        ga, gb = fov.local2global(self.local_alpha_axis, self.local_beta_axis)
+        plan0 = bilinear.bilinear_plan(self.alpha_axis, self.beta_axis, bilinear.grid_points(ga, gb))
+        gridded = numpy_ref.apply_plan(plan0, cube).reshape(cube.shape[0], *self.local_im_shape)
+        slices = np.zeros(self.oshape[1:])
+        for s in range(self.instr.n_slit):
+            sliced = self.slicer.slicing(gridded, s)[:, : n_aout * self.srf : self.srf, :]
+            slices[s] = sliced.sum(axis=2)
+        return slices
+
+    def realData_sliceToCube(self, slices, cube_dim) -> np.ndarray:
+        """β-duplicate detector slices back to a cube (reference :311-336)."""
+        slices = np.asarray(slices)
+        nla, nlb = self.local_im_shape
+        W = cube_dim[0]
+        nbw = self.slicer.npix_slit_beta_width
+        gridded = np.zeros((W, nla, nlb))
+        for s in range(self.instr.n_slit):
+            sl = self.slicer.get_slit_slices(s)
+            sa = sl[0].stop - sl[0].start
+            sb = sl[1].stop - sl[1].start
+            tmp = np.repeat(slices[s][:, :, np.newaxis], nbw, axis=2) / nbw
+            sliced = np.zeros((W, sa, sb))
+            sliced[:, : W * self.srf : self.srf] = tmp[:, : sliced[:, :: self.srf].shape[1]]
+            gridded += self.slicer.slicing_t(sliced, s, (W, nla, nlb))
+        sum_t = np.fft.irfftn(
+            np.fft.rfftn(gridded, axes=(-2, -1), norm="ortho") * self._otf_sr.conj(),
+            s=(nla, nlb), axes=(-2, -1), norm="ortho",
+        )
+        fov = self.instr.fov + Coord(0, 0)
+        la, lb = fov.global2local(self.alpha_axis, self.beta_axis)
+        plan0 = bilinear.bilinear_plan(self.local_alpha_axis, self.local_beta_axis,
+                                       bilinear.grid_points(la, lb), fill_out_of_bounds=True)
+        return numpy_ref.apply_plan(plan0, sum_t).reshape(W, *self.imshape)
 
     # ------------------------------------------------------------------
     # device side (tables from `models.spectro`): one pipeline for both

@@ -1,9 +1,10 @@
 """Slit extraction (the L operator): static slice/weight tables per slit.
 
-NumPy copy of `surfh_tpu/models/slicer.py` (host-side tables only: the
-per-slit (α, β) window starts and fractional-pixel edge weights, with the
-reference's trimming fix-ups and edge-weight sharing rule).  Copied rather
-than imported: the port imports nothing of `surfh_tpu`.
+NumPy copy of `surfh_tpu/models/slicer.py` (host side: the per-slit
+(α, β) window starts and fractional-pixel edge weights, with the
+reference's trimming fix-ups and edge-weight sharing rule, and the
+weighted slit window `slicing` / `slicing_t` of the data re-projections).
+Copied rather than imported: the port imports nothing of `surfh_tpu`.
 """
 
 from __future__ import annotations
@@ -176,3 +177,20 @@ class Slicer:
             np.asarray(b_starts, np.int32),
             np.asarray(weights),
         )
+
+    # -- NumPy re-projection path (the data-side methods of `Channel`) ----
+    def slicing(self, gridded_cube: np.ndarray, slit_idx: int) -> np.ndarray:
+        """Weighted slit window of a local cube [λ, nα, nβ]."""
+        slices = self.get_slit_slices(slit_idx)
+        weights = self.get_slit_weights(slit_idx, slices)
+        return gridded_cube[:, slices[0], slices[1]] * weights
+
+    def slicing_t(
+        self, slit: np.ndarray, slit_idx: int, local_shape: Tuple[int, int, int]
+    ) -> np.ndarray:
+        """Transpose of :meth:`slicing`: weighted scatter into a zero cube."""
+        out = np.zeros(local_shape)
+        slices = self.get_slit_slices(slit_idx)
+        weights = self.get_slit_weights(slit_idx, slices)
+        out[:, slices[0], slices[1]] = slit * weights
+        return out

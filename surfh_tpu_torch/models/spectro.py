@@ -42,7 +42,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import fft, lmm
+from ..core import fft, lmm, numpy_ref
 from ..core.wblur import rows_table
 from ..core.wblur_banded import banded_tables
 from ..instrument.geometry import CoordList, get_srf
@@ -176,6 +176,11 @@ def device_tables(host: dict, device, dtype=torch.float32) -> dict:
             "wq": rows_table(f(t["wpsf_q"])),
         })
     return {"chan": chans}
+
+
+def _host(a) -> np.ndarray:
+    """An array or a tensor (on any device) as a host array."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _np_dtype(dtype) -> np.dtype:
@@ -392,6 +397,101 @@ class SpectroSigRLSCT:
     def mapsToCube(self, maps) -> torch.Tensor:
         """T: maps [M, Na, Nb] → cube [L, Na, Nb] (W-plane mode)."""
         return lmm.lmm_maps2cube(self._x(maps), self.tables["templates"])
+
+    def cubeTomaps(self, cube) -> torch.Tensor:
+        """Tᵗ: cube [L, Na, Nb] → maps [M, Na, Nb] (W-plane mode)."""
+        cube = torch.as_tensor(cube).to(device=self.device, dtype=self.dtype)
+        return lmm.lmm_cube2maps(cube, self.tables["templates"])
+
+    # ------------------------------------------------------------------
+    # data side: host NumPy, as in the reference (spectro.py:918-1016)
+    def split(self, data) -> list:
+        """Split the flat data vector (array or tensor) into per-channel
+        4-D host blocks."""
+        flat = _host(data).ravel()
+        return [
+            flat[self._idx[i] : self._idx[i + 1]].reshape(self.instrs_oshape[i])
+            for i in range(len(self.channels))
+        ]
+
+    def concat(self, blocks) -> np.ndarray:
+        """Inverse of :meth:`split`."""
+        return np.concatenate([_host(b).ravel() for b in blocks])
+
+    def real_data_janskySR_to_jansky(self, data) -> np.ndarray:
+        """Flux normalization of raw real data (reference :225-239): scale each
+        slit by the summed β weights of its first row × the channel SRF."""
+        data = np.array(_host(data))
+        for ch_idx, chan in enumerate(self.channels):
+            block = data[self._idx[ch_idx] : self._idx[ch_idx + 1]].reshape(
+                self.instrs_oshape[ch_idx]
+            )
+            for slit in range(self.instrs_oshape[ch_idx][1]):
+                slices = chan.slicer.get_slit_slices(slit)
+                weights = chan.slicer.get_slit_weights(slit, slices)
+                block[:, slit] = block[:, slit] * np.sum(weights[0, 0, :]) * self.srfs[ch_idx]
+            data[self._idx[ch_idx] : self._idx[ch_idx + 1]] = block.ravel()
+        return data
+
+    def plot_slice(self, all_data, n_chan: int, nslice: int):
+        """Re-project one detector λ-slice of a channel onto the sky
+        (reference spectroModel.py:242-286): β-duplicate each slit row,
+        α-upsample, conj SRF-OTF, reverse-grid, and co-add over pointings.
+        Returns (weighted_mean, global_img); no plotting.  `weighted_mean`
+        is 0 where no pointing exceeds 100 (the reference leaves those
+        entries of its `np.divide` output uninitialized)."""
+        chan = self.channels[n_chan]
+        global_img = np.zeros(self.imshape)
+        cum_grid = np.zeros((len(self.pointings[n_chan]),) + self.imshape)
+
+        chan_data = _host(all_data).ravel()[self._idx[n_chan] : self._idx[n_chan + 1]]
+        data = chan_data.reshape(chan.oshape)[:, :, nslice, :]
+
+        nla, nlb = chan.local_im_shape
+        sb = chan.slicer.npix_slit_beta_width
+        for p_idx in range(len(chan.pointings)):
+            local_img = np.zeros((nla, nlb))
+            for slit_idx in range(chan.instr.n_slit):
+                over = np.repeat(data[p_idx, slit_idx][:, np.newaxis], sb, axis=1) / (sb * chan.srf)
+                sliced = np.zeros((1,) + chan.slicer.get_slit_shape()[1:])
+                sliced[0, : data.shape[2] * chan.srf : chan.srf, :] = over
+                local_img += chan.slicer.slicing_t(sliced, slit_idx, (1, nla, nlb))[0]
+            sum_t = np.fft.irfftn(
+                np.fft.rfftn(local_img, axes=(-2, -1), norm="ortho")
+                * (chan._otf_sr[0].conj() * chan.decalf.conj()),
+                s=(nla, nlb), axes=(-2, -1), norm="ortho",
+            )
+            degridded = numpy_ref.apply_plan(
+                chan.plans_rev[p_idx], sum_t[np.newaxis]).reshape(self.imshape)
+            global_img += degridded
+            cum_grid[p_idx] = degridded
+        valid = np.sum(cum_grid > 100, axis=0)
+        total = np.sum(cum_grid, axis=0)
+        weighted_mean = np.divide(total, valid, out=np.zeros_like(total), where=valid != 0)
+        return weighted_mean, global_img
+
+    def _mask_group_leads(self) -> list:
+        """First band of each MIRI channel (the reference's `ch = i*3` over
+        its fixed 12-band list, spectroModel.py:296-297), grouped by the
+        channel digit of the band name, else by consecutive triples."""
+        leads, seen = [], set()
+        for i, chan in enumerate(self.channels):
+            name = str(getattr(chan.instr, "name", "") or "")
+            key = name[0] if name[:1].isdigit() else f"g{i // 3}"
+            if key not in seen:
+                seen.add(key)
+                leads.append(i)
+        return leads
+
+    def make_mask(self, all_data, threshold: float = 50.0, nslice: int = 50) -> list:
+        """One binary spatial mask per channel group (reference :289-338):
+        the `plot_slice` re-projection of one detector λ-slice of the first
+        band of each channel, thresholded."""
+        masks = []
+        for ch in self._mask_group_leads():
+            _, global_img = self.plot_slice(all_data, ch, nslice)
+            masks.append(global_img > threshold)
+        return masks
 
     def patch_rows(self, cube: torch.Tensor, c: int) -> torch.Tensor:
         """Channel c's λ-window of the FOV-bbox patch of `cube`, laid out

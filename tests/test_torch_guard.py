@@ -1,6 +1,7 @@
 """Guards of the port: no JAX and nothing of `surfh_tpu` on its import
-path, `chip_smoke.py` refuses to report anything without a card or without
-the repository, and the setup functions pick the card unless asked for the CPU."""
+path (nor click), `chip_smoke.py` refuses to report anything without a card
+or without the repository, and the setup functions, the real-data pipeline's
+model and the Shepard regrid pick the card unless asked for the CPU."""
 
 import os
 import shutil
@@ -38,6 +39,21 @@ SLICE_MODULES = [
     "surfh_tpu_torch.simulation.flagship",
     "surfh_tpu_torch.solvers.cg",
     "surfh_tpu_torch.solvers.criterion",
+    "surfh_tpu_torch.solvers.checkpoint",
+    "surfh_tpu_torch.preprocessing",
+    "surfh_tpu_torch.preprocessing.fits_io",
+    "surfh_tpu_torch.preprocessing.metadata",
+    "surfh_tpu_torch.preprocessing.shepard",
+    "surfh_tpu_torch.preprocessing.distortion",
+    "surfh_tpu_torch.preprocessing.correction_driver",
+    "surfh_tpu_torch.instrument.realmiri",
+    "surfh_tpu_torch.instrument.smallmiri",
+    "surfh_tpu_torch.simulation.stage2",
+    "surfh_tpu_torch.core.numpy_ref",
+    "surfh_tpu_torch.utils.metrics",
+    "surfh_tpu_torch.pipeline",
+    "surfh_tpu_torch.cli",
+    "surfh_tpu_torch.utils.rehearsal_sweep",
     "chip_smoke",
     "torch_scatter_proto",  # scripts/
     "torch_profile",  # scripts/
@@ -56,6 +72,7 @@ def test_slice_imports_no_jax():
         "sys.path.append('scripts')\n"
         f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'click' not in sys.modules, 'click imported'\n"
         "bad = [m for m in sys.modules if m == 'surfh_tpu' or m.startswith('surfh_tpu.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -98,3 +115,30 @@ def test_flagship_otf_goes_to_the_card_by_default(monkeypatch):
     s = flagship.make_flagship_setup(build_sotf=True, device="cpu", **kw)
     assert s["sotf"].device.type == "cpu" and s["sotf"].shape == (len(s["wavelength_axis"]), 31, 16)
     assert flagship.make_flagship_setup(**kw)["sotf"] is None  # no OTF, no device
+
+
+def test_pipeline_and_shepard_go_to_the_card_by_default(monkeypatch):
+    """`pipeline.create_model(...)` and the Shepard regrid with no `device`
+    run on the card: without one they raise, and never fall back to the CPU."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import pipeline
+    from surfh_tpu_torch.preprocessing.shepard import exponential_modified_shepard
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    band, npix, step = "4a", 31, 0.1 / 3600
+    dd = {"data": {band: []}, "target": {band: [(83.83, -5.41)]}, "rotation": {band: 0.0}}
+    inst = pipeline.create_instruments(dd, [band])
+    wl = pipeline.get_mrs_wavelength(band)[::20]
+    a = (np.arange(npix) - npix // 2) * step
+    args = (np.ones((len(wl), npix, npix // 2 + 1), np.complex64), np.ones((2, len(wl))), a, a.copy(),
+            wl, inst, step, dd)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.create_model(*args)
+    m = pipeline.create_model(*args, device="cpu")
+    assert m.device.type == "cpu" and m.tables is not None
+    pts = np.zeros(3), np.zeros(3), np.ones(3), np.zeros((2, 2)), np.zeros((2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        exponential_modified_shepard(*pts)
+    assert exponential_modified_shepard(*pts, device="cpu").shape == (2, 2)
