@@ -8,8 +8,10 @@ cube, M = 4 templates, 4 dither pointings, all 12 MIRI bands unless
 `--bands` cuts them), f32 on the card, weights and data from seeds: the
 rank mode (window-local, PSF stamps) and the materialized-OTF W-plane mode
 (`window_local=False`, `wblur_impl="banded"`, `wblur_band_rtol=1e-4`);
-and the composed-transpose prototype entry point
-(`scripts/torch_scatter_proto.py`) with its three fixed-fan-in kernels.
+the composed-transpose prototype entry point
+(`scripts/torch_scatter_proto.py`) with its three fixed-fan-in kernels; and
+through the port's command line, the band-1c real-data rehearsal and the
+all-band path with NMF templates learned on the card (BASELINE config 5).
 
 1. device      — the card's name and power limit (nvidia-smi);
 2. build       — nvcc builds the three kernel sources from csrc/ into
@@ -60,7 +62,18 @@ and the composed-transpose prototype entry point
                  the slices (kernels against plain gathers, launches per
                  normal, the dense blur's dot test, times, peak memory);
                  `fusion --fusion-data` uninterrupted and stopped after 20
-                 iterations then resumed, bit for bit.
+                 iterations then resumed, bit for bit;
+12. allband    — BASELINE config 5 through the port's CLI at full width
+                 (all 12 bands, 4 pointings, 501², the 2412-λ PCE grids, 4
+                 NMF templates learned on the card in 300 iterations, 50 lcg
+                 iterations, the W-plane model with the dense blur): the
+                 report and stage times, the NMF loop against its byte bound,
+                 the row-gather launches counted, the peak memory; on the
+                 learned-template model, kernels against plain gathers,
+                 launches per normal, the dot test, the error against that
+                 of the initial maps, `mmmg` against `lcg` (50 iterations
+                 each, the reference's criterion-gap bar) and `mmmg`'s
+                 dispatch loop against its graph loop, bit for bit.
 
 Prints the kernels' JSON record, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -291,6 +304,181 @@ def run_pipeline_phase(dev, card: str, cuda_ms, gen) -> dict:
             f"{rb['final_grad_norm']:.6e}")
         check(ra["niter"] == rb["niter"] == FUSION_NITER and same,
               "checkpointed fusion resumed vs uninterrupted")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+ALLBAND_NPIX, ALLBAND_NITER, ALLBAND_NMF_ITER, ALLBAND_MU = 501, 50, 300, 5e3
+# BASELINE config 5 at full width: all 12 bands, 4 pointings, 501² at 0.025″,
+# the 2412-λ PCE grids, 4 templates, the W-plane model with the dense blur
+ALLBAND_ARGV = ["allband", "-np", str(ALLBAND_NPIX), "--pointings", "4", "-nt", "4",
+                "-hp", str(ALLBAND_MU), "-ni", str(ALLBAND_NITER), "--nmf-iter", str(ALLBAND_NMF_ITER),
+                "--lambda-subsample", "1", "-m", "lcg"]
+MMMG_GAP = 0.02  # (J_mm − J_cg) / (J₀ − J_cg): the reference's bar (tests/test_reconstruction_quality.py)
+
+
+def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
+    """12. The all-band path (NMF templates learned on the card, then the
+    12-band fusion) at full width through the port's CLI; then checks on
+    the learned-template model it solved with.  Returns the row-gather
+    launches of the CLI run and the phase's numbers."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import cli as tcli
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import lmm
+    from surfh_tpu_torch.learning import decomposition
+    from surfh_tpu_torch.simulation.flagship import make_allband_setup
+    from surfh_tpu_torch.solvers import criterion
+    from surfh_tpu_torch.utils import metrics
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    seen = {}
+    learn, nmf_run, crit_cls = decomposition.learn_templates_nmf, decomposition._nmf_run, criterion.QuadCriterion_MRS
+
+    def kept_learn(*a, **k):
+        out = learn(*a, **k)
+        seen["templates"] = out[0].detach().clone()  # before the pipeline normalizes the rows
+        return out
+
+    def timed_nmf_run(X, W, H, n_iter):
+        sync()
+        t0 = time.perf_counter()
+        out = nmf_run(X, W, H, n_iter)
+        sync()
+        seen.update(nmf_loop_s=time.perf_counter() - t0, nmf_shape=tuple(X.shape), nmf_iter=n_iter)
+        return out
+
+    class KeptCriterion(crit_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["crit"] = self
+
+    work = tempfile.mkdtemp(prefix="surfh_allband_")
+    res = {}
+    decomposition.learn_templates_nmf, decomposition._nmf_run = kept_learn, timed_nmf_run
+    criterion.QuadCriterion_MRS = KeptCriterion
+    try:
+        out = io.StringIO()
+        torch.cuda.reset_peak_memory_stats(dev)
+        gr.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = tcli.main(ALLBAND_ARGV + ["-o", work])
+        sync()
+        wall = time.perf_counter() - t0
+        res["launches"] = gr.launches
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        lines = out.getvalue().strip().splitlines()
+        check(rc == 0 and bool(lines), f"allband: exit code {rc}")
+        rep = json.loads(lines[-1])
+    finally:
+        decomposition.learn_templates_nmf, decomposition._nmf_run = learn, nmf_run
+        criterion.QuadCriterion_MRS = crit_cls
+    try:
+        log(f"[allband] {' '.join(ALLBAND_ARGV)}: {lines[-1]} ({wall:.2f} s)")
+        crit = seen["crit"]
+        model = crit.model
+        n_pt = sum(c.oshape[0] for c in model.channels)
+        # the data (forward), b = µ·Hᵗy (adjoint), the initial residual and one normal an iteration
+        expect = n_pt + n_pt + 2 * n_pt * (ALLBAND_NITER + 1)
+        t = rep["timings_s"]
+        n, L = seen["nmf_shape"]
+        nmf_bytes = 2.0 * 4 * n * L  # X (f32) read twice an iteration: WᵀX and XHᵀ
+        nmf_bound_s = bound(nmf_bytes * seen["nmf_iter"])[0] / 1e3
+        log(f"[allband] {card}: {len(rep['bands'])} bands, cube ({rep['n_lambda']}, {rep['npix']}, "
+            f"{rep['npix']}), y {model.oshape[0]}; stages (s): build {t['build_s']}, simulate "
+            f"{t['simulate_s']}, co-add {t['coadd_s']}, NMF {t['nmf_s']}, solve {t['solve_s']} "
+            f"({rep['niter']} lcg iterations, {rep['iters_per_s']:.3f} it/s); NMF loop {seen['nmf_iter']} "
+            f"iterations on X [{n} x {L}] f32 in {seen['nmf_loop_s']:.3f} s against a byte bound of "
+            f"{nmf_bound_s:.3f} s (X read twice an iteration, {nmf_bytes / 1e9:.3f} GB; "
+            f"{100 * nmf_bound_s / seen['nmf_loop_s']:.1f} % of it); gather_rows launches "
+            f"{res['launches']} (expected {expect}); peak {res['peak_gib']:.2f} GiB")
+        check(len(rep["bands"]) == len(model.channels) == 12 and rep["npix"] == ALLBAND_NPIX
+              and rep["n_lambda"] == 2412 and rep["niter"] == ALLBAND_NITER, "allband configuration")
+        nums = [rep["iters_per_s"], rep["nmf_recon_err"], rep["psnr_cube"], rep["relative_cube_error_pct"]]
+        check(all(np.isfinite(v) for v in nums + list(t.values())), f"allband report finite: {rep}")
+        tpl = seen["templates"]
+        check(bool(torch.isfinite(tpl).all()) and float(tpl.min()) >= 0.0,
+              f"NMF templates finite and nonnegative (min {float(tpl.min()):.3e})")
+        check(res["launches"] == expect, "allband gather_rows launches")
+        res.update(nmf_loop_s=seen["nmf_loop_s"], nmf_bound_s=nmf_bound_s, timings=t, report=rep)
+
+        # the learned-template model: kernels, launches, dot test, times
+        x = torch.rand(model.ishape, generator=gen, device=dev)
+        n_k, n_p = model.normal(x), model.normal(x, plain=True)
+        sync()
+        nrm = float((n_k - n_p).abs().max() / n_p.abs().max())
+        gr.reset_launches()
+        model.normal(x)
+        sync()
+        per_app = gr.launches
+        xr = torch.rand(model.ishape, generator=gen, device=dev)
+        yr = torch.rand(model.oshape, generator=gen, device=dev)
+        lhs = float(torch.dot(model.forward(xr).double(), yr.double()))
+        rhs = float(torch.dot(xr.reshape(-1).double(), model.adjoint(yr).reshape(-1).double()))
+        dot = abs(lhs - rhs) / abs(lhs)
+        log(f"[allband] learned-template model: normal, kernels vs plain gathers max rel {nrm:.3e} "
+            f"(bound 1e-5); gather_rows launches per normal {per_app} (expected {2 * n_pt}); dense-blur "
+            f"dot test (f64 sums) <Hx,y>={lhs:.9e} <x,H'y>={rhs:.9e} rel {dot:.3e} (bound 1e-5)")
+        check(bool(torch.isfinite(n_k).all()) and nrm <= 1e-5, "allband normal kernels vs plain")
+        check(per_app == 2 * n_pt, "allband gather_rows launches per normal")
+        check(dot <= 1e-5, "allband dense dot test")
+        del n_k, n_p, xr, yr
+        res["normal_ms"] = cuda_ms(lambda: model.normal(x), REPS)
+        vox = float(np.prod(model.cube_shape))
+        log(f"[allband] {card}: normal {res['normal_ms']:.3f} ms/app ({2 * vox / (res['normal_ms'] * 1e-3) / 1e9:.2f} "
+            f"GVox/s, 2 x {int(vox)} voxels)")
+        del x
+
+        # the solve improves on its start: the cube error of the 0.5 initial maps
+        setup = make_allband_setup(npix=ALLBAND_NPIX, build_sotf=False)
+        truth = lmm.lmm_maps2cube(torch.as_tensor(np.asarray(setup["maps"], np.float32), device=dev),
+                                  torch.as_tensor(np.asarray(setup["templates"], np.float32), device=dev))
+        init = torch.full(model.ishape, 0.5, device=dev)
+        err0 = metrics.relative_error(truth.cpu().numpy(), model.mapsToCube(init).cpu().numpy())
+        del truth
+        log(f"[allband] relative cube error {rep['relative_cube_error_pct']:.4f} % after {rep['niter']} "
+            f"iterations, {err0:.4f} % at the 0.5 initial maps; PSNR {rep['psnr_cube']:.3f} dB; NMF "
+            f"reconstruction error {rep['nmf_recon_err']:.6e}")
+        check(rep["relative_cube_error_pct"] < err0, "allband solve improves on its start")
+
+        # mmmg against lcg from the same start, 50 iterations each; both loops of mmmg
+        crit.b
+        sync()
+        runs = {}
+        for method, loop in (("lcg", "graph"), ("mmmg", "graph"), ("mmmg", "dispatch")):
+            gr.reset_launches()
+            t0 = time.perf_counter()
+            r = crit.run_method(method, maximum_iterations=ALLBAND_NITER, solver_loop=loop)
+            sync()
+            runs[(method, loop)] = (r, (time.perf_counter() - t0) / r.n_iter, gr.launches)
+        j0 = crit.get_crit_val(init)
+        (rc_, s_cg, l_cg), (rm, s_mm, l_mm), (rd, _, _) = runs.values()
+        j_cg, j_mm = crit.get_crit_val(rc_.x), crit.get_crit_val(rm.x)
+        gap = (j_mm - j_cg) / (j0 - j_cg)
+        same = torch.equal(rd.x, rm.x) and rd.n_iter == rm.n_iter
+        log(f"[allband] {card}: lcg {s_cg:.4f} s/iteration, mmmg {s_mm:.4f} s/iteration ({ALLBAND_NITER} "
+            f"iterations each from the 0.5 maps, host clock); J0 {j0:.9e}, J_cg {j_cg:.9e}, J_mm {j_mm:.9e}: "
+            f"gap (J_mm - J_cg) / (J0 - J_cg) {gap:.3e} (bound {MMMG_GAP}); mmmg gather_rows launches "
+            f"{l_mm} (expected {2 * n_pt * (ALLBAND_NITER + 1)}); mmmg dispatch loop bit for bit the graph "
+            f"loop's iterate: {same}")
+        check(rc_.n_iter == rm.n_iter == ALLBAND_NITER and np.isfinite([j0, j_cg, j_mm]).all(), "allband solves")
+        check(gap < MMMG_GAP, f"mmmg vs lcg gap {gap:.3e}")
+        check(l_mm == l_cg == 2 * n_pt * (ALLBAND_NITER + 1), "allband solver launches")
+        check(same, "mmmg dispatch loop against the graph loop")
+        res.update(lcg_s_it=s_cg, mmmg_s_it=s_mm, gap=gap)
+        del seen, crit, model, runs, rc_, rm, rd, init
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return res
@@ -817,12 +1005,21 @@ def main(argv=None) -> int:
     log(f"[pipeline] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on the "
         f"rehearsal {pipe['launches']}")
 
+    # 12. the all-band path through the port's CLI at full width ----------
+    t0 = time.perf_counter()
+    allb = run_allband_phase(dev, card, cuda_ms, gen, bound)
+    log(f"[allband] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on the "
+        f"allband run {allb['launches']}")
+    gather_paths = {"rank": main_launches, "wplane": wmain[0], "pipeline": pipe["launches"],
+                    "allband": allb["launches"]}
+
     log(json.dumps({"kernels": [{
         "name": "gather_rows",
         "route": "cuda",
         "source": "surfh_tpu_torch/csrc/gather_rows.cu",
         "replaces": "surfh_tpu/core/scatter_pallas.py:138",
-        "launches": main_launches,
+        "launches": sum(gather_paths.values()),
+        "launches_by_path": gather_paths,
         "max_abs_err": kern["err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

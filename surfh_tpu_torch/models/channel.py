@@ -17,7 +17,8 @@ transpose (blur transpose → slit weights → composed transpose, reference
 Both composed stages run the row-gather kernel on ``[n, Q]`` rows; the
 blur is the dense GEMM or the banded kernel pair (`core.wblur_banded`).
 
-Data side (host NumPy float64, as in the reference): `sliceToCube`,
+Data side (float64, as in the reference): `sliceToCube` (host) and
+`sliceToWindow` (its band's λ window alone, in torch on a device),
 `realData_cubeToSlice` and `realData_sliceToCube` re-project detector
 slices and cubes through the SRF-box OTF (`_otf_sr`, `decalf`), the dirac
 spectral response (`wpsf_dirac`) and the per-pointing bilinear plans
@@ -302,38 +303,54 @@ class Channel:
     # data ↔ cube re-projections (host NumPy float64, reference :1326-1410)
     def sliceToCube(self, data) -> np.ndarray:
         """Re-project detector data of pointing 0 into a full-axis cube using
-        the dirac spectral response (visualization / initialization aid).
+        the dirac spectral response (visualization / initialization aid):
+        :meth:`sliceToWindow` on the host, zero outside the band's λ window."""
+        out = np.zeros((len(self.global_wavelength_axis),) + self.imshape)
+        out[self.wslice] = self.sliceToWindow(data, "cpu").numpy()
+        return out
+
+    def sliceToWindow(self, data, device) -> torch.Tensor:
+        """:meth:`sliceToCube` on the band's λ window only, [W, Na, Nb]
+        float64 on `device`.
 
         The reference's arithmetic in float64, in three cheaper spellings
         that give its numbers for finite data: the per-slit β-repeat and
         einsum as one contraction over λ_det for all slits, the slit
         scatter added in place, and the reverse bilinear gather over the
         cube pixels the local grid reaches (the others get zero weights)."""
-        y = np.asarray(data).reshape(self.oshape)
+        dev = torch.device(device)
+        if isinstance(data, torch.Tensor):
+            y = data.to(dev, torch.float64)
+        else:
+            y = torch.tensor(np.asarray(data), dtype=torch.float64, device=dev)
+        y = y.reshape(self.oshape)
         n_aout = self.oshape[3]
         srf = self.srf
         nla, nlb = self.local_im_shape
         W = self.n_wslice
         sa, sb = self.slit_shape[1], self.slit_shape[2]
         # Σ_k y[0, s, k, a]·wpsf[k, l, b] → [S, A, W, sb]
-        blurred_t = np.tensordot(y[0], self.wpsf_dirac, axes=([1], [0]))
-        local_cube = np.zeros((W, nla, nlb))
+        blurred_t = torch.tensordot(y[0], torch.as_tensor(self.wpsf_dirac, device=dev), dims=([1], [0]))
+        local_cube = torch.zeros((W, nla, nlb), dtype=torch.float64, device=dev)
         for s in range(self.instr.n_slit):
-            full = np.zeros((W, sa, sb))
-            full[:, : n_aout * srf : srf, :] = blurred_t[s].transpose(1, 0, 2)
+            full = torch.zeros((W, sa, sb), dtype=torch.float64, device=dev)
+            full[:, : n_aout * srf : srf, :] = blurred_t[s].permute(1, 0, 2)
             sl = self.slicer.get_slit_slices(s)
-            local_cube[:, sl[0], sl[1]] += full * self.slicer.get_slit_weights(s, sl)
-        sum_t = np.fft.irfftn(
-            np.fft.rfftn(local_cube, axes=(-2, -1), norm="ortho")
-            * (self._otf_sr.conj() * self.decalf.conj()),
-            s=(nla, nlb), axes=(-2, -1), norm="ortho",
-        )
+            local_cube[:, sl[0], sl[1]] += full * torch.as_tensor(self.slicer.get_slit_weights(s, sl),
+                                                                  device=dev)
+        otf = torch.as_tensor(self._otf_sr.conj() * self.decalf.conj(), device=dev)
+        sum_t = torch.fft.irfftn(torch.fft.rfftn(local_cube, dim=(-2, -1), norm="ortho") * otf,
+                                 s=(nla, nlb), dim=(-2, -1), norm="ortho").reshape(W, -1)
         plan = self.plans_rev[0]
         keep = np.flatnonzero((plan.w != 0).any(axis=0))
-        part = bilinear.BilinearPlan(plan.idx[:, keep], plan.w[:, keep], plan.shape)
-        out = np.zeros((len(self.global_wavelength_axis), self.imshape[0] * self.imshape[1]))
-        out[self.wslice][:, keep] = numpy_ref.apply_plan(part, sum_t)
-        return out.reshape((len(self.global_wavelength_axis),) + self.imshape)
+        idx = torch.as_tensor(plan.idx[:, keep], device=dev)
+        w = torch.as_tensor(plan.w[:, keep], device=dev)
+        reached = torch.zeros((W, keep.size), dtype=torch.float64, device=dev)
+        for c in range(idx.shape[0]):  # numpy_ref.apply_plan's corner order
+            reached += w[c] * sum_t[:, idx[c]]
+        out = torch.zeros((W, self.imshape[0] * self.imshape[1]), dtype=torch.float64, device=dev)
+        out[:, torch.as_tensor(keep, device=dev)] = reached
+        return out.reshape((W,) + self.imshape)
 
     def realData_cubeToSlice(self, cube) -> np.ndarray:
         """Project a λ-window cube to detector slices without spectral blur

@@ -353,6 +353,7 @@ class SpectroSigRLSCT:
         self._idx = np.cumsum([0] + [int(np.prod(o)) for o in self.instrs_oshape])
         self.oshape = (int(self._idx[-1]),)
         self.tables = None
+        self._templates_dev = None
         self.device = None
         self.dtype = None
 
@@ -367,6 +368,7 @@ class SpectroSigRLSCT:
         self.device = torch.device(device)
         self.dtype = dtype
         self.tables = device_tables(self._host, self.device, dtype) if tables is None else tables
+        self._templates_dev = None
         return self
 
     # ------------------------------------------------------------------
@@ -394,14 +396,23 @@ class SpectroSigRLSCT:
             raise ValueError("wblur_impl='banded' on a model built dense: no band tables")
         return self.wblur_impl == "banded"
 
+    def _templates(self) -> torch.Tensor:
+        """The templates [M, L] on the device (the W-plane tables hold them;
+        rank mode uploads them at first use)."""
+        if "templates" in self.tables:
+            return self.tables["templates"]
+        if self._templates_dev is None:
+            self._templates_dev = torch.as_tensor(self.templates).to(self.device, self.dtype)
+        return self._templates_dev
+
     def mapsToCube(self, maps) -> torch.Tensor:
-        """T: maps [M, Na, Nb] → cube [L, Na, Nb] (W-plane mode)."""
-        return lmm.lmm_maps2cube(self._x(maps), self.tables["templates"])
+        """T: maps [M, Na, Nb] → cube [L, Na, Nb]."""
+        return lmm.lmm_maps2cube(self._x(maps), self._templates())
 
     def cubeTomaps(self, cube) -> torch.Tensor:
-        """Tᵗ: cube [L, Na, Nb] → maps [M, Na, Nb] (W-plane mode)."""
+        """Tᵗ: cube [L, Na, Nb] → maps [M, Na, Nb]."""
         cube = torch.as_tensor(cube).to(device=self.device, dtype=self.dtype)
-        return lmm.lmm_cube2maps(cube, self.tables["templates"])
+        return lmm.lmm_cube2maps(cube, self._templates())
 
     # ------------------------------------------------------------------
     # data side: host NumPy, as in the reference (spectro.py:918-1016)

@@ -19,8 +19,8 @@ Expected directory layout:
 
 Slice files store [Nλ_det, n_slit·Nα_det].  The band's detector λ table is
 looked up through this module's `get_mrs_wavelength`, so one assignment
-to it shrinks every stage.  `run_allband_simulated` is not ported yet
-(ROADMAP A12).
+to it shrinks every stage.  `run_allband_simulated` is BASELINE config 5
+(all bands, NMF templates learned on the device) on simulated data.
 """
 
 from __future__ import annotations
@@ -171,8 +171,14 @@ def assemble_data_vector(model, data_dict: Dict, bands: Sequence[str]) -> np.nda
 
 
 def _check_method(method: str) -> None:
-    if method != "lcg":
-        raise NotImplementedError(f"method={method!r}: only lcg is ported; mmmg is ROADMAP A11")
+    if method not in ("lcg", "mmmg"):
+        raise ValueError(f"unknown method {method!r}: lcg or mmmg")
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card's queue, so a host clock reads the work's end."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def run_real_fusion(
@@ -401,3 +407,167 @@ def rehearsal_quality(model, x, y: np.ndarray, flux_data: Optional[np.ndarray] =
     out.update(flux_ratio_median=float(np.median(ff / fd)), flux_shape_corr=float(np.corrcoef(ff, fd)[0, 1]),
                flux_points=int(ok.sum()), flux_fused=flux_fused, flux_data=flux_data)
     return out
+
+
+def coadd_cube(channels, blocks, cube_shape, device) -> torch.Tensor:
+    """The dirty hypercube [L, Na, Nb] (float64, on `device`): each band's
+    `sliceToCube` of its data block added in, divided by the number of
+    bands whose λ window holds each plane (at least 1).  A band's
+    re-projection is zero outside its window, so only the window is
+    computed (`Channel.sliceToWindow`, on `device`) and added."""
+    cube = torch.zeros(cube_shape, dtype=torch.float64, device=device)
+    cover = np.zeros(cube_shape[0])
+    for chan, block in zip(channels, blocks):
+        cube[chan.wslice] += chan.sliceToWindow(block, device)
+        cover[chan.wslice] += 1.0
+    cube /= torch.as_tensor(np.maximum(cover, 1.0), device=device)[:, None, None]
+    return cube
+
+
+def bright_mask(cube: torch.Tensor, q: float) -> np.ndarray:
+    """Pixels whose λ-summed flux is above its `q` quantile (host boolean
+    [Na, Nb]).  The planes are added one after another, as NumPy's
+    ``sum(axis=0)`` adds them, so the same cube gives the reference's mask
+    bit for bit: pixels tie with the quantile, and another summation order
+    flips them."""
+    bright = cube[0].clone()
+    for plane in cube[1:]:
+        bright += plane
+    bright = bright.cpu().numpy()
+    return bright > np.quantile(bright, q)
+
+
+def unit_rows(templates: np.ndarray) -> np.ndarray:
+    """Template rows scaled to unit L2 (in their dtype).  The LMM is
+    scale-invariant between templates and maps, but unnormalized NMF rows
+    (O(10-100) on bright cubes) square into HᵗH and push float32 CG past
+    overflow at production scale."""
+    tnorm = np.linalg.norm(templates, axis=1, keepdims=True)
+    return np.ascontiguousarray(templates / np.maximum(tnorm, 1e-30))
+
+
+# The rank mode's λ truncation (make_flagship_model's conv_rank_rtol): the
+# all-band window-local model keeps the rank components above it.
+ALLBAND_RANK_RTOL = 1e-7
+
+
+def run_allband_simulated(
+    npix: int = 61,
+    bands: Optional[Sequence[str]] = None,
+    n_pointings: int = 4,
+    n_templates: int = 4,
+    mu: float = 5e3,
+    niter: int = 50,
+    method: str = "lcg",
+    nmf_iter: int = 300,
+    mask_threshold_q: float = 0.25,
+    output_dir: Optional[str] = None,
+    window_local: bool = False,
+    lambda_subsample: int = 1,
+    seed: int = 19940407,
+    device=None,
+) -> Dict:
+    """BASELINE config 5 as one pipeline (reference
+    `surfh_tpu/pipeline.py::run_allband_simulated`): all-band data →
+    NMF templates learned on the device → all-band LMM fusion → metrics.
+
+      1. simulate detector data through the all-band operator (the
+         W-plane model: the OTF built on `device`, the dense blur);
+      2. co-add each band's `sliceToCube` into a dirty hypercube
+         (`coadd_cube`, float64 on `device`);
+      3. learn `n_templates` NMF templates from the pixels brighter than the
+         `mask_threshold_q` quantile (`bright_mask`,
+         `learning.learn_templates_nmf`);
+      4. normalize the template rows to unit L2 (`unit_rows`), rebuild the
+         operator over the same channels with them and solve with `method`;
+      5. report per-stage timings and the cube-space metrics.
+
+    ``window_local=True`` builds the λ-rank model from the PSF stamps
+    instead (rank components above `ALLBAND_RANK_RTOL`).  The first model's
+    tables leave the device once the truth cube and the data are taken.
+    Writes allband_templates.npy, allband_x.npy and allband_cube.npy to
+    `output_dir`.  `device` None is the card (raise without one)."""
+    from .learning.decomposition import learn_templates_nmf
+    from .simulation.flagship import make_allband_setup
+    from .solvers.criterion import QuadCriterion_MRS
+    from .utils import metrics
+
+    device = pick_device(device)
+    _check_method(method)
+    timings = {}
+    t0 = time.perf_counter()
+    setup = make_allband_setup(
+        npix=npix, bands=list(bands) if bands else None, n_pointings=n_pointings,
+        n_tpl=n_templates, lambda_subsample=lambda_subsample, seed=seed,
+        build_sotf=not window_local, device=device,
+    )
+
+    def _build(templates, channels=None):
+        common = (templates, setup["alpha_axis"], setup["beta_axis"], setup["wavelength_axis"],
+                  setup["instrs"], setup["step_degree"], setup["pointings"])
+        if window_local:
+            m = SpectroSigRLSCT(None, *common, dtype=np.float32, window_local=True,
+                                psf_stack=setup["psf_stack"], conv_rank_rtol=ALLBAND_RANK_RTOL,
+                                channels=channels)
+        else:
+            m = SpectroSigRLSCT(setup["sotf"], *common, dtype=np.float32, channels=channels)
+        return m.to(device, torch.float32)
+
+    model = _build(setup["templates"])
+    _sync(device)
+    timings["build_s"] = time.perf_counter() - t0
+
+    truth_maps = torch.as_tensor(np.asarray(setup["maps"], np.float32), device=device)
+    truth_cube = model.mapsToCube(truth_maps)
+    t0 = time.perf_counter()
+    y = model.forward(truth_maps)
+    _sync(device)
+    timings["simulate_s"] = time.perf_counter() - t0
+    channels, cube_shape = model.channels, model.cube_shape
+    blocks = model.split(y)
+    del model  # its device tables; the OTF stays for the second model
+
+    # 2. dirty hypercube: coverage-normalized co-add of the detector data
+    t0 = time.perf_counter()
+    cube0 = coadd_cube(channels, blocks, cube_shape, device)
+    _sync(device)
+    timings["coadd_s"] = time.perf_counter() - t0
+
+    # 3. NMF templates from the bright region of the dirty cube
+    t0 = time.perf_counter()
+    mask = bright_mask(cube0, mask_threshold_q)
+    templates, _maps0, nmf_err = learn_templates_nmf(
+        cube0.clamp_min_(0.0), n_templates, mask=mask, n_iter=nmf_iter, seed=seed,
+    )
+    del cube0, _maps0
+    templates = templates.cpu().numpy()
+    timings["nmf_s"] = time.perf_counter() - t0
+
+    # 4. fuse with the learned, row-normalized templates
+    templates = unit_rows(templates)
+    model2 = _build(templates, channels=channels)
+    t0 = time.perf_counter()
+    crit = QuadCriterion_MRS(1.0, y, model2, mu)
+    res = crit.run_method(method, maximum_iterations=niter)
+    _sync(device)
+    timings["solve_s"] = time.perf_counter() - t0
+
+    res_cube = model2.mapsToCube(res.x).cpu().numpy()
+    truth_cube = truth_cube.cpu().numpy()
+    report = {
+        "bands": list(setup["bands"]),
+        "n_lambda": int(cube_shape[0]),
+        "npix": npix,
+        "niter": int(res.n_iter),
+        "iters_per_s": res.n_iter / max(timings["solve_s"], 1e-9),
+        "nmf_recon_err": float(nmf_err),
+        "psnr_cube": metrics.psnr(truth_cube, res_cube),
+        "relative_cube_error_pct": metrics.relative_error(truth_cube, res_cube),
+        "timings_s": {k: round(v, 3) for k, v in timings.items()},
+    }
+    if output_dir:
+        os.makedirs(output_dir, exist_ok=True)
+        np.save(os.path.join(output_dir, "allband_templates.npy"), templates)
+        np.save(os.path.join(output_dir, "allband_x.npy"), res.x.cpu().numpy())
+        np.save(os.path.join(output_dir, "allband_cube.npy"), res_cube)
+    return report

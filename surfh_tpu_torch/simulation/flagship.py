@@ -1,20 +1,23 @@
-"""The flagship fusion problem at full scale (NumPy copy of
-`surfh_tpu/simulation/flagship.py`, PSF-stamp mode only).
+"""The flagship and all-band fusion problems at full scale (NumPy copy of
+`surfh_tpu/simulation/flagship.py`).
 
-12 MIRI MRS bands × 4 dither pointings, a 501² sky grid at 0.025″, a global
-λ axis from the union of the detector tables subsampled ×3 (≈3879
-samples), Gaussian PSF stamps [Nλ, 40, 40] and M = 4 smooth templates with
-random abundance maps.  Everything comes from the seed; nothing is loaded
+12 MIRI MRS bands × 4 dither pointings, a 501² sky grid at 0.025″,
+Gaussian PSF stamps [Nλ, 40, 40] and M = 4 smooth templates with random
+abundance maps.  The flagship's global λ axis is the union of the detector
+tables subsampled ×3 (≈3879 samples); the all-band problem's (BASELINE
+config 5) the union of the PCE calibration grids (12 × 201 = 2412 samples
+at λ-subsample 1).  Everything comes from the seed; nothing is loaded
 beyond the bundled MIRI calibration tables.  `build_sotf=True` builds the
-materialized OTF [Nλ, 501, 251] (complex64, ~3.9 GB) from the stamps on the
-card, or on the device asked for (`fft.ir2fr_device`), for the
-materialized-OTF model.  Not ported: the reference's on-disk sotf cache and
-the diffraction PSF (`SURFH_SIM_PSF`).
+materialized OTF [Nλ, 501, 251] (complex64) from the stamps on the card, or
+on the device asked for (`fft.ir2fr_device`), for the materialized-OTF
+model.  Not ported: the reference's on-disk sotf cache and the diffraction
+PSF (``SURFH_SIM_PSF=diffraction`` raises, ROADMAP A9).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -53,7 +56,39 @@ def make_flagship_setup(
     the card (raise without one); pass ``device="cpu"`` for the host."""
     if bands is None:
         bands = list(miri.BANDS)
-    instrs = flagship_instruments(bands)
+    return _make_setup_from_instrs(flagship_instruments(bands), bands, npix, n_pointings, n_tpl,
+                                   lambda_subsample, seed, build_sotf=build_sotf, device=device)
+
+
+def make_allband_setup(
+    npix: int = 101,
+    bands: Optional[List[str]] = None,
+    n_pointings: int = 4,
+    n_tpl: int = 4,
+    lambda_subsample: int = 1,
+    seed: int = 19940407,
+    build_sotf: bool = True,
+    device=None,
+):
+    """The all-band problem (BASELINE config 5) on the PCE calibration λ
+    grids of `miri.fusion_bands` (201 samples a band, ~5× coarser than the
+    detector tables): same keys and values as the reference's
+    `make_allband_setup`; `device` as in :func:`make_flagship_setup`."""
+    if bands is None:
+        bands = list(miri.BANDS)
+    return _make_setup_from_instrs(miri.fusion_bands(bands), bands, npix, n_pointings, n_tpl,
+                                   lambda_subsample, seed, build_sotf=build_sotf, device=device)
+
+
+def _make_setup_from_instrs(instrs, bands, npix, n_pointings, n_tpl, lambda_subsample, seed,
+                            build_sotf: bool = True, device=None) -> dict:
+    """The setup dict of `instrs` (reference `_make_setup_from_instrs`):
+    the sorted union of their λ tables subsampled, smooth positive
+    templates and random maps from `seed`, Gaussian PSF stamps, the
+    dithers, and with `build_sotf` the OTF on `device`."""
+    if os.environ.get("SURFH_SIM_PSF", "gaussian") == "diffraction":
+        raise NotImplementedError("SURFH_SIM_PSF=diffraction: the diffraction PSF "
+                                  "(utils/jwst_psf.py) is ROADMAP A9, not ported yet")
     rng = np.random.default_rng(seed)
     step_degree = FLAGSHIP_STEP_ARCSEC / 3600.0
     alpha_axis = (np.arange(npix) - npix / 2) * step_degree

@@ -1,11 +1,12 @@
-"""Linear conjugate gradient (counterpart of `surfh_tpu/solvers/cg.py::lcg`).
+"""Linear conjugate gradient and MM memory gradient (counterparts of
+`surfh_tpu/solvers/cg.py::lcg` and `::mmmg`).
 
 The reference compiles the loop (a `lax.while_loop`, or one dispatched
 program per iteration at flagship scale); PyTorch runs eagerly, so here
 the loop is plain Python over device tensors.  Same parameters, update
-formulas, stopping rules and `(x, r, z, p, rz)` state as the reference, so
-a caller written for it gets its iterates, and a run resumes exactly where
-it stopped.
+formulas, stopping rules and (for `lcg`) `(x, r, z, p, rz)` state as the
+reference, so a caller written for it gets its iterates, and an `lcg` run
+resumes exactly where it stopped.
 """
 
 from __future__ import annotations
@@ -122,6 +123,85 @@ def lcg(
         converged = bool(grad_norm[-1] <= limit)
     res = SolverResult(x=x, grad_norm=grad_norm, n_iter=it, converged=converged,
                        state=(x, r, z, p, rz) if return_state else None)
+    if callback is not None:
+        callback(res)
+    return res
+
+
+def _mmmg_body(normal_op, x, g, d_prev, q_prev, *op_args):
+    """One MM memory-gradient iteration: minimize J(x + a·d0 + c·d_prev),
+    d0 = −g, by the 2×2 Gram solve (steepest descent where |det| ≤ 1e-30).
+    `q_prev` = Q·d_prev is carried by linearity, so one normal application
+    an iteration; a and c stay on the device."""
+    d0 = -g
+    q0 = normal_op(d0, *op_args)
+    q1 = q_prev
+    a00, a01, a11 = _dot(d0, q0), _dot(d0, q1), _dot(d_prev, q1)
+    g0d, g1d = _dot(g, d0), _dot(g, d_prev)
+    det = a00 * a11 - a01 * a01
+    safe = det.abs() > 1e-30
+    den = torch.where(safe, det, torch.ones_like(det))
+    a = torch.where(safe, (-g0d * a11 + g1d * a01) / den, -g0d / a00)
+    c = torch.where(safe, (g0d * a01 - g1d * a00) / den, torch.zeros_like(det))
+    step = a * d0 + c * d_prev
+    x = x + step
+    g = g + a * q0 + c * q1  # not g + q_new: the reference's order of additions
+    q_new = a * q0 + c * q1
+    return x, g, step, q_new
+
+
+def mmmg(
+    normal_op: Callable,
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    max_iter: int = 100,
+    tol: float = 1e-12,
+    callback: Optional[Callable] = None,
+    op_args: tuple = (),
+    loop: str = "graph",
+) -> SolverResult:
+    """MM memory gradient for J(x) = ½xᵀQx − bᵀx, Q = `normal_op(x, *op_args)`:
+    each step minimizes J exactly over span{−∇J, x − x_prev}.  The first
+    iteration is a steepest-descent step (no memory direction yet) and
+    always runs.
+
+    ``loop="graph"``: stops before a step where ‖g‖ ≤ tol·‖b‖;
+    `grad_norm` is ‖g₀‖ then ‖g‖ after each iteration, `converged` is
+    ``n_iter < max_iter``.  ``loop="dispatch"``: reads ‖g‖ at every
+    `CHECK_EVERY`-th iteration count and at `max_iter` (so it may run past
+    the crossing, as the reference does), keeps the float32 norm history on
+    the device, and takes `converged` from the final norm.  Both loops run
+    the same steps, so equal iteration counts give equal iterates."""
+    if loop not in ("graph", "dispatch"):
+        raise ValueError(f"unknown loop {loop!r}")
+    g0 = normal_op(x0, *op_args) - b
+    q0 = normal_op(-g0, *op_args)
+    alpha = _dot(g0, g0) / _dot(-g0, q0)
+    x = x0 + alpha * (-g0)
+    g = g0 + alpha * q0
+    d, q = alpha * (-g0), alpha * q0
+    it = 1
+    if loop == "graph":
+        limit = float(tol * _norm(b))
+        norms = [float(_norm(g0)), float(_norm(g))]
+        while it < max_iter and norms[-1] > limit:
+            x, g, d, q = _mmmg_body(normal_op, x, g, d, q, *op_args)
+            norms.append(float(_norm(g)))
+            it += 1
+        grad_norm = np.asarray(norms, np.float64)
+        converged = it < max_iter
+    else:
+        limit = tol * float(_norm(b).float())
+        hist = [_norm(g0).float(), _norm(g).float()]
+        while it < max_iter:
+            x, g, d, q = _mmmg_body(normal_op, x, g, d, q, *op_args)
+            hist.append(_norm(g).float())
+            it += 1
+            if (it % CHECK_EVERY == 0 or it == max_iter) and float(hist[-1]) <= limit:
+                break
+        grad_norm = torch.stack(hist).cpu().numpy().astype(np.float64)
+        converged = bool(grad_norm[-1] <= limit)
+    res = SolverResult(x=x, grad_norm=grad_norm, n_iter=it, converged=converged)
     if callback is not None:
         callback(res)
     return res

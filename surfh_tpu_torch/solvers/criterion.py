@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core import fft
-from .cg import SolverResult, lcg
+from .cg import SolverResult, lcg, mmmg
 
 
 def diff_rows(x):
@@ -61,7 +61,7 @@ class DifferenceOperatorJoint:
 
 
 class QuadCriterion_MRS:
-    """J(x) = µ_s/2‖Hx−y‖² + µ_r/2‖Dx‖², minimized by `lcg`.
+    """J(x) = µ_s/2‖Hx−y‖² + µ_r/2‖Dx‖², minimized by `lcg` or `mmmg`.
 
     `model_spectro` exposes `forward`, `adjoint`, `normal`, `ishape`,
     `device` and `dtype` (the port's `SpectroSigRLSCT` after `.to()`).
@@ -115,23 +115,29 @@ class QuadCriterion_MRS:
         solver_loop: str = "graph",
         solver_chain: int = 1,
     ) -> SolverResult:
-        """Solve with `method` from `value_init` (or resume `solver_state`);
-        `calc_crit` appends J(x̂) to `L_crit_val` and sets the result's
-        `crit_val` to all values so far.  `solver_loop` / `solver_chain`
-        are `lcg`'s `loop` / `chain_steps`."""
-        if method != "lcg":
-            raise NotImplementedError(f"method={method!r}: only lcg is ported; mmmg is ROADMAP A11")
-        if perf_crit is not None:
-            raise NotImplementedError("perf_crit is not ported (ROADMAP A11)")
+        """Solve with `method` ("lcg" or "mmmg") from `value_init` (or, for
+        `lcg`, resume `solver_state`); `calc_crit` appends J(x̂) to
+        `L_crit_val` and sets the result's `crit_val` to all values so far.
+        `solver_loop` is the solver's `loop`, `solver_chain` `lcg`'s
+        `chain_steps`; `mmmg` reads neither the state arguments nor
+        `solver_chain`, and `perf_crit` is accepted and not read, as in the
+        reference."""
+        if method not in ("lcg", "mmmg"):
+            raise ValueError(f"unknown method {method!r}")
         dev, dt = self.model.device, self.model.dtype
         if isinstance(value_init, (int, float)):
             init = torch.full(self.shape_of_output, float(value_init), device=dev, dtype=dt)
         else:
             init = torch.as_tensor(value_init).to(device=dev, dtype=dt).reshape(self.shape_of_output)
         t0 = time.perf_counter()
-        res = lcg(self.normal_op, self.b, init, max_iter=maximum_iterations, tol=tolerance,
-                  state=solver_state, return_state=return_state,
-                  op_args=(self.mu_spectro, self.mu_reg), loop=solver_loop, chain_steps=solver_chain)
+        op_args = (self.mu_spectro, self.mu_reg)
+        if method == "lcg":
+            res = lcg(self.normal_op, self.b, init, max_iter=maximum_iterations, tol=tolerance,
+                      state=solver_state, return_state=return_state,
+                      op_args=op_args, loop=solver_loop, chain_steps=solver_chain)
+        else:
+            res = mmmg(self.normal_op, self.b, init, max_iter=maximum_iterations, tol=tolerance,
+                       op_args=op_args, loop=solver_loop)
         if self.printing:
             print(f"Total time needed for {method}: {time.perf_counter() - t0:.3f}s")
         if calc_crit:

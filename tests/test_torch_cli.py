@@ -12,9 +12,11 @@ the commands run).
   iterations, x within 1e-4 of its max, PSNR within 1e-2 dB;
 * `make-cube` (.npy and FITS), `compare-flux` and `info`; the rehearsal
   sweep (`python -m surfh_tpu_torch.utils.rehearsal_sweep`) at a small size;
-* `--method mmmg`, `--sharded` and the subcommands not ported yet raise
-  NotImplementedError naming the ROADMAP item; without a card and without
-  ``SURFH_CPU`` the commands raise.
+* `--method mmmg` on `fusion --simulated` and `rehearse`, against the JAX
+  commands (`allband`: tests/test_torch_allband.py);
+* `--sharded` and the subcommands not ported yet raise NotImplementedError
+  naming the ROADMAP item; without a card and without ``SURFH_CPU`` the
+  commands raise.
 """
 
 import contextlib
@@ -170,13 +172,31 @@ def test_info():
     assert got["backend"] == "cpu" and got["devices"] == ["cpu"] and got["torch"] == torch.__version__
 
 
-@pytest.mark.parametrize("argv", [
-    ["fusion", "--simulated", "--method", "mmmg"],
-    ["rehearse", "--method", "mmmg"],
-])
-def test_mmmg_is_not_ported(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli.main(argv + ["-o" if argv[0] == "fusion" else "-w", str(tmp_path)])
+def test_fusion_simulated_mmmg(tmp_path):
+    """`--method mmmg` on test_fusion_simulated's run: the same iterations,
+    x within 1e-4 of its max (f32, 4 iterations), PSNR within 1e-2 dB."""
+    argv = ["fusion", "--simulated", "-np", "31", "--n-lambda", "16", "-nc", "1", "-nt", "3",
+            "-ni", "4", "-hp", "10", "--method", "mmmg"]
+    got = port(argv + ["-o", str(tmp_path / "port")])
+    want = ref(argv + ["-o", str(tmp_path / "jax")])
+    assert got["method"] == want["method"] == "mmmg" and got["niter"] == want["niter"] == 4
+    assert abs(got["psnr_maps"] - want["psnr_maps"]) <= 1e-2
+    px, jx = np.load(tmp_path / "port" / "res_x.npy"), np.load(tmp_path / "jax" / "res_x.npy")
+    assert np.abs(px - jx).max() <= 1e-4 * np.abs(jx).max()
+
+
+def test_rehearse_mmmg(tmp_path):
+    """`rehearse --method mmmg` at the rehearsal's size: the report's
+    numbers within TOL_REPORT of the JAX command's, and the reference's bars."""
+    argv = ["rehearse", "--method", "mmmg"] + REHEARSE
+    got = port(argv + ["-w", str(tmp_path / "port")])
+    want = ref(argv + ["-w", str(tmp_path / "jax")])
+    assert list(got) == list(want)
+    for k in want:
+        if k not in NOT_COMPARED and not isinstance(want[k], str):
+            assert abs(got[k] - want[k]) <= TOL_REPORT, (k, got[k], want[k])
+    assert got["residual_rel"] < 0.10 and 0.9 < got["flux_ratio_median"] < 1.1
+    assert got["flux_shape_corr"] > 0.9 and got["flux_points"] > 50
 
 
 def test_sharded_is_not_ported(tmp_path):
@@ -184,14 +204,15 @@ def test_sharded_is_not_ported(tmp_path):
         cli.main(["fusion", "--simulated", "--sharded", "-o", str(tmp_path)])
 
 
-@pytest.mark.parametrize("name,item", [("deconv-cube", "A10"), ("deconv2d", "A10"), ("allband", "A12"),
+@pytest.mark.parametrize("name,item", [("deconv-cube", "A10"), ("deconv2d", "A10"),
                                        ("metadata", "A12"), ("gen-psf", "A9"), ("warmup", "A12")])
 def test_subcommands_not_ported(name, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main([name, "--npix", "31"])
 
 
-@pytest.mark.parametrize("argv", [["info"], ["fusion", "--simulated", "-np", "31"], ["rehearse"]])
+@pytest.mark.parametrize("argv", [["info"], ["fusion", "--simulated", "-np", "31"], ["rehearse"],
+                                  ["allband", "-np", "31"]])
 def test_no_card_and_no_switch_raises(monkeypatch, tmp_path, argv):
     monkeypatch.delenv("SURFH_CPU")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

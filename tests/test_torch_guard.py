@@ -1,7 +1,9 @@
 """Guards of the port: no JAX and nothing of `surfh_tpu` on its import
 path (nor click), `chip_smoke.py` refuses to report anything without a card
-or without the repository, and the setup functions, the real-data pipeline's
-model and the Shepard regrid pick the card unless asked for the CPU."""
+or without the repository, the setup functions, the real-data pipeline's
+model, the all-band pipeline, the decompositions and the Shepard regrid
+pick the card unless asked for the CPU, and `run_method` accepts the
+reference's `perf_crit` and reads it not."""
 
 import os
 import shutil
@@ -54,6 +56,9 @@ SLICE_MODULES = [
     "surfh_tpu_torch.pipeline",
     "surfh_tpu_torch.cli",
     "surfh_tpu_torch.utils.rehearsal_sweep",
+    "surfh_tpu_torch.learning",
+    "surfh_tpu_torch.learning.decomposition",
+    "surfh_tpu_torch.config",
     "chip_smoke",
     "torch_scatter_proto",  # scripts/
     "torch_profile",  # scripts/
@@ -142,3 +147,52 @@ def test_pipeline_and_shepard_go_to_the_card_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         exponential_modified_shepard(*pts)
     assert exponential_modified_shepard(*pts, device="cpu").shape == (2, 2)
+
+
+def test_allband_and_decompositions_go_to_the_card_by_default(monkeypatch):
+    """`run_allband_simulated` and the decompositions given host arrays
+    with no `device` run on the card: without one they raise, and never
+    fall back to the CPU."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import pipeline
+    from surfh_tpu_torch.learning import decomposition
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.run_allband_simulated(npix=31, bands=["1a"], n_pointings=1, n_templates=2,
+                                       niter=1, nmf_iter=1)
+    X = np.random.default_rng(0).random((20, 6))
+    for call in (lambda: decomposition.nmf(X, 2, n_iter=1), lambda: decomposition.pca(X, 2),
+                 lambda: decomposition.nfindr(X, 3), lambda: decomposition.fcls(X, X[:2]),
+                 lambda: decomposition.learn_templates_nmf(X.T.reshape(6, 4, 5), 2, n_iter=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    W, H, _ = decomposition.nmf(torch.as_tensor(X), 2, n_iter=1)  # a tensor keeps its device
+    assert W.device.type == "cpu"
+
+
+@pytest.mark.parametrize("method", ["lcg", "mmmg"])
+def test_run_method_accepts_and_ignores_perf_crit(method):
+    """The reference takes `perf_crit` and never reads it; so does the port:
+    the same run with and without one gives the same bits, and it is never
+    called."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.simulation.synthetic import make_model
+    from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
+
+    model, setup = make_model(im_size=21, n_lambda=12, n_tpl=2, n_channels=1, n_pointings=1,
+                              n_slit=3, dtype=np.float64, window_local=False)
+    model.to("cpu", torch.float64)
+    y = model.forward(torch.as_tensor(setup["maps"]))
+    crit = QuadCriterion_MRS(1.0, y, model, 10.0)
+    calls = []
+    a = crit.run_method(method, 5, 1e-12, False, lambda x: calls.append(x))
+    b = crit.run_method(method, 5, perf_crit=object())
+    c = crit.run_method(method, 5)
+    assert calls == []
+    assert torch.equal(a.x, c.x) and torch.equal(b.x, c.x)
+    np.testing.assert_array_equal(a.grad_norm, c.grad_norm)

@@ -21,7 +21,7 @@ results (CPU, float64, inputs from numpy seeds).
   use; the banded + window-local warning (the reference's text) with a
   result equal to the dense model's;
 * every configuration the port has not ported raises NotImplementedError
-  naming its ROADMAP item.
+  naming its ROADMAP item (`mmmg`: tests/test_torch_mmmg.py).
 """
 
 import warnings
@@ -366,16 +366,12 @@ def test_spectro_not_ported_raises(case):
         SpectroSigRLSCT(**kw)
 
 
-@pytest.mark.parametrize("case, item", [("use_fwadj", "A10"), ("mmmg", "A11"), ("perf_crit", "A11")])
+@pytest.mark.parametrize("case, item", [("use_fwadj", "A10")])
 def test_criterion_not_ported_raises(toy, case, item):
     model = _TorchToy(toy.w)
     with pytest.raises(NotImplementedError, match=item):
-        if case == "use_fwadj":
-            QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1, False, "separated", True)
-        elif case == "mmmg":
-            QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1).run_method("mmmg")
-        else:
-            QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1).run_method(
-                "lcg", 3, 1e-12, False, lambda x: 0.0)
+        QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1, False, "separated", True)
     with pytest.raises(ValueError, match="gradient"):
         QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1, gradient="laplace")
+    with pytest.raises(ValueError, match="method"):
+        QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1).run_method("cg")
