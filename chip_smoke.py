@@ -3,21 +3,24 @@
 
     python3 chip_smoke.py [--bands 1a,1b,...]
 
-Two paths of the flagship fusion solve at full width (501² sky, ~3879-λ
+Three paths of the flagship fusion solve at full width (501² sky, ~3879-λ
 cube, M = 4 templates, 4 dither pointings, all 12 MIRI bands unless
 `--bands` cuts them), f32 on the card, weights and data from seeds: the
-rank mode (window-local, PSF stamps) and the materialized-OTF W-plane mode
-(`window_local=False`, `wblur_impl="banded"`, `wblur_band_rtol=1e-4`);
-the composed-transpose prototype entry point
-(`scripts/torch_scatter_proto.py`) with its three fixed-fan-in kernels; and
-through the port's command line, the band-1c real-data rehearsal and the
-all-band path with NMF templates learned on the card (BASELINE config 5).
+rank mode (window-local, PSF stamps), the materialized-OTF W-plane mode
+(`window_local=False`, `wblur_impl="banded"`, `wblur_band_rtol=1e-4`) and
+the dense window-local mode (`conv_rank_rtol=0`); the composed-transpose
+prototype entry point (`scripts/torch_scatter_proto.py`) with its three
+fixed-fan-in kernels; through the port's command line, the band-1c
+real-data rehearsal, the all-band path with NMF templates learned on the
+card (BASELINE config 5) in both its models, and `gen-psf`; and the
+flagship under the JWST diffraction PSF.
 
 1. device      — the card's name and power limit (nvidia-smi);
 2. build       — nvcc builds the three kernel sources from csrc/ into
                  build/, one nvcc each, in parallel;
 3. host        — the flagship rank-mode host tables (NumPy, channels in
-                 parallel);
+                 parallel), cold into a fresh disk-cache directory, then
+                 again as a cache hit, bit for bit;
 4. kernel      — the row gather against its plain torch version and the
                  library's CSR SpMM on one flagship channel's real composed
                  plans at the rank path's width (error, times, byte bound),
@@ -48,9 +51,19 @@ all-band path with NMF templates learned on the card (BASELINE config 5).
                  against dense, kernels against plain versions, launches per
                  normal application, times for both blurs, the main path
                  (y, b, 10 lcg iterations);
-10. small      — the card's f32 operators (both modes) against the CPU f64
+10. wlocal     — the dense window-local flagship (stamps, conv_freq_rtol
+                 1e-6, conv_rank_rtol 0) over the rank model's channels:
+                 the OTF windows evaluated on the card, the GEMM count of
+                 the conv, kernels against plain gathers, the dot test, the
+                 fused normal against adjoint∘forward, the forward against
+                 the rank and the W-plane models within their truncation
+                 bounds, launches, times, the main path (y, b, 20 lcg
+                 iterations); its OTF-window variant (SURFH_PSF_STAMPS=0:
+                 each band's window of the W-plane setup's sotf): one normal,
+                 the dot test;
+11. small      — the card's f32 operators (both modes) against the CPU f64
                  ones on small synthetic problems;
-11. pipeline   — the real-data path through the port's CLI at full width
+12. pipeline   — the real-data path through the port's CLI at full width
                  (band 1c, 4 pointings, 501² at 0.025″, the whole 1400-row
                  detector λ table, µ = 5e3, 400 iterations): `rehearse`
                  (synthetic stage-2 files,
@@ -63,7 +76,7 @@ all-band path with NMF templates learned on the card (BASELINE config 5).
                  normal, the dense blur's dot test, times, peak memory);
                  `fusion --fusion-data` uninterrupted and stopped after 20
                  iterations then resumed, bit for bit;
-12. allband    — BASELINE config 5 through the port's CLI at full width
+13. allband    — BASELINE config 5 through the port's CLI at full width
                  (all 12 bands, 4 pointings, 501², the 2412-λ PCE grids, 4
                  NMF templates learned on the card in 300 iterations, 50 lcg
                  iterations, the W-plane model with the dense blur): the
@@ -73,7 +86,16 @@ all-band path with NMF templates learned on the card (BASELINE config 5).
                  launches per normal, the dot test, the error against that
                  of the initial maps, `mmmg` against `lcg` (50 iterations
                  each, the reference's criterion-gap bar) and `mmmg`'s
-                 dispatch loop against its graph loop, bit for bit.
+                 dispatch loop against its graph loop, bit for bit;
+14. allband-wl — the same with `--window-local` (each band's OTF window, a
+                 view of the setup's sotf on the card, the dense matmul
+                 conv), the same checks but `mmmg`'s;
+15. psf        — `gen-psf` at its defaults (band 1c, 1400 λ, 501², n_pupil
+                 256) plain and with the commissioning OPD, sampled planes
+                 against the host NumPy stack; the flagship under
+                 SURFH_SIM_PSF=diffraction (stamps built on the card), its
+                 rank model's per-band rank and tail, one normal, the dot
+                 test.
 
 Prints the kernels' JSON record, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -86,8 +108,10 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 WORKERS = min(8, os.cpu_count() or 1)  # processes for the host table build
@@ -103,6 +127,21 @@ def log(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"CHECK FAILED: {what}")
+
+
+def tables_equal(a, b) -> bool:
+    """Two host-table trees hold the same keys and the same bits."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(tables_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(tables_equal(u, v) for u, v in zip(a, b))
+    if hasattr(a, "row_ptr"):  # a gather plan
+        return a.n_src == b.n_src and all(tables_equal(getattr(a, f), getattr(b, f))
+                                          for f in ("row_ptr", "idx", "w", "dst"))
+    u, v = np.asarray(a), np.asarray(b)
+    return u.dtype == v.dtype and u.shape == v.shape and np.array_equal(u, v)
 
 
 REHEARSE_BAND, REHEARSE_NPIX, REHEARSE_STEP = "1c", 501, 0.025
@@ -141,12 +180,10 @@ def shepard_plain(pa, pl, vals, am, lm, p=2.0, alpha=2.0, pixel_cutoff=1.0, alph
 
 
 def run_pipeline_phase(dev, card: str, cuda_ms, gen) -> dict:
-    """11. The real-data path at full width through the port's CLI; returns
+    """12. The real-data path at full width through the port's CLI; returns
     the row-gather launches of the rehearsal and the phase's numbers."""
     import contextlib
     import io
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -309,6 +346,178 @@ def run_pipeline_phase(dev, card: str, cuda_ms, gen) -> dict:
     return res
 
 
+WLOCAL_FREQ_RTOL, WLOCAL_NITER = 1e-6, 20
+
+
+def run_wlocal_phase(dev, card: str, cuda_ms, gen, bound, model, setup, wmodel, wsetup, truth,
+                     mu_reg: float) -> dict:
+    """10. The dense window-local flagship (PSF stamps, conv_freq_rtol 1e-6,
+    conv_rank_rtol 0) over the rank model's channels, then its OTF-window
+    variant from the W-plane setup's sotf, held against the rank `model`
+    and the W-plane `wmodel` (its dense blur).  The truncation bounds are
+    checked in float64 on the card (each model's f32 tables, plain
+    gathers): in float32 the rounding of the three pipelines, ~1e-5 each,
+    lies above them, as the reference notes of its own f32 runs.  Returns
+    the row-gather launches of its main path and the phase's numbers."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.simulation.flagship import make_flagship_model
+    from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    def dot_rel(m):
+        xr = torch.rand(m.ishape, generator=gen, device=dev)
+        yr = torch.rand(m.oshape, generator=gen, device=dev)
+        lhs = float(torch.dot(m.forward(xr).double(), yr.double()))
+        rhs = float(torch.dot(xr.reshape(-1).double(), m.adjoint(yr).reshape(-1).double()))
+        return abs(lhs - rhs) / abs(lhs), lhs, rhs
+
+    truth64 = truth.double()
+
+    def forward64(m, **attrs):
+        """`m`'s forward of the truth in float64 on the card (a copy of the
+        model, its own f64 device tables, the plain gathers)."""
+        c = copy.copy(m)
+        c.__dict__.update(attrs)
+        out = c.to(dev, torch.float64).forward(truth64, plain=True)
+        del c
+        return out
+
+    res = {}
+    n_pt = sum(c.oshape[0] for c in model.channels)
+    y_rank, y_wplane = forward64(model), forward64(wmodel, wblur_impl="dense")
+    wmodel.wblur_impl = "dense"
+    y32_rank, y32_wplane = model.forward(truth), wmodel.forward(truth)
+    wmodel.wblur_impl = "banded"
+    t0 = time.perf_counter()
+    dm, _ = make_flagship_model(setup, dtype=np.float32, conv_freq_rtol=WLOCAL_FREQ_RTOL,
+                                conv_rank_rtol=0.0, channels=model.channels, workers=WORKERS)
+    t_host = time.perf_counter() - t0
+    check(all("psf" in t and "cu" not in t for t in dm.host_tables()["chan"]),
+          "dense stamp tables on every band")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    dm.to(dev, torch.float32)
+    sync()
+    res["otf_s"] = time.perf_counter() - t0
+    otf_gib = sum(2 * t["otf"][0].numel() * 4 for t in dm.tables["chan"]) / 2**30
+    log(f"[wlocal] dense window-local model (stamps, conv_freq_rtol {WLOCAL_FREQ_RTOL:g}, "
+        f"conv_rank_rtol 0) over the rank model's channels: host tables {t_host:.2f} s ({WORKERS} "
+        f"workers); upload and the OTF windows evaluated on the card {res['otf_s']:.3f} s "
+        f"({otf_gib:.3f} GiB of windows, {(torch.cuda.memory_allocated(dev) - base) / 2**30:.3f} GiB "
+        f"of tables in all)")
+    macs = 0.0
+    for chan, sup, t in zip(dm.channels, dm.conv_supports, dm.tables["chan"]):
+        w, ka, kb = t["otf"][0].shape
+        ha, wb = chan.tbbox[2], chan.tbbox[3]
+        mac = 3.0 * w * ha * ka * kb + 2.0 * w * ha * kb * wb
+        macs += mac
+        log(f"[wlocal]   {chan.instr.name}: W {w}, Ka' {ka}, Kb' {kb} (ka_max {sup['ka_max']}, "
+            f"keep {sup['keep_frac']:.4f}, dropped_rel {sup['dropped_rel']:.3e}), bbox {ha} x {wb}: "
+            f"inverse stages {mac / 1e9:.3f} G multiply-adds a direction")
+    res["gflop"] = 2 * 2 * macs / 1e9  # two directions, two flops a multiply-add
+    res["bound_ms"] = bound(0.0, 2 * 2 * macs)[0]
+    tail = max(s.get("rank_tail", 0.0) for s in model.conv_supports)
+    dropped = max(s["dropped_rel"] for s in dm.conv_supports)
+
+    n_k = dm.normal(truth)
+    n_p = dm.normal(truth, plain=True)
+    n_c = dm.adjoint(dm.forward(truth))
+    sync()
+    nrm, fused = rel(n_k, n_p), rel(n_k, n_c)
+    del n_p, n_c
+    d_rel, lhs, rhs = dot_rel(dm)
+    y_d = forward64(dm)
+    e_rank, e_wplane = rel(y_d, y_rank), rel(y_d, y_wplane)
+    y32 = dm.forward(truth)
+    e32_rank, e32_wplane = rel(y32, y32_rank), rel(y32, y32_wplane)
+    b_rank, b_wplane = max(10 * tail, 1e-5), 1e-5 + 10 * dropped
+    log(f"[wlocal] normal, kernels vs plain gathers: max rel {nrm:.3e} (bound 1e-5); fused normal vs "
+        f"adjoint(forward) {fused:.3e} (bound 1e-5); dot test (f64 sums) <Hx,y>={lhs:.9e} "
+        f"<x,H'y>={rhs:.9e} rel {d_rel:.3e} (bound 1e-5); in float64 on the card, forward vs the rank "
+        f"model {e_rank:.3e} (bound max(10 x rank tail {tail:.3e}, 1e-5) = {b_rank:.3e}), vs the W-plane "
+        f"FFT model (dense blur) {e_wplane:.3e} (bound 1e-5 + 10 x dropped_rel {dropped:.3e} = "
+        f"{b_wplane:.3e}); the same in float32: {e32_rank:.3e}, {e32_wplane:.3e}")
+    check(bool(torch.isfinite(n_k).all()) and nrm <= 1e-5, "wlocal normal kernels vs plain")
+    check(fused <= 1e-5, "wlocal fused normal vs adjoint(forward)")
+    check(d_rel <= 1e-5, "wlocal dot test")
+    check(e_rank <= b_rank, "wlocal forward vs the rank model (float64)")
+    check(e_wplane <= b_wplane, "wlocal forward vs the W-plane model (float64)")
+    del n_k, y_d, y32, y32_rank, y32_wplane, y_rank
+    res.update(err_rank=e_rank, err_wplane=e_wplane, dot=d_rel, normal_err=nrm)
+
+    gr.reset_launches()
+    dm.normal(truth)
+    sync()
+    per_app = gr.launches
+    check(per_app == 2 * n_pt, f"wlocal gather_rows launches per normal {per_app}")
+    res["normal_ms"] = cuda_ms(lambda: dm.normal(truth), REPS)
+    vox = float(np.prod(dm.cube_shape))
+    log(f"[wlocal] {card}: normal {res['normal_ms']:.3f} ms/app ({2 * vox / (res['normal_ms'] * 1e-3) / 1e9:.2f} "
+        f"GVox/s, 2 x {int(vox)} voxels); the inverse-stage GEMMs {res['gflop']:.1f} GFLOP an application, "
+        f"their FP32 bound {res['bound_ms']:.3f} ms; gather_rows launches per normal {per_app} (expected "
+        f"{2 * n_pt})")
+
+    # the main path, counted: y, b = µ·Hᵗy, 20 lcg iterations
+    gr.reset_launches()
+    y = dm.forward(truth)
+    crit = QuadCriterion_MRS(1.0, y, dm, mu_reg)
+    crit.b
+    sync()
+    t0 = time.perf_counter()
+    r = crit.run_method("lcg", maximum_iterations=WLOCAL_NITER)
+    sync()
+    res["cg_s_it"] = (time.perf_counter() - t0) / r.n_iter
+    res["launches"] = gr.launches
+    expect = 2 * n_pt + 2 * n_pt * (r.n_iter + 1)
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    gn = r.grad_norm
+    log(f"[wlocal] {card}: lcg {res['cg_s_it']:.4f} s/iteration ({r.n_iter} iterations, host clock); "
+        f"grad norm {gn[0]:.4e} -> {gn[-1]:.4e}; gather_rows launches on the main path {res['launches']} "
+        f"(expected {expect}); peak {res['peak_gib']:.2f} GiB (every model on the card)")
+    check(r.n_iter == WLOCAL_NITER and bool(np.isfinite(gn).all()) and gn[-1] < gn[0], "wlocal CG")
+    check(res["launches"] == expect, "wlocal main-path launches")
+    del dm, crit, r, y
+    torch.cuda.empty_cache()
+
+    # the OTF-window variant (SURFH_PSF_STAMPS=0): each band's window cut from the sotf
+    os.environ["SURFH_PSF_STAMPS"] = "0"
+    try:
+        t0 = time.perf_counter()
+        om, _ = make_flagship_model(wsetup, dtype=np.float32, conv_freq_rtol=WLOCAL_FREQ_RTOL,
+                                    conv_rank_rtol=0.0, channels=model.channels)
+        sync()
+        t_host = time.perf_counter() - t0
+    finally:
+        del os.environ["SURFH_PSF_STAMPS"]
+    check(om.psf_stack is None and all("sotf_w" in t for t in om.host_tables()["chan"]),
+          "OTF-window tables on every band")
+    om.to(dev, torch.float32)
+    d_rel, lhs, rhs = dot_rel(om)
+    e_wplane = rel(forward64(om), y_wplane)
+    dropped = max(s["dropped_rel"] for s in om.conv_supports)
+    res["otf_window_ms"] = cuda_ms(lambda: om.normal(truth), 3)
+    log(f"[wlocal] {card}: OTF-window variant (each band's window of the W-plane setup's sotf, cut "
+        f"on the card to its support at {WLOCAL_FREQ_RTOL:g}: host {t_host:.2f} s): normal "
+        f"{res['otf_window_ms']:.3f} ms/app; dot test rel {d_rel:.3e} (bound 1e-5); in float64, forward vs "
+        f"the W-plane FFT model {e_wplane:.3e} (bound {1e-5 + 10 * dropped:.3e})")
+    check(d_rel <= 1e-5, "OTF-window dot test")
+    check(e_wplane <= 1e-5 + 10 * dropped, "OTF-window forward vs the W-plane model")
+    del om
+    torch.cuda.empty_cache()
+    return res
+
+
 ALLBAND_NPIX, ALLBAND_NITER, ALLBAND_NMF_ITER, ALLBAND_MU = 501, 50, 300, 5e3
 # BASELINE config 5 at full width: all 12 bands, 4 pointings, 501² at 0.025″,
 # the 2412-λ PCE grids, 4 templates, the W-plane model with the dense blur
@@ -318,15 +527,16 @@ ALLBAND_ARGV = ["allband", "-np", str(ALLBAND_NPIX), "--pointings", "4", "-nt", 
 MMMG_GAP = 0.02  # (J_mm − J_cg) / (J₀ − J_cg): the reference's bar (tests/test_reconstruction_quality.py)
 
 
-def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
-    """12. The all-band path (NMF templates learned on the card, then the
+def run_allband_phase(dev, card: str, cuda_ms, gen, bound, window_local: bool = False) -> dict:
+    """13. The all-band path (NMF templates learned on the card, then the
     12-band fusion) at full width through the port's CLI; then checks on
-    the learned-template model it solved with.  Returns the row-gather
-    launches of the CLI run and the phase's numbers."""
+    the learned-template model it solved with, and `mmmg` against `lcg`.
+    With `window_local` (14.), ``allband --window-local``: the window-local
+    model over each band's OTF window (views of the setup's sotf), the same
+    checks but `mmmg`'s.  Returns the row-gather launches of the CLI run
+    and the phase's numbers."""
     import contextlib
     import io
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -363,6 +573,8 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
             super().__init__(*a, **k)
             seen["crit"] = self
 
+    tag = "[allband-wl]" if window_local else "[allband]"
+    argv = ALLBAND_ARGV + (["--window-local"] if window_local else [])
     work = tempfile.mkdtemp(prefix="surfh_allband_")
     res = {}
     decomposition.learn_templates_nmf, decomposition._nmf_run = kept_learn, timed_nmf_run
@@ -373,7 +585,7 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
         gr.reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = tcli.main(ALLBAND_ARGV + ["-o", work])
+            rc = tcli.main(argv + ["-o", work])
         sync()
         wall = time.perf_counter() - t0
         res["launches"] = gr.launches
@@ -385,17 +597,24 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
         decomposition.learn_templates_nmf, decomposition._nmf_run = learn, nmf_run
         criterion.QuadCriterion_MRS = crit_cls
     try:
-        log(f"[allband] {' '.join(ALLBAND_ARGV)}: {lines[-1]} ({wall:.2f} s)")
+        log(f"{tag} {' '.join(argv)}: {lines[-1]} ({wall:.2f} s)")
         crit = seen["crit"]
         model = crit.model
         n_pt = sum(c.oshape[0] for c in model.channels)
+        if window_local:
+            base = model.sotf.untyped_storage().data_ptr()
+            views = all(t["otf"][0].untyped_storage().data_ptr() == base for t in model.tables["chan"])
+            log(f"{tag} the solved model: window-local {model.window_local}, conv {model.conv_impl}, "
+                f"each band's OTF window a view of the setup's sotf on the card: {views}")
+            check(model.window_local and model.conv_impl == "matmul" and views,
+                  "allband --window-local: the OTF-window model over views of the sotf")
         # the data (forward), b = µ·Hᵗy (adjoint), the initial residual and one normal an iteration
         expect = n_pt + n_pt + 2 * n_pt * (ALLBAND_NITER + 1)
         t = rep["timings_s"]
         n, L = seen["nmf_shape"]
         nmf_bytes = 2.0 * 4 * n * L  # X (f32) read twice an iteration: WᵀX and XHᵀ
         nmf_bound_s = bound(nmf_bytes * seen["nmf_iter"])[0] / 1e3
-        log(f"[allband] {card}: {len(rep['bands'])} bands, cube ({rep['n_lambda']}, {rep['npix']}, "
+        log(f"{tag} {card}: {len(rep['bands'])} bands, cube ({rep['n_lambda']}, {rep['npix']}, "
             f"{rep['npix']}), y {model.oshape[0]}; stages (s): build {t['build_s']}, simulate "
             f"{t['simulate_s']}, co-add {t['coadd_s']}, NMF {t['nmf_s']}, solve {t['solve_s']} "
             f"({rep['niter']} lcg iterations, {rep['iters_per_s']:.3f} it/s); NMF loop {seen['nmf_iter']} "
@@ -427,7 +646,7 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
         lhs = float(torch.dot(model.forward(xr).double(), yr.double()))
         rhs = float(torch.dot(xr.reshape(-1).double(), model.adjoint(yr).reshape(-1).double()))
         dot = abs(lhs - rhs) / abs(lhs)
-        log(f"[allband] learned-template model: normal, kernels vs plain gathers max rel {nrm:.3e} "
+        log(f"{tag} learned-template model: normal, kernels vs plain gathers max rel {nrm:.3e} "
             f"(bound 1e-5); gather_rows launches per normal {per_app} (expected {2 * n_pt}); dense-blur "
             f"dot test (f64 sums) <Hx,y>={lhs:.9e} <x,H'y>={rhs:.9e} rel {dot:.3e} (bound 1e-5)")
         check(bool(torch.isfinite(n_k).all()) and nrm <= 1e-5, "allband normal kernels vs plain")
@@ -436,7 +655,7 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
         del n_k, n_p, xr, yr
         res["normal_ms"] = cuda_ms(lambda: model.normal(x), REPS)
         vox = float(np.prod(model.cube_shape))
-        log(f"[allband] {card}: normal {res['normal_ms']:.3f} ms/app ({2 * vox / (res['normal_ms'] * 1e-3) / 1e9:.2f} "
+        log(f"{tag} {card}: normal {res['normal_ms']:.3f} ms/app ({2 * vox / (res['normal_ms'] * 1e-3) / 1e9:.2f} "
             f"GVox/s, 2 x {int(vox)} voxels)")
         del x
 
@@ -447,10 +666,13 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
         init = torch.full(model.ishape, 0.5, device=dev)
         err0 = metrics.relative_error(truth.cpu().numpy(), model.mapsToCube(init).cpu().numpy())
         del truth
-        log(f"[allband] relative cube error {rep['relative_cube_error_pct']:.4f} % after {rep['niter']} "
+        log(f"{tag} relative cube error {rep['relative_cube_error_pct']:.4f} % after {rep['niter']} "
             f"iterations, {err0:.4f} % at the 0.5 initial maps; PSNR {rep['psnr_cube']:.3f} dB; NMF "
             f"reconstruction error {rep['nmf_recon_err']:.6e}")
         check(rep["relative_cube_error_pct"] < err0, "allband solve improves on its start")
+        if window_local:
+            res.update(timings=t, report=rep)
+            return res
 
         # mmmg against lcg from the same start, 50 iterations each; both loops of mmmg
         crit.b
@@ -467,7 +689,7 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
         j_cg, j_mm = crit.get_crit_val(rc_.x), crit.get_crit_val(rm.x)
         gap = (j_mm - j_cg) / (j0 - j_cg)
         same = torch.equal(rd.x, rm.x) and rd.n_iter == rm.n_iter
-        log(f"[allband] {card}: lcg {s_cg:.4f} s/iteration, mmmg {s_mm:.4f} s/iteration ({ALLBAND_NITER} "
+        log(f"{tag} {card}: lcg {s_cg:.4f} s/iteration, mmmg {s_mm:.4f} s/iteration ({ALLBAND_NITER} "
             f"iterations each from the 0.5 maps, host clock); J0 {j0:.9e}, J_cg {j_cg:.9e}, J_mm {j_mm:.9e}: "
             f"gap (J_mm - J_cg) / (J0 - J_cg) {gap:.3e} (bound {MMMG_GAP}); mmmg gather_rows launches "
             f"{l_mm} (expected {2 * n_pt * (ALLBAND_NITER + 1)}); mmmg dispatch loop bit for bit the graph "
@@ -481,6 +703,99 @@ def run_allband_phase(dev, card: str, cuda_ms, gen, bound) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
+PSF_SAMPLES = 5  # λ planes of each gen-psf stack held against the host stack
+
+
+def run_psf_phase(dev, card: str, cuda_ms, gen, channels, bands) -> dict:
+    """15. `gen-psf` at its defaults through the port's CLI (band 1c's 1400
+    detector λ, 501², n_pupil 256), plain and with the commissioning OPD,
+    `PSF_SAMPLES` planes of each against the host NumPy stack; then the
+    flagship under ``SURFH_SIM_PSF=diffraction`` (the stamps built on the
+    card) and its rank model over the given channels: per-band rank and
+    tail, one normal, the dot test."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import cli as tcli
+    from surfh_tpu_torch.instrument.wavelength_mrs import get_mrs_wavelength
+    from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
+    from surfh_tpu_torch.utils import jwst_psf
+
+    res = {}
+    work = tempfile.mkdtemp(prefix="surfh_psf_")
+    try:
+        wavels = get_mrs_wavelength("1c")
+        idx = np.linspace(0, len(wavels) - 1, PSF_SAMPLES).astype(int)
+        opd_file = os.path.join(os.path.dirname(os.path.abspath(jwst_psf.__file__)), os.pardir,
+                                "instrument", "data", "jwst_opd_commissioning.json")
+        for label, extra in (("plain", []), ("commissioning OPD", ["--opd", "commissioning"])):
+            path = os.path.join(work, "psf.npy")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = tcli.main(["gen-psf", "-o", path] + extra)
+            wall = time.perf_counter() - t0
+            rep = json.loads(out.getvalue().strip().splitlines()[-1])
+            stack = np.load(path, mmap_mode="r")
+            check(rc == 0 and stack.shape == (len(wavels), 501, 501) and stack.dtype == np.float32,
+                  f"gen-psf {label}: {rep}")
+            got = np.asarray(stack[idx])
+            opd = jwst_psf.recorded_opd(opd_file, 256) if extra else None
+            t0 = time.perf_counter()
+            want = jwst_psf.psf_stack(wavels[idx], 0.025, npix=501, n_pupil=256, opd=opd)
+            t_host = time.perf_counter() - t0
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            res[label] = rep["seconds"]
+            log(f"[psf] {card}: gen-psf {label} (band 1c, {len(wavels)} λ, 501², n_pupil 256): {rep} "
+                f"({wall:.2f} s with the .npy written); {PSF_SAMPLES} planes vs the host NumPy stack "
+                f"(its {PSF_SAMPLES} planes in {t_host:.2f} s): max {err:.3e} of the peak (bound 1e-5), "
+                f"{int((got != want).sum())} of {got.size} values differ; "
+                f"energy in the field {float(got.sum(axis=(1, 2)).min()):.4f}-{float(got.sum(axis=(1, 2)).max()):.4f}")
+            check(bool(np.isfinite(got).all()) and err <= 1e-5, f"gen-psf {label} vs the host stack")
+            del stack, got
+            os.remove(path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    os.environ["SURFH_SIM_PSF"] = "diffraction"
+    try:
+        t0 = time.perf_counter()
+        setup = make_flagship_setup(bands=bands, device=dev)
+        res["stack_s"] = time.perf_counter() - t0
+    finally:
+        del os.environ["SURFH_SIM_PSF"]
+    ps = setup["psf_stack"]
+    check(ps.shape[1:] == (40, 40) and bool(np.isfinite(ps).all()), "diffraction stamps")
+    t0 = time.perf_counter()
+    model, _ = make_flagship_model(setup, dtype=np.float32, channels=channels, workers=WORKERS)
+    t_host = time.perf_counter() - t0
+    ranks = [s.get("rank") for s in model.conv_supports]
+    tails = [s.get("rank_tail", 0.0) for s in model.conv_supports]
+    log(f"[psf] SURFH_SIM_PSF=diffraction: {ps.shape} stamps on the card in {res['stack_s']:.2f} s (setup "
+        f"included); rank model over the given channels, host tables {t_host:.2f} s ({WORKERS} workers); "
+        f"the rank gate open on {sum(r is not None for r in ranks)} of {len(ranks)} bands; per band "
+        f"(W, R, tail; R None: the gate declined, the dense conv): " + ", ".join(
+            f"{c.instr.name} ({c.n_wslice}, {r}, {tl:.2e})" for c, r, tl in zip(model.channels, ranks, tails)))
+    model.to(dev, torch.float32)
+    truth = torch.as_tensor(setup["maps"], dtype=torch.float32, device=dev)
+    xr = torch.rand(model.ishape, generator=gen, device=dev)
+    yr = torch.rand(model.oshape, generator=gen, device=dev)
+    lhs = float(torch.dot(model.forward(xr).double(), yr.double()))
+    rhs = float(torch.dot(xr.reshape(-1).double(), model.adjoint(yr).reshape(-1).double()))
+    d_rel = abs(lhs - rhs) / abs(lhs)
+    res["normal_ms"] = cuda_ms(lambda: model.normal(truth), REPS)
+    log(f"[psf] {card}: diffraction rank model: normal {res['normal_ms']:.3f} ms/app; dot test (f64 sums) "
+        f"<Hx,y>={lhs:.9e} <x,H'y>={rhs:.9e} rel {d_rel:.3e} (bound 1e-5)")
+    check(d_rel <= 1e-5, "diffraction rank model dot test")
+    res.update(ranks=ranks, tails=tails)
+    del model, truth, xr, yr
+    torch.cuda.empty_cache()
     return res
 
 
@@ -564,16 +879,32 @@ def main(argv=None) -> int:
             used = re.search(r"Used \d+ registers", line).group(0)
             log(f"[build] ptxas gather_fixed: {name}: {used}; {spill}")
 
-    # 3. host tables ----------------------------------------------------
+    # 3. host tables: cold into a fresh cache directory, then a cache hit --
     bands = args.bands.split(",") if args.bands else None
-    t0 = time.perf_counter()
-    setup = make_flagship_setup(bands=bands)
-    model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS)
-    t_host = time.perf_counter() - t0
+    cache_dir = tempfile.mkdtemp(prefix="surfh_table_cache_")
+    os.environ["SURFH_TABLE_CACHE"] = cache_dir
+    try:
+        t0 = time.perf_counter()
+        setup = make_flagship_setup(bands=bands)
+        model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS)
+        t_host = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS)
+        t_hit = time.perf_counter() - t0
+        cache_file = model.table_cache_path()
+        cache_gb = os.path.getsize(cache_file) / 1e9
+        same = tables_equal(hit.host_tables(), model.host_tables()) and hit.conv_supports == model.conv_supports
+        check(not model.table_cache_hit and hit.table_cache_hit and same,
+              f"host-table cache: cold {model.table_cache_hit}, hit {hit.table_cache_hit}, bit-equal {same}")
+        del hit
+    finally:
+        os.environ["SURFH_TABLE_CACHE"] = "0"  # the later models neither read nor write one
+        shutil.rmtree(cache_dir, ignore_errors=True)
     n_pt = sum(c.oshape[0] for c in model.channels)
     log(f"[host] {len(model.channels)} bands {setup['bands']}, cube {model.cube_shape}, "
         f"maps {model.ishape}, y {model.oshape[0]}: host tables in {t_host:.2f} s "
-        f"({WORKERS} workers)")
+        f"({WORKERS} workers, cold, written to a fresh cache directory: {cache_gb:.3f} GB); "
+        f"again as a cache hit in {t_hit:.2f} s, tables and supports bit for bit the cold build's")
     host = model.host_tables()
     for chan, t, sup in zip(model.channels, host["chan"], model.conv_supports):
         q = t["wpsf_q"].shape[1]
@@ -981,11 +1312,20 @@ def main(argv=None) -> int:
     check(bool(np.isfinite(wres2.grad_norm).all()) and wres2.grad_norm[-1] < wgn[0], "W-plane resumed CG")
     log(f"[wplane] {card}: CG {ws_it:.4f} s/iteration (banded, 10 resumed iterations, host clock); "
         f"grad norm {wgn[0]:.4e} -> {wres2.grad_norm[-1]:.4e} after 20")
-    del wmodel, wcrit, wres, wres2, wsetup, sotf, y_b, y_d, y_w, xr, yr
+    del wcrit, wres, wres2, y_b, y_w, xr, yr
     torch.cuda.empty_cache()
 
-    # 10. small inputs against the CPU f64 operators -----------------------
-    for mode, kw in (("rank", dict(im_size=41, n_lambda=120, n_tpl=2)),
+    # 10. the dense window-local flagship and its OTF-window variant -------
+    t0 = time.perf_counter()
+    wl = run_wlocal_phase(dev, card, cuda_ms, gen, bound, model, setup, wmodel, wsetup, truth, mu_reg)
+    log(f"[wlocal] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on its main path "
+        f"{wl['launches']}")
+    del wmodel, wsetup, sotf, y_d
+    torch.cuda.empty_cache()
+
+    # 11. small inputs against the CPU f64 operators -----------------------
+    for mode, kw in (("rank", dict(im_size=41, n_lambda=120, n_tpl=2, window_local=True, psf_stamps=True,
+                                   conv_freq_rtol=1e-6, conv_rank_rtol=1e-7)),
                      ("wplane banded", dict(im_size=31, n_lambda=200, n_tpl=3, detector_oversample=4,
                                             window_local=False, wblur_impl="banded",
                                             wblur_band_rtol=1e-3))):
@@ -999,19 +1339,31 @@ def main(argv=None) -> int:
         log(f"[small] {mode}: card f32 vs CPU f64: forward {e_y:.3e}, normal {e_n:.3e} (bound 1e-5)")
         check(e_y <= 1e-5 and e_n <= 1e-5, f"small {mode} problem vs CPU f64")
 
-    # 11. the real-data path through the port's CLI, band 1c at full width --
+    # 12. the real-data path through the port's CLI, band 1c at full width --
     t0 = time.perf_counter()
     pipe = run_pipeline_phase(dev, card, cuda_ms, gen)
     log(f"[pipeline] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on the "
         f"rehearsal {pipe['launches']}")
 
-    # 12. the all-band path through the port's CLI at full width ----------
+    # 13. the all-band path through the port's CLI at full width ----------
     t0 = time.perf_counter()
     allb = run_allband_phase(dev, card, cuda_ms, gen, bound)
     log(f"[allband] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on the "
         f"allband run {allb['launches']}")
-    gather_paths = {"rank": main_launches, "wplane": wmain[0], "pipeline": pipe["launches"],
-                    "allband": allb["launches"]}
+
+    # 14. the same, window-local (`allband --window-local`) ----------------
+    t0 = time.perf_counter()
+    allb_wl = run_allband_phase(dev, card, cuda_ms, gen, bound, window_local=True)
+    log(f"[allband-wl] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on the "
+        f"allband --window-local run {allb_wl['launches']}")
+
+    # 15. gen-psf and the diffraction flagship ---------------------------
+    t0 = time.perf_counter()
+    run_psf_phase(dev, card, cuda_ms, gen, model.channels, bands)
+    log(f"[psf] phase in {time.perf_counter() - t0:.2f} s")
+    gather_paths = {"rank": main_launches, "wplane": wmain[0], "wlocal": wl["launches"],
+                    "pipeline": pipe["launches"], "allband": allb["launches"],
+                    "allband_wl": allb_wl["launches"]}
 
     log(json.dumps({"kernels": [{
         "name": "gather_rows",

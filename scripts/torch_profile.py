@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """Where the time of the port's flagship application goes.
 
-    python3 scripts/torch_profile.py [--bands 1a,1b,...] [--wplane dense|banded]
-                                     [--trace out.json]
+    python3 scripts/torch_profile.py [--bands 1a,1b,...] [--wplane dense|banded |
+                                     --wlocal stamps|otf] [--trace out.json]
 
 Builds the flagship model of `surfh_tpu_torch` on one NVIDIA card — the
-rank mode (as chip_smoke.py does), or with `--wplane` the materialized-OTF
-mode with that spectral blur (OTF built on the card, wblur_band_rtol=1e-4)
-— and measures the normal application (HᵗH x, the CG hot loop):
+rank mode (as chip_smoke.py does), with `--wplane` the materialized-OTF
+mode with that spectral blur (OTF built on the card, wblur_band_rtol=1e-4),
+or with `--wlocal` the dense window-local mode (conv_rank_rtol 0,
+conv_freq_rtol 1e-6) with OTF windows from the PSF stamps or cut from the
+OTF built on the card — and measures the normal application (HᵗH x, the CG
+hot loop):
 
+* `--wlocal`: per band the conv's OTF support, FOV bbox and GEMM count
+  (3·W·ha·Ka′·Kb′ + 2·W·ha·Kb′·wb multiply-adds a direction) and their FP32
+  bound;
 * eager time per application (CUDA events, 8 × 10 repetitions: the spread)
   and the host time to enqueue one application (no sync inside);
-* rank mode only: the device floor, one application captured in a CUDA
-  graph, its replay time and its difference from the eager result, then
-  the SM clock and power draw as nvidia-smi reads them;
+* the window-local modes: the device floor, one application captured in a
+  CUDA graph, its replay time and its difference from the eager result,
+  then the SM clock and power draw as nvidia-smi reads them;
 * five applications under torch.profiler: device time by kernel class
   (GEMM, FFT, this repo's kernels, elementwise, reduction, copy), this
   repo's kernels one by one, the top kernels, the launch count, and the
@@ -37,6 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WORKERS = min(8, os.cpu_count() or 1)  # processes for the host table build
 REPS = 5  # profiled applications
 BAND_RTOL = 1e-4  # the banded blur's support threshold (--wplane banded)
+FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 
 
 def kernel_class(name: str) -> str:
@@ -89,8 +96,12 @@ def main(argv=None) -> int:
     ap.add_argument("--bands", default=None)
     ap.add_argument("--wplane", choices=("dense", "banded"), default=None,
                     help="profile the materialized-OTF model with this blur")
+    ap.add_argument("--wlocal", choices=("stamps", "otf"), default=None,
+                    help="profile the dense window-local model with these OTF windows")
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     args = ap.parse_args(argv)
+    if args.wplane and args.wlocal:
+        ap.error("--wplane and --wlocal are two models: pick one")
 
     import numpy as np
     import torch
@@ -111,10 +122,26 @@ def main(argv=None) -> int:
         model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS,
                                        window_local=False, wblur_impl=args.wplane,
                                        wblur_band_rtol=BAND_RTOL)
+    elif args.wlocal:
+        setup = make_flagship_setup(bands=bands, build_sotf=args.wlocal == "otf", device=dev)
+        os.environ["SURFH_PSF_STAMPS"] = "1" if args.wlocal == "stamps" else "0"
+        model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS,
+                                       conv_freq_rtol=1e-6, conv_rank_rtol=0.0)
     else:
         setup = make_flagship_setup(bands=bands)
         model, _ = make_flagship_model(setup, dtype=np.float32, workers=WORKERS)
     model.to(dev, torch.float32)
+    if args.wlocal:
+        macs = 0.0
+        for chan, t in zip(model.channels, model.tables["chan"]):
+            w, ka, kb = t["otf"][0].shape
+            ha, wb = chan.tbbox[2], chan.tbbox[3]
+            mac = 3.0 * w * ha * ka * kb + 2.0 * w * ha * kb * wb
+            macs += mac
+            print(f"  {chan.instr.name}: W {w}, Ka' {ka}, Kb' {kb}, bbox {ha} x {wb}: "
+                  f"{mac / 1e9:.3f} G multiply-adds a direction")
+        print(f"  the conv's inverse-stage GEMMs: {4 * macs / 1e9:.1f} GFLOP an application, FP32 "
+              f"bound {4 * macs / FP32_FLOPS_PER_S * 1e3:.3f} ms")
     x = torch.as_tensor(setup["maps"], dtype=torch.float32, device=dev)
     for _ in range(3):
         model.normal(x)
@@ -137,7 +164,8 @@ def main(argv=None) -> int:
         model.normal(x)
         enqueue.append((time.perf_counter() - t0) * 1e3)
     vox = 2.0 * float(np.prod(model.cube_shape))
-    mode = f"W-plane ({args.wplane} blur)" if args.wplane else "rank"
+    mode = (f"W-plane ({args.wplane} blur)" if args.wplane
+            else f"dense window-local ({args.wlocal})" if args.wlocal else "rank")
     print(f"{card}: {len(model.channels)} bands, {mode} normal application")
     print(f"  eager (CUDA events, 8 x 10): {min(eager):.3f}-{max(eager):.3f} ms/app "
           f"(median {np.median(eager):.3f}, {vox / (np.median(eager) * 1e-3) / 1e9:.2f} GVox/s); "

@@ -14,8 +14,8 @@ Layer map (bottom-up), first slice = the flagship rank-mode fusion solve:
                 (`core.wblur_banded`), the fixed-fan-in row gathers K1–K3
                 of the prototype entry point (`core.gather_fixed`), and
                 their build (`core._build`).
-``models``      Slicer, the composed-path Channel and the rank-mode
-                `SpectroSigRLSCT` (forward, adjoint, fused normal).
+``models``      Slicer, the composed-path Channel and `SpectroSigRLSCT`
+                in every conv mode (forward, adjoint, normal).
 ``solvers``     `lcg`, `QuadCriterion_MRS` and the checkpointed solve.
 ``simulation``  synthetic and flagship problem generators, synthetic
                 stage-2 files.
@@ -27,8 +27,8 @@ Layer map (bottom-up), first slice = the flagship rank-mode fusion solve:
 
 ``instrument``  the port's own copy of `surfh_tpu.instrument` (geometry,
                 IFU, spectral blur, MIRI band and wavelength tables).
-``utils``       PSF stamps, phase timers, the chained kernel timer and the
-                reconstruction metrics.
+``utils``       PSF stamps, the JWST diffraction PSF, phase timers, the
+                chained kernel timer and the reconstruction metrics.
 
 Nothing of `surfh_tpu` is imported, not even its JAX-free modules.
 """

@@ -2,20 +2,21 @@
 
 Counterpart of `surfh_tpu/cli.py`: the same subcommand names, options,
 defaults and JSON last line for `fusion` (real data, or `--simulated`),
-`rehearse`, `allband`, `make-cube`, `compare-flux` and `info`, with
-``--method lcg|mmmg``.  Everything runs on the card; ``SURFH_CPU=1`` (the
+`rehearse`, `allband`, `make-cube`, `compare-flux`, `gen-psf` and `info`,
+with ``--method lcg|mmmg``.  Everything runs on the card; ``SURFH_CPU=1`` (the
 reference's switch) runs it on the host CPU instead.  Without a card and
 without that switch, every subcommand raises.
 
 Not ported yet (NotImplementedError, naming the ROADMAP item):
 ``--sharded`` (A13) and the subcommands `deconv-cube`, `deconv2d`,
-`metadata`, `gen-psf` and `warmup`.
+`metadata` and `warmup`.
 
 Usage:
     python -m surfh_tpu_torch.cli rehearse --band 1c --pointings 4 -np 501 --step 0.025 \\
         --lambda-subsample 1
     python -m surfh_tpu_torch.cli fusion --fusion-data DIR -np 501 -m mmmg
     python -m surfh_tpu_torch.cli allband -np 501 -ni 50 --nmf-iter 300
+    python -m surfh_tpu_torch.cli gen-psf --band 1c --opd commissioning -o psf.npy
     SURFH_CPU=1 python -m surfh_tpu_torch.cli fusion --simulated -np 31 --n-lambda 16
 """
 
@@ -40,7 +41,6 @@ NOT_PORTED = {
     "deconv-cube": "the blind-2D models (models/blind2d.py) are ROADMAP A10",
     "deconv2d": "the blind-2D models (models/blind2d.py) are ROADMAP A10",
     "metadata": "the metadata subcommand is ROADMAP A12",
-    "gen-psf": "the diffraction PSF (utils/jwst_psf.py) is ROADMAP A9",
     "warmup": "warmup is ROADMAP A12",
 }
 
@@ -252,6 +252,42 @@ def cmd_allband(args, parser) -> None:
     _emit(report)
 
 
+def cmd_gen_psf(args, parser) -> None:
+    """Generate a monochromatic JWST diffraction PSF stack [Nλ, npix, npix]
+    float32 (`utils.jwst_psf`: the segmented pupil through a matrix Fourier
+    transform); `--opd` adds a wavefront map as a pupil phase screen.  On
+    the card `psf_stack_device`, under SURFH_CPU the host stack."""
+    from .instrument.wavelength_mrs import get_mrs_wavelength
+    from .utils.jwst_psf import load_opd, psf_stack, psf_stack_device, recorded_opd
+
+    device = _device()
+    wavels = np.load(args.wavel_axis) if args.wavel_axis is not None else get_mrs_wavelength(args.band)
+    opd = args.opd
+    if opd == "commissioning":
+        opd = os.path.join(os.path.dirname(os.path.abspath(__file__)), "instrument", "data",
+                           "jwst_opd_commissioning.json")
+    if opd and opd.endswith(".json"):
+        opd_map = recorded_opd(opd, args.n_pupil)
+    elif opd:
+        opd_map = load_opd(opd, args.n_pupil, unit=args.opd_unit)
+    else:
+        opd_map = None
+    t0 = time.time()
+    kw = dict(npix=args.npix, oversample=args.oversample, n_pupil=args.n_pupil, opd=opd_map)
+    if device.type == "cuda":
+        stack = psf_stack_device(wavels, args.pixelscale, device=device, **kw)
+    else:
+        stack = psf_stack(wavels, args.pixelscale, **kw)
+    np.save(args.output, stack)
+    _emit({
+        "n_lambda": int(stack.shape[0]), "npix": args.npix,
+        "pixelscale": args.pixelscale, "seconds": round(time.time() - t0, 2),
+        "opd_rms_nm": (round(float(np.sqrt(np.mean(opd_map**2))) * 1e9, 3)
+                       if opd_map is not None else 0.0),
+        "output": args.output,
+    })
+
+
 def cmd_info(args, parser) -> None:
     """Print device information (the card's, or the CPU's under SURFH_CPU)."""
     device = _device()
@@ -348,10 +384,25 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--nmf-iter", type=int, default=300, help="NMF multiplicative-update iterations.")
     a.add_argument("--method", "-m", default="lcg", choices=["lcg", "mmmg"])
     a.add_argument("--window-local", action="store_true",
-                   help="The λ-rank window-local model instead of the materialized OTF.")
+                   help="The window-local model (each band's OTF window, the dense matmul conv).")
     a.add_argument("--lambda-subsample", type=int, default=1)
     a.add_argument("--output-dir", "-o", default="./surfh_results")
     a.set_defaults(run=cmd_allband)
+
+    g = sub.add_parser("gen-psf", help=cmd_gen_psf.__doc__)
+    g.add_argument("--wavel-axis", "-w", default=None,
+                   help="λ-axis .npy (µm). Defaults to the band's detector table.")
+    g.add_argument("--band", "-b", default="1c", help="MRS band for the default λ axis (default 1c).")
+    g.add_argument("--pixelscale", type=float, default=0.025, help="Arcsec/pixel (default 0.025).")
+    g.add_argument("--npix", type=int, default=501, help="Output grid size (default 501).")
+    g.add_argument("--oversample", type=int, default=1)
+    g.add_argument("--n-pupil", type=int, default=256, help="Pupil grid samples (default 256).")
+    g.add_argument("--opd", default=None,
+                   help="Wavefront/OPD map as a pupil phase screen: a .fits/.npy map, a .json "
+                        "recorded decomposition, or 'commissioning' for the bundled fixture.")
+    g.add_argument("--opd-unit", default="m", choices=["m", "um", "nm"], help="OPD map unit.")
+    g.add_argument("--output", "-o", default="psf.npy")
+    g.set_defaults(run=cmd_gen_psf)
 
     i = sub.add_parser("info", help=cmd_info.__doc__)
     i.set_defaults(run=cmd_info)

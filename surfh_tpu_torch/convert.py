@@ -1,10 +1,14 @@
 """The reference model's tables carried across to the port.
 
-Rank mode: `host_tables_from_reference` takes the `host_tables()` tree of a
-JAX `surfh_tpu.models.spectro.SpectroSigRLSCT` built in the flagship
-configuration (window-local, PSF stamps, λ-rank, host-materialized — all
-NumPy) plus each channel's `_composed_stack` (NumPy), and returns the port's
-host tree; `tables_from_reference` moves it to a device.
+Window-local mode: `host_tables_from_reference` takes the `host_tables()`
+tree of a JAX `surfh_tpu.models.spectro.SpectroSigRLSCT` built window-local
+(all NumPy) plus each channel's `_composed_stack` (NumPy), and returns the
+port's host tree; `tables_from_reference` moves it to a device.  Each
+channel carries its own kind of tables: λ-rank, host-materialized (`dftm`,
+`cu`, `sotf_ri`, `wpsf_q`); dense stamps (`dftm`, `psf`, `stamp`, `wpsf`);
+an OTF window (`sotf_ri` → the port's complex `sotf_w`, `wpsf`, and `dftm`
+with the matmul conv — the FFT conv has none, so pass each channel's
+`_tbbox` as `tbboxes`).
 
 Materialized-OTF mode: `wplane_tables_from_reference` takes a
 non-window-local reference model's `_sotf_dev` and `_templates_dev` and,
@@ -28,34 +32,45 @@ from .models.channel import gather_plans_from_composed
 from .models.spectro import device_tables
 
 
-def host_tables_from_reference(host_tables: dict, composed_stacks) -> dict:
-    """Reference host tables + composed stacks → the port's host tree."""
+def host_tables_from_reference(host_tables: dict, composed_stacks, tbboxes=None) -> dict:
+    """Reference window-local host tables + composed stacks → the port's host tree."""
     chans = []
-    for t, stack in zip(host_tables["chan"], composed_stacks):
-        if "wpsf_q" not in t or "sotf_ri" not in t:
-            raise ValueError("reference tables are not rank-mode host-materialized "
-                             "(need 'wpsf_q' and 'sotf_ri')")
+    for c, (t, stack) in enumerate(zip(host_tables["chan"], composed_stacks)):
         stack = tuple(np.asarray(a) for a in stack)
         slit_w = np.asarray(t["slit_w"])
         S, A, sb = slit_w.shape
-        n_patch = int(np.asarray(t["dftm"]["ifa_re"]).shape[0]
-                      * np.asarray(t["dftm"]["icb_re"]).shape[0])
+        if "dftm" in t:
+            n_patch = int(np.asarray(t["dftm"]["ifa_re"]).shape[0]
+                          * np.asarray(t["dftm"]["icb_re"]).shape[0])
+        elif tbboxes is not None:
+            n_patch = int(tbboxes[c][2]) * int(tbboxes[c][3])
+        else:
+            raise ValueError("an FFT-conv channel has no DFT tables: pass the channels' tbboxes")
         fwd, adj = gather_plans_from_composed(stack, n_patch, S * A * sb)
-        chans.append({
-            "slit_w": slit_w,
-            "gather_fwd": fwd,
-            "gather_t": adj,
-            "dftm": {k: np.asarray(v) for k, v in t["dftm"].items()},
-            "cu": np.asarray(t["cu"]),
-            "sotf_ri": np.asarray(t["sotf_ri"]),
-            "wpsf_q": np.asarray(t["wpsf_q"]),
-        })
+        out = {"slit_w": slit_w, "gather_fwd": fwd, "gather_t": adj}
+        if "dftm" in t:
+            out["dftm"] = {k: np.asarray(v) for k, v in t["dftm"].items()}
+        if "wpsf_q" in t:
+            out.update(cu=np.asarray(t["cu"]), sotf_ri=np.asarray(t["sotf_ri"]),
+                       wpsf_q=np.asarray(t["wpsf_q"]))
+        elif "psf" in t:
+            out.update(psf=np.asarray(t["psf"]), wpsf=np.asarray(t["wpsf"]),
+                       stamp={k: np.asarray(v) for k, v in t["stamp"].items()})
+        elif "sotf_ri" in t:
+            ri = np.asarray(t["sotf_ri"])
+            out.update(sotf_w=ri[0] + 1j * ri[1], wpsf=np.asarray(t["wpsf"]))
+        else:
+            raise ValueError("reference tables are not window-local (need 'wpsf_q', 'psf' "
+                             "or 'sotf_ri')")
+        chans.append(out)
     return {"chan": tuple(chans)}
 
 
-def tables_from_reference(host_tables: dict, composed_stacks, device, dtype=torch.float32) -> dict:
+def tables_from_reference(host_tables: dict, composed_stacks, device, dtype=torch.float32,
+                          tbboxes=None) -> dict:
     """Reference tables → the port's device tables (see `models.spectro.device_tables`)."""
-    return device_tables(host_tables_from_reference(host_tables, composed_stacks), device, dtype)
+    return device_tables(host_tables_from_reference(host_tables, composed_stacks, tbboxes),
+                         device, dtype)
 
 
 def wplane_tables_from_reference(sotf, templates, channels, device, dtype=torch.float32) -> dict:
@@ -79,5 +94,6 @@ def wplane_tables_from_reference(sotf, templates, channels, device, dtype=torch.
                                          int(plan_t.B), int(plan_t.Bp), int(plan_t.TL),
                                          int(plan_t.KB))
         chans.append(t)
-    host = {"sotf": np.asarray(sotf), "templates": np.asarray(templates), "chan": tuple(chans)}
+    host = {"sotf": np.asarray(sotf), "templates": None if templates is None else np.asarray(templates),
+            "chan": tuple(chans)}
     return device_tables(host, device, dtype)

@@ -16,6 +16,13 @@ inverse α-stage ONE GEMM over a ``[Ka', Kb'·Q]`` operand and lets the last
 contraction write ``[ha·wb, Q]`` directly: no transpose anywhere on the
 path.  `lmm_conv_rank` / `lmm_conv_rank_t` keep the reference layout for
 comparisons and are thin permutes around the row forms.
+
+The dense window-local conv (`lmm_conv_otf_rows`, `conv_otf_matmul_rows`
+and their transposes) keeps the OTF window in the reference layout
+``[W, Ka', Kb']`` (a view of a materialized sotf where nothing is cut) and
+runs the inverse α-stage batched over the W planes; its last GEMM reads
+each pixel row's ``[Kb', W]`` slab with strides and writes ``[ha·wb, W]``
+rows, and the transpose's first GEMM reads them the same way.
 """
 
 from __future__ import annotations
@@ -148,12 +155,12 @@ def psf_stamp_tables(
     }
 
 
-def lowrank_stamp_factor(psf, rtol: float):
+def lowrank_stamp_factor(psf, rtol: float, rmax: Optional[int] = None):
     """λ-rank factorization psf ≈ U·V of a stamp stack [W, sx, sy] by SVD.
 
     Returns ``(U [W, R], V [R, sx, sy], tail)``; singular values are folded
-    into U, components with σ_i/σ₁ ≤ `rtol` dropped (R ≥ 1), and
-    ``tail = σ_{R+1}/σ₁`` bounds the truncated conv's relative deviation."""
+    into U, components with σ_i/σ₁ ≤ `rtol` dropped (R ≥ 1), `rmax` caps R,
+    and ``tail = σ_{R+1}/σ₁`` bounds the truncated conv's relative deviation."""
     psf = np.asarray(psf)
     W = psf.shape[0]
     A = psf.reshape(W, -1).astype(np.float64)
@@ -162,6 +169,8 @@ def lowrank_stamp_factor(psf, rtol: float):
         R = 1
     else:
         R = max(1, int(np.sum(s / s[0] > rtol)))
+    if rmax is not None:
+        R = min(R, int(rmax))
     U = (Um[:, :R] * s[:R]).astype(psf.dtype)
     V = Vt[:R].reshape((R,) + psf.shape[1:]).astype(psf.dtype)
     tail = float(s[R] / s[0]) if R < len(s) and s[0] > 0.0 else 0.0
@@ -209,6 +218,35 @@ def otf_support_from_psf(psf_stack, im_shape: Tuple[int, int], rtol: float, chun
     return _support_from_axis_maxima(colmax, rowmax, rtol)
 
 
+def otf_freq_support(otf, rtol: float, chunk: int = 256):
+    """(ka_max, kb_keep, dropped_rel) of an OTF stack [..., Na, Kb] (NumPy
+    or a tensor, complex or real): bins whose largest magnitude over the
+    leading axes is below ``rtol·max|otf|`` are dropped.  Streamed in
+    `chunk`-plane pieces, a tensor on its own device (a flagship OTF on the
+    card is never copied to the host), a NumPy array as the reference
+    streams it."""
+    if not isinstance(otf, torch.Tensor):
+        otf = np.asarray(otf)
+        na, kb = otf.shape[-2], otf.shape[-1]
+        flat = otf.reshape(-1, na, kb)
+        colmax = np.zeros(kb)
+        rowmax = np.zeros(na)
+        for i in range(0, flat.shape[0], chunk):
+            mag = np.abs(flat[i : i + chunk])
+            colmax = np.maximum(colmax, mag.max(axis=(0, 1)))
+            rowmax = np.maximum(rowmax, mag.max(axis=(0, 2)))
+        return _support_from_axis_maxima(colmax, rowmax, rtol)
+    na, kb = otf.shape[-2], otf.shape[-1]
+    flat = otf.reshape(-1, na, kb)
+    colmax = torch.zeros(kb, dtype=torch.float64, device=otf.device)
+    rowmax = torch.zeros(na, dtype=torch.float64, device=otf.device)
+    for i in range(0, flat.shape[0], chunk):
+        mag = flat[i : i + chunk].abs()
+        colmax = torch.maximum(colmax, mag.amax(dim=(0, 1)).double())
+        rowmax = torch.maximum(rowmax, mag.amax(dim=(0, 2)).double())
+    return _support_from_axis_maxima(colmax.cpu().numpy(), rowmax.cpu().numpy(), rtol)
+
+
 # ---------------------------------------------------------------------------
 # device side: the rank-basis fused T·C conv and its exact transpose
 
@@ -254,10 +292,103 @@ def lmm_conv_rank_rows_t(g: torch.Tensor, otf_re: torch.Tensor, otf_im: torch.Te
     o_im = otf_im.unsqueeze(-2)
     zm_re = (t_re * o_re + t_im * o_im).sum(-1).permute(2, 0, 1)  # [M, Ka', Kb']
     zm_im = (t_im * o_re - t_re * o_im).sum(-1).permute(2, 0, 1)
-    k1 = m["fa_re"].T @ (zm_re + zm_im)  # [M, Na, Kb']
-    yb_re = k1 + m["fa_d"].T @ zm_im
-    yb_im = k1 - m["fa_s"].T @ zm_re
+    return _dft_maps_t(zm_re, zm_im, m)
+
+
+def _dft_maps_t(z_re: torch.Tensor, z_im: torch.Tensor, m: dict) -> torch.Tensor:
+    """Exact transpose of :func:`_dft_maps`: (re, im) [..., Ka', Kb'] → [..., Na, Nb]."""
+    k1 = m["fa_re"].T @ (z_re + z_im)  # [..., Na, Kb']
+    yb_re = k1 + m["fa_d"].T @ z_im
+    yb_im = k1 - m["fa_s"].T @ z_re
     return yb_re @ m["fb_re"] + yb_im @ m["fb_im"]
+
+
+# ---------------------------------------------------------------------------
+# device side: the dense window-local conv (the OTF window on W λ-planes)
+
+
+def otf_from_stamps(psf: torch.Tensor, st: dict, chunk: int = 128):
+    """(otf_re, otf_im) [W, Ka', Kb'] of a PSF stamp stack [W, sx, sy] on the
+    bins of the stamp-DFT tables `st` (:func:`psf_stamp_tables`), as the
+    reference's einsums compute it, `chunk` planes at a time.  Evaluated
+    once per model (`models.spectro.device_tables`), so the forward and the
+    adjoint read one table and stay an exact pair."""
+    w = psf.shape[0]
+    ka, kb = st["sa_re"].shape[0], st["sb_re"].shape[1]
+    otf_re = torch.empty((w, ka, kb), dtype=psf.dtype, device=psf.device)
+    otf_im = torch.empty_like(otf_re)
+    for i in range(0, w, chunk):
+        p = psf[i : i + chunk]
+        z_re = st["sa_re"] @ p  # [c, Ka', sy]: 'wxy,cx->wcy'
+        z_im = st["sa_im"] @ p
+        otf_re[i : i + chunk] = z_re @ st["sb_re"] - z_im @ st["sb_im"]
+        otf_im[i : i + chunk] = z_re @ st["sb_im"] + z_im @ st["sb_re"]
+    return otf_re, otf_im
+
+
+def _idft_rows(t_re: torch.Tensor, t_im: torch.Tensor, m: dict) -> torch.Tensor:
+    """Inverse of a [W, Ka', Kb'] spectrum onto the FOV bbox, ROW layout
+    [ha·wb, W]: the α-stage in Gauss 3M form batched over the W planes, then
+    per pixel row a = one GEMM icb [wb, Kb'] · ua[:, a, :]ᵀ (a strided
+    [Kb', W] operand), written straight into the rows."""
+    ha, wb = m["ifa_re"].shape[0], m["icb_re"].shape[0]
+    k1 = m["ifa_re"] @ (t_re + t_im)  # [W, ha, Kb']
+    ua_re = k1 - m["ifa_s"] @ t_im
+    ua_im = k1 + m["ifa_d"] @ t_re
+    out = m["icb_re"] @ ua_re.permute(1, 2, 0) - m["icb_im"] @ ua_im.permute(1, 2, 0)  # [ha, wb, W]
+    return out.view(ha * wb, -1)
+
+
+def _idft_rows_t(g: torch.Tensor, m: dict):
+    """Exact transpose of :func:`_idft_rows`: rows [ha·wb, W] → (re, im)
+    [W, Ka', Kb'].  The first GEMM reads the rows with strides and writes
+    [ha, W, Kb'], which the α-stage reads as [W, ha, Kb'] (a view)."""
+    ha, wb = m["ifa_re"].shape[0], m["icb_re"].shape[0]
+    g_t = g.view(ha, wb, -1).transpose(1, 2)  # [ha, W, wb]
+    ua_re = (g_t @ m["icb_re"]).transpose(0, 1)  # [W, ha, Kb']
+    ua_im = -(g_t @ m["icb_im"]).transpose(0, 1)
+    k1 = m["ifa_re"].T @ (ua_re + ua_im)  # [W, Ka', Kb']
+    return k1 + m["ifa_d"].T @ ua_im, k1 - m["ifa_s"].T @ ua_re
+
+
+def lmm_conv_otf_rows(maps, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Fused T·C on a channel window, ROW layout (reference
+    `fft.lmm_conv_otf_matmul`): maps [M, Na, Nb], templates tpl_w [M, W],
+    OTF window [W, Ka', Kb'] → [ha·wb, W].  The forward DFT runs on the M
+    maps; the templates mix the spectra into the W planes."""
+    zm_re, zm_im = _dft_maps(maps, m)  # [M, Ka', Kb']
+    n_map, ka, kb = zm_re.shape
+    zw_re = (tpl_w.T @ zm_re.reshape(n_map, -1)).view(-1, ka, kb)  # 'mck,mw->wck'
+    zw_im = (tpl_w.T @ zm_im.reshape(n_map, -1)).view(-1, ka, kb)
+    t_re = zw_re * otf_re - zw_im * otf_im
+    t_im = zw_re * otf_im + zw_im * otf_re
+    return _idft_rows(t_re, t_im, m)
+
+
+def lmm_conv_otf_rows_t(g, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Exact transpose of :func:`lmm_conv_otf_rows` (reference
+    `lmm_conv_otf_matmul_t`, term by term): rows [ha·wb, W] → [M, Na, Nb]."""
+    t_re, t_im = _idft_rows_t(g, m)
+    zw_re = t_re * otf_re + t_im * otf_im
+    zw_im = -t_re * otf_im + t_im * otf_re
+    w, ka, kb = zw_re.shape
+    zm_re = (tpl_w @ zw_re.reshape(w, -1)).view(-1, ka, kb)  # 'wck,mw->mck'
+    zm_im = (tpl_w @ zw_im.reshape(w, -1)).view(-1, ka, kb)
+    return _dft_maps_t(zm_re, zm_im, m)
+
+
+def conv_otf_matmul_rows(x, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Cube-mode conv of a window x [W, Na, Nb] onto the FOV bbox, ROW
+    layout (reference `fft.conv_otf_matmul`): [ha·wb, W]."""
+    za_re, za_im = _dft_maps(x, m)  # [W, Ka', Kb']
+    return _idft_rows(za_re * otf_re - za_im * otf_im, za_re * otf_im + za_im * otf_re, m)
+
+
+def conv_otf_matmul_rows_t(g, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Exact transpose of :func:`conv_otf_matmul_rows` (reference
+    `conv_otf_matmul_t`, term by term): rows [ha·wb, W] → [W, Na, Nb]."""
+    t_re, t_im = _idft_rows_t(g, m)
+    return _dft_maps_t(t_re * otf_re + t_im * otf_im, -t_re * otf_im + t_im * otf_re, m)
 
 
 # ---------------------------------------------------------------------------
@@ -336,3 +467,33 @@ def lmm_conv_rank_t(g, otf_re, otf_im, m: dict, n_maps: int) -> torch.Tensor:
         raise ValueError(f"Q={q} is not n_maps·R = {n_maps}·{otf_re.shape[0]}")
     rows = g.permute(1, 2, 0).reshape(ha * wb, q)
     return lmm_conv_rank_rows_t(rows, otf_bins_last(otf_re), otf_bins_last(otf_im), m)
+
+
+def _rows_to_planes(rows: torch.Tensor, m: dict) -> torch.Tensor:
+    ha, wb = m["ifa_re"].shape[0], m["icb_re"].shape[0]
+    return rows.view(ha, wb, -1).permute(2, 0, 1)
+
+
+def _planes_to_rows(g: torch.Tensor) -> torch.Tensor:
+    w, ha, wb = g.shape
+    return g.permute(1, 2, 0).reshape(ha * wb, w)
+
+
+def lmm_conv_otf_matmul(maps, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Reference-layout `fft.lmm_conv_otf_matmul`: → [W, ha, wb]."""
+    return _rows_to_planes(lmm_conv_otf_rows(maps, tpl_w, otf_re, otf_im, m), m)
+
+
+def lmm_conv_otf_matmul_t(g, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Reference-layout `fft.lmm_conv_otf_matmul_t`: g [W, ha, wb] → [M, Na, Nb]."""
+    return lmm_conv_otf_rows_t(_planes_to_rows(g), tpl_w, otf_re, otf_im, m)
+
+
+def conv_otf_matmul(x, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Reference-layout `fft.conv_otf_matmul`: x [W, Na, Nb] → [W, ha, wb]."""
+    return _rows_to_planes(conv_otf_matmul_rows(x, otf_re, otf_im, m), m)
+
+
+def conv_otf_matmul_t(g, otf_re, otf_im, m: dict) -> torch.Tensor:
+    """Reference-layout `fft.conv_otf_matmul_t`: g [W, ha, wb] → [W, Na, Nb]."""
+    return conv_otf_matmul_rows_t(_planes_to_rows(g), otf_re, otf_im, m)

@@ -143,7 +143,7 @@ class Channel:
             raise NotImplementedError(
                 f"channel {self.instr.name}: the slit windows touch the local grid "
                 "edge, so the composed gather is unavailable; the staged gridding "
-                "path with the FFT box-sum is not ported yet"
+                "path with the FFT box-sum is ROADMAP A9, not ported yet"
             )
         sb = self.slit_shape[2]
         cplans = [

@@ -1,18 +1,27 @@
-"""The fusion operator y = Σ R L S C T x: λ-rank and materialized-OTF modes.
+"""The fusion operator y = Σ R L S C T x, in every conv mode of the reference.
 
-Counterpart of `surfh_tpu/models/spectro.py::SpectroSigRLSCT` in two of its
-configurations:
+Counterpart of `surfh_tpu/models/spectro.py::SpectroSigRLSCT`:
 
-* window-local, PSF-stamp, λ-rank (the flagship main path), with
-  `SURFH_HOST_MATERIALIZE=1` table semantics: per channel the host builds
-  the DFT matrices on the OTF support and FOV bbox (`dftm`), the OTF of the
-  R rank-basis stamps (`sotf_ri`), the rank coefficients (`cu`), the
-  λ-mix-folded spectral blur (`wpsf_q`), the slit weights and the forward /
-  transpose gather plans.  Device side, per channel:
-  `fft.lmm_conv_rank_rows` (template maps → Q = M·R basis planes on the
-  FOV bbox, as ``[ha·wb, Q]`` rows), then the per-pointing composed gather
-  / slit weights / wblur GEMM; the adjoint mirrors it, and `normal` fuses
-  fwd∘adj per channel without materializing the flat data vector.
+* window-local (`window_local=True`, reference `_channel_fwd_tabled` /
+  `_channel_adj_tabled`): per channel, the conv of its λ-window onto its
+  FOV bbox as ``[ha·wb, Q]`` rows, then the per-pointing composed gather /
+  slit weights / dense wblur GEMM; the adjoint mirrors it, and `normal`
+  fuses fwd∘adj per channel without materializing the flat data vector.
+  Per channel the conv is one of:
+  - λ-rank (PSF stamps, `conv_rank_rtol` > 0, the gate open: M·R < W/2),
+    `SURFH_HOST_MATERIALIZE=1` table semantics: the host builds the DFT
+    matrices on the OTF support and FOV bbox (`dftm`), the OTF of the R
+    rank-basis stamps (`sotf_ri`), the rank coefficients (`cu`) and the
+    λ-mix-folded blur (`wpsf_q`); `fft.lmm_conv_rank_rows` runs on
+    Q = M·R basis planes;
+  - dense matmul (`conv_impl="matmul"`, the gate declined or off): the
+    OTF window [W, Ka', Kb'] — evaluated once on the device from the
+    stamps (`psf` / `stamp`), or cut from a materialized `sotf` (a view of
+    it where `conv_freq_rtol` cuts nothing) — and `fft.lmm_conv_otf_rows`
+    on Q = W planes;
+  - window FFT (`conv_impl="fft"`, a materialized `sotf`): the window's
+    cube through `fft.conv_otf_`, its FOV bbox laid out as rows.
+  Rank and dense channels mix in one model, as in the reference.
 * non-window-local with a materialized OTF `sotf` (reference `_forward_fn`
   / `_adjoint_fn_const`, the path of the CLI and the real-data pipeline):
   T (`lmm`), the full-cube ``idft(dft(cube)·sotf)`` conv, then per channel
@@ -20,21 +29,23 @@ configurations:
   same per-pointing chain on W λ-planes, with the spectral blur dense or
   banded (`core.wblur_banded`); the adjoint scatter-adds the windows into
   the cube, convolves with conj(sotf) and applies Tᵗ.
+* cube mode (``templates=None``) in both: the input is the cube itself
+  (window-local: each channel reads and adds into its λ-window).
 
 Channels are independent, so `workers > 1` builds them in parallel
-processes.
+processes.  The window-local stamp-mode host tables are a pure function of
+the configuration and are cached on disk (`table_cache_path`).
 
-Not ported yet (raise NotImplementedError, naming the ROADMAP item): the
-dense W-plane matmul conv (`lmm_conv_otf_matmul`), taken by the reference's
-window-local mode when the rank gate declines (M·R ≥ W/2) or the rank conv
-is off, the window-local OTF-window tables, cube mode and nearest-neighbour
-gridding.
+Not ported yet (raise NotImplementedError, naming the ROADMAP item):
+nearest-neighbour gridding.
 """
 
 from __future__ import annotations
 
+import hashlib
 import multiprocessing
 import os
+import pickle
 import warnings
 from concurrent.futures import ProcessPoolExecutor
 from typing import List, Optional
@@ -49,58 +60,110 @@ from ..instrument.geometry import CoordList, get_srf
 from ..instrument.ifu import IFU
 from .channel import Channel
 
+TABLE_CACHE_VERSION = 1
+# the modules whose code builds the cached tables: their bytes are part of the key
+_TABLE_SOURCES = ("models/spectro.py", "models/channel.py", "models/slicer.py", "core/fft.py",
+                  "core/bilinear.py", "core/gather_rows.py", "instrument/geometry.py",
+                  "instrument/ifu.py", "instrument/spectral.py")
 
-def rank_tables(chan: Channel, t: dict, psf_w: np.ndarray, tpl_w: np.ndarray,
-                imshape, conv_freq_rtol: float, conv_rank_rtol: float):
-    """Add the rank-mode tables of one channel to its host tables `t`
-    (reference `_build_host_tables`, spectro.py:378-484); returns the
-    channel's support record.  Pops t["wpsf"] (the channel keeps its own)."""
-    npdtype = chan.npdtype
-    na_g = imshape[0]
-    ka_max, kb_keep, dropped = None, None, 0.0
-    if conv_freq_rtol > 0.0:
-        ka_max, kb_keep, dropped = fft.otf_support_from_psf(psf_w, imshape, conv_freq_rtol)
-    t["dftm"] = fft.dft_matmul_tables(imshape, npdtype, ka_max=ka_max, kb_keep=kb_keep,
-                                      bbox=chan.tbbox)
-    sel_a = fft.freq_sel_alpha(na_g, ka_max)
-    support = dict(
-        ka_max=ka_max, kb_keep=kb_keep, dropped_rel=dropped, bbox=chan.tbbox,
+
+def _support_record(tbbox, imshape, ka_max, kb_keep, dropped, conv_freq_rtol) -> dict:
+    na_g, nb_g = imshape
+    return dict(
+        ka_max=ka_max, kb_keep=kb_keep, dropped_rel=dropped, bbox=tbbox,
         keep_frac=(1.0 if conv_freq_rtol <= 0.0
-                   else len(sel_a) * kb_keep / (na_g * (imshape[1] // 2 + 1))),
+                   else len(fft.freq_sel_alpha(na_g, ka_max)) * kb_keep / (na_g * (nb_g // 2 + 1))),
     )
-    cu, v_psf, tail = fft.lowrank_stamp_factor(psf_w, conv_rank_rtol)
-    n_tpl = tpl_w.shape[0]
-    if not n_tpl * cu.shape[1] < psf_w.shape[0] // 2:
-        raise NotImplementedError(
-            f"channel {chan.instr.name}: rank gate declined (M·R = {n_tpl * cu.shape[1]} "
-            f"≥ W/2 = {psf_w.shape[0] // 2}); the dense W-plane path "
-            "(lmm_conv_otf_matmul) is ROADMAP A9, not ported yet"
-        )
-    t["cu"] = cu
-    support["rank"] = int(cu.shape[1])
-    support["rank_tail"] = tail
-    st = fft.psf_stamp_tables(imshape, v_psf.shape[-2:], np.float64,
-                              ka_max=ka_max, kb_keep=kb_keep)
-    sa = st["sa_re"] + 1j * st["sa_im"]
-    sb = st["sb_re"] + 1j * st["sb_im"]
-    z = np.einsum("wxy,cx->wcy", v_psf.astype(np.float64), sa)
-    otf = np.einsum("wcy,yk->wck", z, sb)
-    t["sotf_ri"] = np.ascontiguousarray(np.stack([otf.real, otf.imag]), npdtype)
-    tpl_w64 = tpl_w.astype(np.float64)
-    cmat = np.einsum("mw,wr->wmr", tpl_w64, cu.astype(np.float64)).reshape(tpl_w64.shape[1], -1)
-    t["wpsf_q"] = np.ascontiguousarray(
-        np.einsum("kwb,wq->kqb", t.pop("wpsf").astype(np.float64), cmat), npdtype)
+
+
+def stamp_tables(job: dict, tbbox, npdtype, wpsf=None):
+    """One channel's window-local stamp-mode tables (reference
+    `_build_host_tables`, spectro.py:378-484) from its stamps, templates
+    and FOV bbox: returns (the tables, the support record).  The rank gate
+    opens where the reference's does (`conv_rank_rtol` > 0, LMM mode,
+    M·R < W // 2; the composed gather is always present here): the rank
+    tables `dftm`, `cu`, `sotf_ri` and `wpsf_q` (folded from the channel's
+    `wpsf`, which the caller then drops from the channel's tables).
+    Otherwise the dense tables: `dftm`, the stamps `psf` and their DFT
+    matrices `stamp` (the channel keeps its `wpsf`)."""
+    psf_w, tpl_w, imshape = job["psf_w"], job["tpl_w"], job["imshape"]
+    rtol = job["conv_freq_rtol"]
+    ka_max, kb_keep, dropped = None, None, 0.0
+    if rtol > 0.0:
+        ka_max, kb_keep, dropped = fft.otf_support_from_psf(psf_w, imshape, rtol)
+    support = _support_record(tbbox, imshape, ka_max, kb_keep, dropped, rtol)
+    t = {"dftm": fft.dft_matmul_tables(imshape, npdtype, ka_max=ka_max, kb_keep=kb_keep,
+                                       bbox=tbbox)}
+    if _rank_possible(job):
+        cu, v_psf, tail = fft.lowrank_stamp_factor(psf_w, job["conv_rank_rtol"])
+        if tpl_w.shape[0] * cu.shape[1] < psf_w.shape[0] // 2:
+            t["cu"] = cu
+            support["rank"] = int(cu.shape[1])
+            support["rank_tail"] = tail
+            st = fft.psf_stamp_tables(imshape, v_psf.shape[-2:], np.float64,
+                                      ka_max=ka_max, kb_keep=kb_keep)
+            sa = st["sa_re"] + 1j * st["sa_im"]
+            sb = st["sb_re"] + 1j * st["sb_im"]
+            z = np.einsum("wxy,cx->wcy", v_psf.astype(np.float64), sa)
+            otf = np.einsum("wcy,yk->wck", z, sb)
+            t["sotf_ri"] = np.ascontiguousarray(np.stack([otf.real, otf.imag]), npdtype)
+            tpl_w64 = tpl_w.astype(np.float64)
+            cmat = np.einsum("mw,wr->wmr", tpl_w64, cu.astype(np.float64)).reshape(tpl_w64.shape[1], -1)
+            t["wpsf_q"] = np.ascontiguousarray(
+                np.einsum("kwb,wq->kqb", wpsf.astype(np.float64), cmat), npdtype)
+            return t, support
+    t["psf"] = psf_w
+    t["stamp"] = fft.psf_stamp_tables(imshape, psf_w.shape[-2:], npdtype, ka_max=ka_max,
+                                      kb_keep=kb_keep)
+    return t, support
+
+
+def _rank_possible(job: dict) -> bool:
+    return job["conv_rank_rtol"] > 0.0 and job["tpl_w"] is not None
+
+
+def _merge_stamp_tables(t: dict, out) -> dict:
+    """Merge `stamp_tables`' result into a channel's host tables `t`;
+    returns the support record."""
+    extra, support = out
+    if "wpsf_q" in extra:
+        t.pop("wpsf")
+    t.update(extra)
     return support
 
 
+def otf_window_tables(chan: Channel, t: dict, sotf_w, imshape, conv_impl: str,
+                      conv_freq_rtol: float):
+    """Add one channel's window-local OTF-window tables to `t`: its window
+    `sotf_w` [W, Na, Nb//2+1] of a materialized sotf (NumPy or a tensor,
+    kept as given: a view of the global OTF), cut to `fft.otf_freq_support`
+    when the matmul conv truncates, and with the matmul conv the DFT
+    matrices; returns the support record (None for the FFT conv)."""
+    if conv_impl != "matmul":
+        t["sotf_w"] = sotf_w
+        return None
+    ka_max, kb_keep, dropped = None, None, 0.0
+    if conv_freq_rtol > 0.0:
+        ka_max, kb_keep, dropped = fft.otf_freq_support(sotf_w, conv_freq_rtol)
+        sel_a = fft.freq_sel_alpha(imshape[0], ka_max)
+        if isinstance(sotf_w, torch.Tensor):
+            sotf_w = sotf_w[:, torch.as_tensor(sel_a, device=sotf_w.device), :kb_keep].contiguous()
+        else:
+            sotf_w = np.ascontiguousarray(np.asarray(sotf_w)[:, sel_a, :kb_keep])
+    t["sotf_w"] = sotf_w
+    t["dftm"] = fft.dft_matmul_tables(imshape, chan.npdtype, ka_max=ka_max, kb_keep=kb_keep,
+                                      bbox=chan.tbbox)
+    return _support_record(chan.tbbox, imshape, ka_max, kb_keep, dropped, conv_freq_rtol)
+
+
 def _channel_tables(chan: Channel, job: dict):
-    """One channel's host tables (and rank-mode support record) for `job`."""
+    """One channel's host tables (and window-local support record) for `job`
+    (the OTF-window tables are added afterwards, in the calling process)."""
     t = chan.host_tables()
-    if job["mode"] == "rank":
-        support = rank_tables(chan, t, job["psf_w"], job["tpl_w"], job["imshape"],
-                              job["conv_freq_rtol"], job["conv_rank_rtol"])
-        return chan, t, support
-    if job["banded"]:
+    if job["mode"] == "stamps":
+        wpsf = t["wpsf"] if _rank_possible(job) else None
+        return chan, t, _merge_stamp_tables(t, stamp_tables(job, chan.tbbox, chan.npdtype, wpsf))
+    if job.get("banded"):
         t["band_plan"] = chan.band_plan(job["band_rtol"])
         t["band_plan_t"] = chan.band_plan_t(job["band_rtol"])
     return chan, t, None
@@ -111,25 +174,43 @@ def _build_channel(job):
     return _channel_tables(Channel(*job["chan_args"]), job)
 
 
-def _map_channels(jobs, workers: int):
-    if workers <= 1 or len(jobs) <= 1:
-        return [_build_channel(j) for j in jobs]
-    # one BLAS thread per worker process; largest λ windows first
+def _pool_map(fn, args, n_w, workers: int):
+    """[fn(*a) for a in args] in `workers` spawned processes (one BLAS
+    thread each), the largest λ windows `n_w` first."""
     keys = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
     saved = {k: os.environ.get(k) for k in keys}
     os.environ.update({k: "1" for k in keys})
     try:
         ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(min(workers, len(jobs)), mp_context=ctx) as ex:
-            order = sorted(range(len(jobs)), key=lambda i: -jobs[i]["n_w"])
-            futs = {i: ex.submit(_build_channel, jobs[i]) for i in order}
-            return [futs[i].result() for i in range(len(jobs))]
+        with ProcessPoolExecutor(min(workers, len(args)), mp_context=ctx) as ex:
+            order = sorted(range(len(args)), key=lambda i: -n_w[i])
+            futs = {i: ex.submit(fn, *args[i]) for i in order}
+            return [futs[i].result() for i in range(len(args))]
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def _map_channels(jobs, workers: int):
+    if workers <= 1 or len(jobs) <= 1:
+        return [_build_channel(j) for j in jobs]
+    return _pool_map(_build_channel, [(j,) for j in jobs], [j["n_w"] for j in jobs], workers)
+
+
+def _map_given_channels(channels, jobs, workers: int):
+    """Tables of the given channels; with `workers` > 1 the stamp tables
+    are built in processes that receive only their inputs (the stamps,
+    the templates, the bbox and, where the rank gate may open, the wpsf)."""
+    if workers <= 1 or len(jobs) <= 1 or jobs[0]["mode"] != "stamps":
+        return [_channel_tables(chan, job) for chan, job in zip(channels, jobs)]
+    tabs = [chan.host_tables() for chan in channels]
+    args = [(job, chan.tbbox, chan.npdtype, t["wpsf"] if _rank_possible(job) else None)
+            for chan, job, t in zip(channels, jobs, tabs)]
+    outs = _pool_map(stamp_tables, args, [j["n_w"] for j in jobs], workers)
+    return [(chan, t, _merge_stamp_tables(t, out)) for chan, t, out in zip(channels, tabs, outs)]
 
 
 def _gather_tables(t: dict, device, dtype) -> dict:
@@ -141,40 +222,60 @@ def _gather_tables(t: dict, device, dtype) -> dict:
     }
 
 
+def _complex_dtype(dtype) -> torch.dtype:
+    return torch.complex64 if dtype == torch.float32 else torch.complex128
+
+
 def device_tables(host: dict, device, dtype=torch.float32) -> dict:
     """Host tables → tensors on `device`, in the kernel-friendly layouts.
 
-    Rank mode: OTF bins-last [Ka', Kb', R] and the folded wblur table
-    [K, sb·Q].  W-plane mode (the tree has "sotf"): the OTF [L, Na, Nb//2+1]
-    complex, the templates [M, L], the dense wblur table [K, sb·W] and, where
-    the host tree has band plans, the banded tables.  Both: slit weights
+    W-plane mode (the tree has "sotf"): the OTF [L, Na, Nb//2+1] complex,
+    the templates [M, L] (None in cube mode), the dense wblur table
+    [K, sb·W] and, where the host tree has band plans, the banded tables.
+    Window-local, per channel by its tables: rank — the OTF bins-last
+    [Ka', Kb', R] and the folded wblur table [K, sb·Q]; dense matmul —
+    the OTF window (re, im) [W, Ka', Kb'], evaluated here once from the
+    stamps (`fft.otf_from_stamps`) or taken from the materialized window
+    (the real and imaginary views of it, no copy where it is already on
+    `device` in the complex type); window FFT — the complex window; both
+    with the dense wblur table [K, sb·W].  Every mode: slit weights
     [S·A, sb, 1] and the gather plans as device CSR tensors."""
     def f(a):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype).contiguous()
 
+    ctype = _complex_dtype(dtype)
     chans = []
     if "sotf" in host:
-        ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
         for t in host["chan"]:
             wpsf = f(t["wpsf"])
             c = {**_gather_tables(t, device, dtype), "wq": rows_table(wpsf)}
             if "band_plan" in t:
                 c["band"] = banded_tables(wpsf, t["band_plan"], t["band_plan_t"])
             chans.append(c)
+        tpl = host["templates"]
         return {
             "sotf": torch.as_tensor(host["sotf"]).to(device=device, dtype=ctype).contiguous(),
-            "templates": f(host["templates"]),
+            "templates": None if tpl is None else f(tpl),
             "chan": chans,
         }
     for t in host["chan"]:
-        sotf = f(t["sotf_ri"])
-        chans.append({
-            **_gather_tables(t, device, dtype),
-            "dftm": {k: f(v) for k, v in t["dftm"].items()},
-            "otf_re": fft.otf_bins_last(sotf[0]),
-            "otf_im": fft.otf_bins_last(sotf[1]),
-            "wq": rows_table(f(t["wpsf_q"])),
-        })
+        c = _gather_tables(t, device, dtype)
+        c["dftm"] = {k: f(v) for k, v in t["dftm"].items()} if "dftm" in t else None
+        if "wpsf_q" in t:
+            sotf = f(t["sotf_ri"])
+            c.update(otf_re=fft.otf_bins_last(sotf[0]), otf_im=fft.otf_bins_last(sotf[1]),
+                     wq=rows_table(f(t["wpsf_q"])))
+        else:
+            c["wq"] = rows_table(f(t["wpsf"]))
+            if "psf" in t:
+                c["otf"] = fft.otf_from_stamps(f(t["psf"]), {k: f(v) for k, v in t["stamp"].items()})
+            else:
+                s = torch.as_tensor(t["sotf_w"]).to(device=device, dtype=ctype)
+                if c["dftm"] is not None:
+                    c["otf"] = (s.real, s.imag)
+                else:
+                    c["sotf"] = s
+        chans.append(c)
     return {"chan": chans}
 
 
@@ -190,22 +291,43 @@ def _np_dtype(dtype) -> np.dtype:
     return np.dtype(dtype)
 
 
+def _hash_array(h, a) -> None:
+    if a is None:
+        h.update(b"-")
+        return
+    a = np.ascontiguousarray(a)
+    h.update(str((a.dtype.str, a.shape)).encode())
+    h.update(a.tobytes())
+
+
+def table_cache_dir() -> Optional[str]:
+    """The host-table cache directory: ``SURFH_TABLE_CACHE`` (``0`` turns
+    the cache off; any other value is the directory), else
+    ``~/.cache/surfh_tpu_torch``."""
+    loc = os.environ.get("SURFH_TABLE_CACHE")
+    if loc == "0":
+        return None
+    return loc or os.path.join(os.path.expanduser("~"), ".cache", "surfh_tpu_torch")
+
+
 class SpectroSigRLSCT:
     """Multi-channel multi-observation spectro-imaging forward model.
-    Inputs are template maps x [M, Na, Nb]; the output is the flat
-    concatenation of per-channel blocks [P, S, λ_det, α_det].
+    Inputs are template maps x [M, Na, Nb] (the cube [L, Na, Nb] in cube
+    mode, ``templates=None``); the output is the flat concatenation of
+    per-channel blocks [P, S, λ_det, α_det].
 
     The reference's arguments, in its order and with its defaults, then the
-    port's own (`workers`, `channels`).  Two modes, chosen as the
-    reference's keywords choose them:
+    port's own (`workers`, `channels`), and the reference's modes:
 
-    * ``window_local=True`` with `psf_stack` (the flagship main path, so a
-      rank-mode caller passes ``psf_stack=…, window_local=True`` and a
-      `conv_rank_rtol` > 0): the λ-rank DFT-matmul conv per channel window
-      (`conv_freq_rtol`, `conv_rank_rtol`), the dense folded wblur;
-      `normal` fuses fwd∘adj per channel.  `sotf` is not read there, as in
-      the reference's stamp mode.  A banded blur asked for here warns and
-      runs dense, as the reference does.
+    * ``window_local=True``: per channel its λ-window's conv onto its FOV
+      bbox and the dense folded wblur; `normal` fuses fwd∘adj per channel.
+      With ``conv_impl="matmul"`` and `psf_stack`, the PSF-stamp mode
+      (`sotf` is not read): λ-rank channels where `conv_rank_rtol` > 0 and
+      the gate opens, the dense OTF window evaluated from the stamps
+      elsewhere; without `psf_stack`, the OTF-window tables cut from `sotf`
+      (matmul, or ``conv_impl="fft"``: the window's FFT conv).  Both
+      truncate the spectrum at `conv_freq_rtol`.  A banded blur asked for
+      here warns and runs dense, as the reference does.
     * ``window_local=False`` (the default): the materialized OTF `sotf`
       [L, Na, Nb//2+1] (NumPy or a tensor, e.g. built on the card by
       `fft.ir2fr_device`), ``T``, the full-cube FFT conv, then per channel
@@ -217,14 +339,11 @@ class SpectroSigRLSCT:
       and the constructed impl after `to()`: the dense table is always on
       the device.  `psf_stack` is not read there.
 
-    ``conv_impl="auto"`` is what the port runs in each mode: "matmul" (the
-    λ-rank conv) window-local, "fft" with a materialized sotf.  Not ported
-    (NotImplementedError, with the ROADMAP item): cube mode
-    (``templates=None``), ``gridding="nn"``, the window-local OTF-window
-    tables (`sotf` without `psf_stack`, or ``conv_impl="fft"``) and the
-    dense window-local matmul conv (``conv_rank_rtol=0``), all A9;
-    ``conv_precision`` other than "highest" (ROADMAP "Do not port": not
-    safe under CG).
+    ``conv_impl="auto"`` resolves as on the reference's TPU: "matmul"
+    window-local (the card plays the TPU's part), "fft" with a
+    materialized sotf.  Not ported (NotImplementedError, with the ROADMAP
+    item): ``gridding="nn"`` (A9); ``conv_precision`` other than "highest"
+    (ROADMAP "Do not port": not safe under CG).
 
     `dtype` (NumPy or torch) is the type of the host tables; :meth:`to`
     moves them to a torch device and dtype.  `workers` > 1 builds channels
@@ -232,7 +351,9 @@ class SpectroSigRLSCT:
     it from under ``if __name__ == "__main__":``.  `channels` reuses the
     Channel objects of another model over the same instruments, axes and
     pointings (their geometry, wpsf and gather plans), skipping the
-    costliest host stages.
+    costliest host stages.  Window-local stamp-mode host tables are read
+    from and written to the disk cache of :func:`table_cache_dir` (checked
+    before any worker starts).
     """
 
     def __init__(
@@ -274,35 +395,25 @@ class SpectroSigRLSCT:
         if sotf is None and not (self.window_local and conv_impl == "matmul"):
             raise ValueError("psf_stack-only mode requires window_local=True and "
                              "conv_impl='matmul' (FFT paths need a materialized sotf)")
-        if templates is None:
-            raise NotImplementedError("templates=None (cube mode) is ROADMAP A9, not ported yet")
         if gridding == "nn":
             raise NotImplementedError("gridding='nn' (core/nearest.py) is ROADMAP A9, not ported yet")
         if conv_precision != "highest":
             raise NotImplementedError(
                 f"conv_precision={conv_precision!r}: not ported (ROADMAP 'Do not port': "
                 "a reduced-precision conv is not safe under CG)")
-        if self.window_local:
-            if conv_impl == "fft" or psf_stack is None:
-                raise NotImplementedError(
-                    "window_local=True with a materialized sotf (the OTF-window tables, "
-                    "conv_impl='fft' or sotf without psf_stack) is ROADMAP A9, not ported yet; "
-                    "pass psf_stack for the λ-rank mode, or window_local=False")
-            if conv_rank_rtol <= 0.0:
-                raise NotImplementedError(
-                    "window_local=True with conv_rank_rtol=0 selects the dense window-local "
-                    "matmul conv (lmm_conv_otf_matmul), ROADMAP A9, not ported yet")
-            if wblur_impl == "banded":
-                warnings.warn(
-                    "wblur_impl='banded' is not supported in window_local mode; "
-                    "falling back to the dense MXU spectral blur",
-                    stacklevel=2,
-                )
-                wblur_impl = "dense"
+        if self.window_local and wblur_impl == "banded":
+            warnings.warn(
+                "wblur_impl='banded' is not supported in window_local mode; "
+                "falling back to the dense MXU spectral blur",
+                stacklevel=2,
+            )
+            wblur_impl = "dense"
         self.conv_impl = conv_impl
+        self.conv_precision = conv_precision
         self.wblur_impl = wblur_impl
         self.wblur_band_rtol = float(wblur_band_rtol)
-        self.templates = np.asarray(templates)
+        self.lmm = templates is not None
+        self.templates = np.asarray(templates) if self.lmm else None
         self.alpha_axis = np.asarray(alpha_axis, np.float64)
         self.beta_axis = np.asarray(beta_axis, np.float64)
         self.wavelength_axis = np.asarray(wavelength_axis, np.float64)
@@ -312,6 +423,7 @@ class SpectroSigRLSCT:
         self.npdtype = _np_dtype(dtype)
         self.conv_freq_rtol = float(conv_freq_rtol)
         self.conv_rank_rtol = float(conv_rank_rtol)
+        self.instrs = list(instrs)
         self.srfs = get_srf([chan.det_pix_size for chan in instrs], self.step_degree * 3600)
         if isinstance(pointings, CoordList) or (
             len(pointings) and not isinstance(pointings[0], (list, CoordList))
@@ -320,35 +432,56 @@ class SpectroSigRLSCT:
         self.pointings = pointings
         self.imshape = (len(self.alpha_axis), len(self.beta_axis))
         self.cube_shape = (len(self.wavelength_axis),) + self.imshape
-        self.ishape = (self.templates.shape[0],) + self.imshape
+        self.ishape = ((self.templates.shape[0],) + self.imshape) if self.lmm else self.cube_shape
+        # stamp mode (reference `_build_host_tables`): the matmul conv with stamps
+        self.stamps = self.window_local and conv_impl == "matmul" and self.psf_stack is not None
 
-        jobs = []
+        jobs, wslices = [], []
         for it, (srf, instr) in enumerate(zip(self.srfs, instrs)):
             wsl = instr.pix(self.step_degree).wslice(self.wavelength_axis, 0.1)
+            wslices.append(wsl)
             job = {
                 "chan_args": (instr, self.alpha_axis, self.beta_axis, self.wavelength_axis, srf,
                               CoordList(pointings[it]), self.step_degree, self.npdtype),
                 "n_w": wsl.stop - wsl.start,
-                "mode": "rank" if self.window_local else "wplane",
+                "mode": "stamps" if self.stamps else "plain",
             }
-            if self.window_local:
+            if self.stamps:
                 job.update(psf_w=np.asarray(self.psf_stack[wsl.start : wsl.stop], self.npdtype),
-                           tpl_w=self.templates[:, wsl], imshape=self.imshape,
+                           tpl_w=self.templates[:, wsl] if self.lmm else None, imshape=self.imshape,
                            conv_freq_rtol=self.conv_freq_rtol, conv_rank_rtol=self.conv_rank_rtol)
-            else:
+            elif not self.window_local:
                 job.update(banded=wblur_impl == "banded", band_rtol=self.wblur_band_rtol)
             jobs.append(job)
-        if channels is None:
-            built = _map_channels(jobs, int(workers))
+
+        cache = self.table_cache_path()
+        cached = _read_cache(cache)
+        if cached is not None:
+            cached_chans, host_chan, supports = cached
+            built = list(zip(cached_chans if channels is None else channels, host_chan, supports))
+            self.table_cache_hit = True
         else:
-            if len(channels) != len(jobs):
-                raise ValueError(f"{len(channels)} channels for {len(jobs)} instruments")
-            built = [_channel_tables(chan, job) for chan, job in zip(channels, jobs)]
+            if channels is None:
+                built = _map_channels(jobs, int(workers))
+            else:
+                if len(channels) != len(jobs):
+                    raise ValueError(f"{len(channels)} channels for {len(jobs)} instruments")
+                built = _map_given_channels(channels, jobs, int(workers))
+            self.table_cache_hit = False
+            if cache is not None:
+                _write_cache(cache, ([b[0] for b in built], tuple(b[1] for b in built),
+                                     [b[2] for b in built]))
         self.channels = [b[0] for b in built]
-        self._host = {"chan": tuple(b[1] for b in built)}
+        host_chan = tuple(b[1] for b in built)
+        supports = [b[2] for b in built]
+        if self.window_local and not self.stamps:
+            for c, (chan, t) in enumerate(zip(self.channels, host_chan)):
+                supports[c] = otf_window_tables(chan, t, sotf[wslices[c]], self.imshape,
+                                                conv_impl, self.conv_freq_rtol)
+        self._host = {"chan": host_chan}
         if not self.window_local:
             self._host.update(sotf=self.sotf, templates=self.templates)
-        self.conv_supports = [b[2] for b in built]
+        self.conv_supports = supports if self.window_local and conv_impl == "matmul" else None
         self.instrs_oshape = [chan.oshape for chan in self.channels]
         self._idx = np.cumsum([0] + [int(np.prod(o)) for o in self.instrs_oshape])
         self.oshape = (int(self._idx[-1]),)
@@ -357,14 +490,45 @@ class SpectroSigRLSCT:
         self.device = None
         self.dtype = None
 
+    def table_cache_path(self) -> Optional[str]:
+        """The disk-cache file of this model's host tables, or None (the
+        cache is off, or the model is not window-local in stamp mode: an OTF
+        window is too large to key).  The key hashes a port tag, the cache
+        version, the code that builds the tables and every input the
+        reference hashes (axes, templates, PSF stamps, each band and its
+        pointings, the conv configuration, the table dtype)."""
+        loc = table_cache_dir()
+        if loc is None or not self.stamps:
+            return None
+        h = hashlib.sha1(f"surfh_tpu_torch host tables v{TABLE_CACHE_VERSION}".encode())
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        for rel in _TABLE_SOURCES:
+            with open(os.path.join(root, rel), "rb") as fh:
+                h.update(fh.read())
+        for a in (self.wavelength_axis, self.templates, self.alpha_axis, self.beta_axis,
+                  self.psf_stack):
+            _hash_array(h, a)
+        for instr, pts in zip(self.instrs, self.pointings):
+            fov = instr.fov
+            h.update(repr((instr.name, instr.n_slit, instr.det_pix_size, fov.alpha_width,
+                           fov.beta_width, fov.angle, fov.origin.alpha, fov.origin.beta,
+                           getattr(instr.w_blur, "grating_resolution", None))).encode())
+            _hash_array(h, instr.wavel_axis)
+            _hash_array(h, instr.pce)
+            _hash_array(h, np.asarray([(p.alpha, p.beta) for p in pts], np.float64))
+        h.update(repr((self.conv_impl, self.conv_freq_rtol, self.conv_rank_rtol,
+                       self.conv_precision, self.npdtype.str, self.step_degree)).encode())
+        return os.path.join(loc, f"tables_{h.hexdigest()[:20]}.pkl")
+
     def host_tables(self) -> dict:
-        """All model tables as one host tree (NumPy; the W-plane `sotf` as
-        given); do not mutate."""
+        """All model tables as one host tree (NumPy; a materialized `sotf`
+        and its windows as given); do not mutate."""
         return self._host
 
     def to(self, device, dtype=torch.float32, tables: Optional[dict] = None):
         """Move the tables (or adopt the given device `tables`, e.g. from
-        `convert`) to `device` / `dtype`."""
+        `convert`) to `device` / `dtype`; stamp-mode OTF windows are
+        evaluated there, once."""
         self.device = torch.device(device)
         self.dtype = dtype
         self.tables = device_tables(self._host, self.device, dtype) if tables is None else tables
@@ -382,13 +546,45 @@ class SpectroSigRLSCT:
             raise RuntimeError("call .to(device, dtype) before applying the model")
         return torch.as_tensor(y).to(device=self.device, dtype=self.dtype).reshape(-1)
 
+    def _tpl_w(self, c: int) -> torch.Tensor:
+        ws = self.channels[c].wslice
+        return self._templates()[:, ws.start : ws.stop]
+
     def _conv(self, x, c):
+        """Channel c's conv: maps (or the cube) → its bbox rows [ha·wb, Q]."""
         t = self.tables["chan"][c]
-        return fft.lmm_conv_rank_rows(x, t["otf_re"], t["otf_im"], t["dftm"])
+        if "otf_re" in t:
+            return fft.lmm_conv_rank_rows(x, t["otf_re"], t["otf_im"], t["dftm"])
+        ws = self.channels[c].wslice
+        if "otf" in t:
+            if self.lmm:
+                return fft.lmm_conv_otf_rows(x, self._tpl_w(c), *t["otf"], t["dftm"])
+            return fft.conv_otf_matmul_rows(x[ws.start : ws.stop], *t["otf"], t["dftm"])
+        cube_w = (lmm.lmm_maps2cube(x, self._tpl_w(c)) if self.lmm
+                  else x[ws.start : ws.stop].clone())
+        return self._bbox_rows(fft.conv_otf_(cube_w, t["sotf"]), c)
 
     def _conv_t(self, rows, c):
+        """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the cube)."""
         t = self.tables["chan"][c]
-        return fft.lmm_conv_rank_rows_t(rows, t["otf_re"], t["otf_im"], t["dftm"])
+        if "otf_re" in t:
+            return fft.lmm_conv_rank_rows_t(rows, t["otf_re"], t["otf_im"], t["dftm"])
+        if "otf" in t:
+            if self.lmm:
+                return fft.lmm_conv_otf_rows_t(rows, self._tpl_w(c), *t["otf"], t["dftm"])
+            return fft.conv_otf_matmul_rows_t(rows, *t["otf"], t["dftm"])
+        chan = self.channels[c]
+        cube_w = torch.zeros((chan.n_wslice,) + self.imshape, device=self.device, dtype=self.dtype)
+        self._add_bbox_rows_(cube_w, rows, c)
+        fft.conv_otf_(cube_w, t["sotf"], conj=True)
+        return lmm.lmm_cube2maps(cube_w, self._tpl_w(c)) if self.lmm else cube_w
+
+    def _add_contrib_(self, acc, contrib, c) -> None:
+        if self.lmm:
+            acc.add_(contrib)
+        else:
+            ws = self.channels[c].wslice
+            acc[ws.start : ws.stop].add_(contrib)
 
     @property
     def banded(self) -> bool:
@@ -398,7 +594,9 @@ class SpectroSigRLSCT:
 
     def _templates(self) -> torch.Tensor:
         """The templates [M, L] on the device (the W-plane tables hold them;
-        rank mode uploads them at first use)."""
+        window-local mode uploads them at first use)."""
+        if not self.lmm:
+            raise TypeError("cube mode (templates=None): the model has no templates")
         if "templates" in self.tables:
             return self.tables["templates"]
         if self._templates_dev is None:
@@ -406,13 +604,15 @@ class SpectroSigRLSCT:
         return self._templates_dev
 
     def mapsToCube(self, maps) -> torch.Tensor:
-        """T: maps [M, Na, Nb] → cube [L, Na, Nb]."""
-        return lmm.lmm_maps2cube(self._x(maps), self._templates())
+        """T: maps [M, Na, Nb] → cube [L, Na, Nb] (cube mode has no T: raises)."""
+        tpl = self._templates()
+        return lmm.lmm_maps2cube(self._x(maps), tpl)
 
     def cubeTomaps(self, cube) -> torch.Tensor:
-        """Tᵗ: cube [L, Na, Nb] → maps [M, Na, Nb]."""
+        """Tᵗ: cube [L, Na, Nb] → maps [M, Na, Nb] (cube mode has no T: raises)."""
+        tpl = self._templates()
         cube = torch.as_tensor(cube).to(device=self.device, dtype=self.dtype)
-        return lmm.lmm_cube2maps(cube, self._templates())
+        return lmm.lmm_cube2maps(cube, tpl)
 
     # ------------------------------------------------------------------
     # data side: host NumPy, as in the reference (spectro.py:918-1016)
@@ -504,35 +704,46 @@ class SpectroSigRLSCT:
             masks.append(global_img > threshold)
         return masks
 
-    def patch_rows(self, cube: torch.Tensor, c: int) -> torch.Tensor:
-        """Channel c's λ-window of the FOV-bbox patch of `cube`, laid out
-        pixel-major for the gather: [W, ha, wb] → [ha·wb, W] (a copy)."""
-        chan = self.channels[c]
-        ws, (a0, b0, ha, wb) = chan.wslice, chan.tbbox
-        patch = cube[ws.start : ws.stop, a0 : a0 + ha, b0 : b0 + wb]
+    def _bbox_rows(self, planes: torch.Tensor, c: int) -> torch.Tensor:
+        """Channel c's FOV-bbox patch of λ-planes [W, Na, Nb], laid out
+        pixel-major for the gather: [ha·wb, W] (a copy)."""
+        a0, b0, ha, wb = self.channels[c].tbbox
+        patch = planes[:, a0 : a0 + ha, b0 : b0 + wb]
         # a bbox of whole planes would reshape to a strided view: force the copy
         return patch.permute(1, 2, 0).reshape(ha * wb, -1).contiguous()
 
+    def _add_bbox_rows_(self, planes: torch.Tensor, rows: torch.Tensor, c: int) -> None:
+        """Transpose of :meth:`_bbox_rows`: add rows [ha·wb, W] into `planes`."""
+        a0, b0, ha, wb = self.channels[c].tbbox
+        planes[:, a0 : a0 + ha, b0 : b0 + wb].add_(rows.view(ha, wb, -1).permute(2, 0, 1))
+
+    def patch_rows(self, cube: torch.Tensor, c: int) -> torch.Tensor:
+        """Channel c's λ-window of the FOV-bbox patch of `cube`, laid out
+        pixel-major for the gather: [W, ha, wb] → [ha·wb, W] (a copy)."""
+        ws = self.channels[c].wslice
+        return self._bbox_rows(cube[ws.start : ws.stop], c)
+
     def add_patch_rows_(self, cube: torch.Tensor, rows: torch.Tensor, c: int) -> None:
         """Transpose of :meth:`patch_rows`: add rows [ha·wb, W] into `cube`."""
-        chan = self.channels[c]
-        ws, (a0, b0, ha, wb) = chan.wslice, chan.tbbox
-        cube[ws.start : ws.stop, a0 : a0 + ha, b0 : b0 + wb].add_(rows.view(ha, wb, -1).permute(2, 0, 1))
+        ws = self.channels[c].wslice
+        self._add_bbox_rows_(cube[ws.start : ws.stop], rows, c)
 
     def blurred_cube(self, x) -> torch.Tensor:
-        """C T x: the templates' cube convolved with the OTF (W-plane mode)."""
-        cube = lmm.lmm_maps2cube(self._x(x), self.tables["templates"])
+        """C T x: the templates' cube (the cube itself in cube mode)
+        convolved with the OTF (W-plane mode)."""
+        x = self._x(x)
+        cube = lmm.lmm_maps2cube(x, self.tables["templates"]) if self.lmm else x.clone()
         return fft.conv_otf_(cube, self.tables["sotf"])
 
     def forward(self, x, plain: bool = False) -> torch.Tensor:
-        """Template maps [M, Na, Nb] → flat data vector.  `plain=True` runs
-        the kernels' plain versions."""
+        """Template maps [M, Na, Nb] (the cube in cube mode) → flat data
+        vector.  `plain=True` runs the kernels' plain versions."""
         x = self._x(x)
         outs = []
         if self.window_local:
             for c, chan in enumerate(self.channels):
-                rows = self._conv(x, c)
-                outs.append(chan.forward_rows(rows, self.tables["chan"][c], plain).reshape(-1))
+                outs.append(chan.forward_rows(self._conv(x, c), self.tables["chan"][c],
+                                              plain).reshape(-1))
         else:
             banded = self.banded
             cube = self.blurred_cube(x)
@@ -542,15 +753,17 @@ class SpectroSigRLSCT:
         return torch.cat(outs)
 
     def adjoint(self, y, plain: bool = False) -> torch.Tensor:
-        """Transpose of :meth:`forward`: flat data → [M, Na, Nb].  Exact,
-        except the banded blur keeps the transpose plan's mask (reference
-        `_adjoint_fn_const` with `wblur_sum_beta_t_banded`)."""
+        """Transpose of :meth:`forward`: flat data → [M, Na, Nb] (the cube
+        in cube mode).  Exact, except the banded blur keeps the transpose
+        plan's mask (reference `_adjoint_fn_const` with
+        `wblur_sum_beta_t_banded`)."""
         y = self._y(y)
         if self.window_local:
             acc = torch.zeros(self.ishape, device=self.device, dtype=self.dtype)
             for c, chan in enumerate(self.channels):
                 yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
-                acc.add_(self._conv_t(chan.adjoint_rows(yc, self.tables["chan"][c], plain), c))
+                self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, self.tables["chan"][c],
+                                                                       plain), c), c)
             return acc
         banded = self.banded
         cube = torch.zeros(self.cube_shape, device=self.device, dtype=self.dtype)
@@ -558,11 +771,11 @@ class SpectroSigRLSCT:
             yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
             self.add_patch_rows_(cube, chan.adjoint_rows(yc, self.tables["chan"][c], plain, banded), c)
         fft.conv_otf_(cube, self.tables["sotf"], conj=True)
-        return lmm.lmm_cube2maps(cube, self.tables["templates"])
+        return lmm.lmm_cube2maps(cube, self.tables["templates"]) if self.lmm else cube
 
     def normal(self, x, plain: bool = False) -> torch.Tensor:
-        """HᵗH x.  Rank mode fuses fwd∘adj per channel without materializing
-        the flat y; W-plane mode is adjoint∘forward."""
+        """HᵗH x.  Window-local mode fuses fwd∘adj per channel without
+        materializing the flat y; W-plane mode is adjoint∘forward."""
         x = self._x(x)
         if not self.window_local:
             return self.adjoint(self.forward(x, plain), plain)
@@ -570,5 +783,32 @@ class SpectroSigRLSCT:
         for c, chan in enumerate(self.channels):
             t = self.tables["chan"][c]
             yc = chan.forward_rows(self._conv(x, c), t, plain)
-            acc.add_(self._conv_t(chan.adjoint_rows(yc, t, plain), c))
+            self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, t, plain), c), c)
         return acc
+
+
+def _read_cache(path: Optional[str]):
+    """The cached (channels, tables, supports) at `path`, or None when there
+    is none or it cannot be read (written by another version of a library
+    it pickles): the caller then builds the tables and writes them anew."""
+    if path is None or not os.path.exists(path):
+        return None
+    try:
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
+    except (OSError, EOFError, pickle.UnpicklingError, AttributeError, ImportError):
+        return None
+
+
+def _write_cache(path: str, obj) -> None:
+    """Pickle `obj` to `path` atomically (a temporary file, then a rename);
+    a cache that cannot be written is skipped."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(tmp, "wb") as fh:
+            pickle.dump(obj, fh, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    except OSError:
+        if os.path.exists(tmp):
+            os.remove(tmp)

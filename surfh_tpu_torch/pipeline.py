@@ -446,11 +446,6 @@ def unit_rows(templates: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(templates / np.maximum(tnorm, 1e-30))
 
 
-# The rank mode's λ truncation (make_flagship_model's conv_rank_rtol): the
-# all-band window-local model keeps the rank components above it.
-ALLBAND_RANK_RTOL = 1e-7
-
-
 def run_allband_simulated(
     npix: int = 61,
     bands: Optional[Sequence[str]] = None,
@@ -471,8 +466,8 @@ def run_allband_simulated(
     `surfh_tpu/pipeline.py::run_allband_simulated`): all-band data →
     NMF templates learned on the device → all-band LMM fusion → metrics.
 
-      1. simulate detector data through the all-band operator (the
-         W-plane model: the OTF built on `device`, the dense blur);
+      1. simulate detector data through the all-band operator (the OTF
+         built on `device`, the dense blur);
       2. co-add each band's `sliceToCube` into a dirty hypercube
          (`coadd_cube`, float64 on `device`);
       3. learn `n_templates` NMF templates from the pixels brighter than the
@@ -482,9 +477,12 @@ def run_allband_simulated(
          operator over the same channels with them and solve with `method`;
       5. report per-stage timings and the cube-space metrics.
 
-    ``window_local=True`` builds the λ-rank model from the PSF stamps
-    instead (rank components above `ALLBAND_RANK_RTOL`).  The first model's
-    tables leave the device once the truth cube and the data are taken.
+    ``window_local=True`` builds the window-local model over the same OTF
+    instead, as the reference does: the OTF-window tables (each band's
+    λ-window of the sotf, a view of it on the device) and the dense matmul
+    conv (``conv_impl="auto"`` resolves to "matmul": the card plays the
+    TPU's part).  The first model's tables leave the device once the truth
+    cube and the data are taken.
     Writes allband_templates.npy, allband_x.npy and allband_cube.npy to
     `output_dir`.  `device` None is the card (raise without one)."""
     from .learning.decomposition import learn_templates_nmf
@@ -499,18 +497,14 @@ def run_allband_simulated(
     setup = make_allband_setup(
         npix=npix, bands=list(bands) if bands else None, n_pointings=n_pointings,
         n_tpl=n_templates, lambda_subsample=lambda_subsample, seed=seed,
-        build_sotf=not window_local, device=device,
+        build_sotf=True, device=device,
     )
 
     def _build(templates, channels=None):
         common = (templates, setup["alpha_axis"], setup["beta_axis"], setup["wavelength_axis"],
                   setup["instrs"], setup["step_degree"], setup["pointings"])
-        if window_local:
-            m = SpectroSigRLSCT(None, *common, dtype=np.float32, window_local=True,
-                                psf_stack=setup["psf_stack"], conv_rank_rtol=ALLBAND_RANK_RTOL,
-                                channels=channels)
-        else:
-            m = SpectroSigRLSCT(setup["sotf"], *common, dtype=np.float32, channels=channels)
+        m = SpectroSigRLSCT(setup["sotf"], *common, dtype=np.float32, window_local=window_local,
+                            channels=channels)
         return m.to(device, torch.float32)
 
     model = _build(setup["templates"])

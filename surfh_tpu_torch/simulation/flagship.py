@@ -10,8 +10,10 @@ at λ-subsample 1).  Everything comes from the seed; nothing is loaded
 beyond the bundled MIRI calibration tables.  `build_sotf=True` builds the
 materialized OTF [Nλ, 501, 251] (complex64) from the stamps on the card, or
 on the device asked for (`fft.ir2fr_device`), for the materialized-OTF
-model.  Not ported: the reference's on-disk sotf cache and the diffraction
-PSF (``SURFH_SIM_PSF=diffraction`` raises, ROADMAP A9).
+model.  ``SURFH_SIM_PSF=diffraction`` swaps the Gaussian stamps for the
+JWST diffraction PSF (`utils.jwst_psf`, 40 × 40 at the sky step), built on
+the setup's device.  Not ported: the reference's on-disk sotf cache
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.fft import ir2fr_device
+from ..core.precision import pick_device
 from ..instrument import miri, wavelength_mrs
 from ..instrument.geometry import CoordList
 from ..utils.psf import gaussian_psf
@@ -53,7 +56,9 @@ def make_flagship_setup(
     """Flagship-scale inputs, same keys and values as the reference's
     `make_flagship_setup`: host arrays, and with `build_sotf` the OTF as a
     complex64 tensor on `device` (else `sotf` is None).  `device` None means
-    the card (raise without one); pass ``device="cpu"`` for the host."""
+    the card (raise without one); pass ``device="cpu"`` for the host.  The
+    device builds the OTF, and the diffraction stamps under
+    ``SURFH_SIM_PSF=diffraction``."""
     if bands is None:
         bands = list(miri.BANDS)
     return _make_setup_from_instrs(flagship_instruments(bands), bands, npix, n_pointings, n_tpl,
@@ -84,11 +89,9 @@ def _make_setup_from_instrs(instrs, bands, npix, n_pointings, n_tpl, lambda_subs
                             build_sotf: bool = True, device=None) -> dict:
     """The setup dict of `instrs` (reference `_make_setup_from_instrs`):
     the sorted union of their λ tables subsampled, smooth positive
-    templates and random maps from `seed`, Gaussian PSF stamps, the
-    dithers, and with `build_sotf` the OTF on `device`."""
-    if os.environ.get("SURFH_SIM_PSF", "gaussian") == "diffraction":
-        raise NotImplementedError("SURFH_SIM_PSF=diffraction: the diffraction PSF "
-                                  "(utils/jwst_psf.py) is ROADMAP A9, not ported yet")
+    templates and random maps from `seed`, Gaussian PSF stamps (the
+    diffraction PSF under ``SURFH_SIM_PSF=diffraction``, built on
+    `device`), the dithers, and with `build_sotf` the OTF on `device`."""
     rng = np.random.default_rng(seed)
     step_degree = FLAGSHIP_STEP_ARCSEC / 3600.0
     alpha_axis = (np.arange(npix) - npix / 2) * step_degree
@@ -108,7 +111,18 @@ def _make_setup_from_instrs(instrs, bands, npix, n_pointings, n_tpl, lambda_subs
         templates[m] = t
     maps = rng.random((n_tpl, npix, npix))
 
-    psf_stack = gaussian_psf(wavelength_axis, FLAGSHIP_STEP_ARCSEC).astype(np.float32)
+    if os.environ.get("SURFH_SIM_PSF", "gaussian") == "diffraction":
+        from ..utils.jwst_psf import psf_stack as host_stack
+        from ..utils.jwst_psf import psf_stack_device
+
+        dev = pick_device(device)
+        if dev.type == "cpu":
+            psf_stack = host_stack(wavelength_axis, FLAGSHIP_STEP_ARCSEC, npix=40)
+        else:
+            psf_stack = psf_stack_device(wavelength_axis, FLAGSHIP_STEP_ARCSEC, npix=40, device=dev)
+        psf_stack = (psf_stack / psf_stack.sum(axis=(1, 2), keepdims=True)).astype(np.float32)
+    else:
+        psf_stack = gaussian_psf(wavelength_axis, FLAGSHIP_STEP_ARCSEC).astype(np.float32)
     if psf_stack.shape[1] > npix or psf_stack.shape[2] > npix:
         ca = max(0, (psf_stack.shape[1] - npix) // 2)
         cb = max(0, (psf_stack.shape[2] - npix) // 2)
@@ -132,31 +146,54 @@ def _make_setup_from_instrs(instrs, bands, npix, n_pointings, n_tpl, lambda_subs
     )
 
 
-def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32,
-                        conv_freq_rtol: float = 1e-6, conv_rank_rtol: float = 1e-7,
-                        workers: int = 1, window_local: bool = True, wblur_impl: str = "dense",
-                        wblur_band_rtol: float = 0.0, channels=None, **kwargs):
-    """The flagship `SpectroSigRLSCT`: the rank mode by default (as the
-    reference's `make_flagship_model`: conv_freq_rtol=1e-6,
-    conv_rank_rtol=1e-7), or with ``window_local=False`` the
-    materialized-OTF mode, which needs a setup built with
-    ``build_sotf=True``.  `channels` reuses another flagship model's.
-    Without a `setup`, one is built from `kwargs` (the OTF on the card
-    unless ``device="cpu"``); the model's tables stay on the host until
-    ``.to(device, dtype)``."""
+def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32, wblur_impl: str = "dense",
+                        window_local: bool = True, conv_impl: str = "auto",
+                        conv_freq_rtol: Optional[float] = None,
+                        conv_precision: Optional[str] = None,
+                        conv_rank_rtol: Optional[float] = None, wblur_band_rtol: float = 0.0,
+                        workers: int = 1, channels=None, **kwargs):
+    """The flagship `SpectroSigRLSCT` (reference `make_flagship_model`: its
+    parameters, order, defaults and environment overrides, then the port's
+    `wblur_band_rtol`, `workers` and `channels`).
+
+    Window-local by default: `conv_freq_rtol` 1e-6 (``SURFH_CONV_FREQ_RTOL``
+    overrides), `conv_precision` "highest" (``SURFH_CONV_PRECISION``),
+    `conv_rank_rtol` 1e-7 (``SURFH_CONV_RANK_RTOL``; 0 runs the dense
+    window-local conv).  ``conv_impl="auto"`` resolves to "matmul" there,
+    as on the reference's TPU, and the PSF stamps are used unless
+    ``SURFH_PSF_STAMPS=0``, which builds the OTF-window tables from the
+    setup's materialized sotf.  ``window_local=False`` is the
+    materialized-OTF W-plane model.  The sotf-reading configurations need
+    a setup built with ``build_sotf=True``.  Without a `setup`, one is
+    built from `kwargs` (the OTF on the card unless ``device="cpu"``); the
+    model's tables stay on the host until ``.to(device, dtype)``."""
     from ..models.spectro import SpectroSigRLSCT
 
+    resolved = conv_impl
+    if resolved == "auto":
+        resolved = "matmul" if window_local else "fft"
+    stamps_ok = os.environ.get("SURFH_PSF_STAMPS", "1") != "0"
     if setup is None:
-        setup = make_flagship_setup(build_sotf=not window_local, **kwargs)
-    if not window_local and setup.get("sotf") is None:
-        raise ValueError("the materialized-OTF model needs the sotf — rebuild the setup "
-                         "with make_flagship_setup(build_sotf=True)")
+        setup = make_flagship_setup(build_sotf=not (window_local and resolved == "matmul"
+                                                    and stamps_ok), **kwargs)
+    if conv_freq_rtol is None:
+        conv_freq_rtol = float(os.environ.get("SURFH_CONV_FREQ_RTOL", "1e-6"))
+    if conv_precision is None:
+        conv_precision = os.environ.get("SURFH_CONV_PRECISION", "highest")
+    if conv_rank_rtol is None:
+        conv_rank_rtol = float(os.environ.get("SURFH_CONV_RANK_RTOL", "1e-7"))
+    use_stamps = (resolved == "matmul" and window_local and stamps_ok
+                  and setup.get("psf_stack") is not None)
+    if not use_stamps and setup.get("sotf") is None:
+        raise ValueError("this conv configuration needs the materialized sotf — rebuild the "
+                         "setup with make_flagship_setup(build_sotf=True)")
     model = SpectroSigRLSCT(
-        None if window_local else setup["sotf"], setup["templates"], setup["alpha_axis"],
+        None if use_stamps else setup["sotf"], setup["templates"], setup["alpha_axis"],
         setup["beta_axis"], setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
         setup["pointings"], dtype=dtype, wblur_impl=wblur_impl,
-        wblur_band_rtol=wblur_band_rtol, window_local=window_local,
-        conv_freq_rtol=conv_freq_rtol, psf_stack=setup["psf_stack"] if window_local else None,
-        conv_rank_rtol=conv_rank_rtol, workers=workers, channels=channels,
+        wblur_band_rtol=wblur_band_rtol, window_local=window_local, conv_impl=conv_impl,
+        conv_freq_rtol=conv_freq_rtol, psf_stack=setup["psf_stack"] if use_stamps else None,
+        conv_precision=conv_precision, conv_rank_rtol=conv_rank_rtol, workers=workers,
+        channels=channels,
     )
     return model, setup

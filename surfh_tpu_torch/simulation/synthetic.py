@@ -104,26 +104,39 @@ def make_setup(
     )
 
 
-def make_model(setup: Optional[dict] = None, dtype=np.float64, conv_freq_rtol: float = 1e-6,
-               conv_rank_rtol: float = 1e-7, workers: int = 1, window_local: bool = True,
-               wblur_impl: str = "dense", wblur_band_rtol: float = 0.0, **kwargs):
-    """The `SpectroSigRLSCT` of a synthetic setup (host tables in `dtype`;
-    call `.to(device, dtype)` before applying it).
+def make_model(
+    setup: Optional[dict] = None,
+    dtype=np.float32,
+    gridding: str = "bilinear",
+    wblur_impl: str = "dense",
+    wblur_band_rtol: float = 0.0,
+    window_local: bool = False,
+    conv_impl: str = "auto",
+    conv_freq_rtol: float = 0.0,
+    conv_rank_rtol: float = 0.0,
+    psf_stamps: bool = False,
+    workers: int = 1,
+    channels=None,
+    **kwargs,
+):
+    """The `SpectroSigRLSCT` of a synthetic setup (reference
+    `make_model`: its parameters, order and defaults — the exact
+    materialized-OTF model — then the port's `workers` and `channels`).
+    Host tables in `dtype`; call `.to(device, dtype)` before applying it.
 
-    ``window_local=True`` (the default here) builds the rank mode from the
-    PSF stamps (`spsf`); ``window_local=False`` the materialized-OTF mode
-    from the setup's `sotf`, with the spectral blur `wblur_impl` and
-    `wblur_band_rtol` at the reference's defaults (dense, 0)."""
+    ``psf_stamps=True`` passes the setup's PSF stamps (`spsf`) instead of
+    its materialized `sotf`: the stamp mode of the window-local matmul conv,
+    which the λ-rank conv (`conv_rank_rtol` > 0) needs."""
     from ..models.spectro import SpectroSigRLSCT
 
     if setup is None:
         setup = make_setup(**kwargs)
     model = SpectroSigRLSCT(
-        None if window_local else setup["sotf"], setup["templates"], setup["alpha_axis"],
+        None if psf_stamps else setup["sotf"], setup["templates"], setup["alpha_axis"],
         setup["beta_axis"], setup["wavelength_axis"], setup["instrs"], setup["step_degree"],
-        setup["pointings"], dtype=dtype, wblur_impl=wblur_impl,
-        wblur_band_rtol=wblur_band_rtol, window_local=window_local,
-        conv_freq_rtol=conv_freq_rtol, psf_stack=setup["spsf"] if window_local else None,
-        conv_rank_rtol=conv_rank_rtol, workers=workers,
+        setup["pointings"], dtype=dtype, gridding=gridding, wblur_impl=wblur_impl,
+        wblur_band_rtol=wblur_band_rtol, window_local=window_local, conv_impl=conv_impl,
+        conv_freq_rtol=conv_freq_rtol, psf_stack=setup["spsf"] if psf_stamps else None,
+        conv_rank_rtol=conv_rank_rtol, workers=workers, channels=channels,
     )
     return model, setup

@@ -14,7 +14,7 @@ where it is used.
   another order);
 * `make_allband_setup`: the reference's keys and values, the OTF on the
   CPU equal to the reference's `sotf` to its complex64 rounding (≤1e-6 of
-  the largest magnitude); `SURFH_SIM_PSF=diffraction` raises, naming A9;
+  the largest magnitude) (the diffraction PSF: tests/test_torch_jwst_psf.py);
 * the co-add (`pipeline.coadd_cube`, float64, on a torch device) on the
   reference's data blocks against the reference's host co-add ≤1e-12, and
   `bright_mask` on the reference's cube equal to its mask;
@@ -25,8 +25,10 @@ where it is used.
   relative (float32 data through two packages' FFTs, measured 1.4e-6);
   the NMF templates and maps ≤1e-5 (2.1e-6); the solve, 4 iterations from
   the reference's templates and data, x and the cube ≤5e-4 (1.1e-5
-  W-plane, 7.4e-5 rank mode: past 4 iterations this small problem's
-  float32 CG amplifies rounding, 2-5e-2 at 8 in either solver); the report
+  W-plane; window-local, the reference's OTF-window model over the same
+  sotf, 7.2e-6 for x and 5.7e-6 for the cube: past 4 iterations this
+  small problem's float32 CG amplifies rounding, 2-5e-2 at 8 in either
+  solver); the report
   the reference's keys, values where they do not depend on the mask, and
   its metrics those of the written cube.  End to end, the masks may differ
   at pixels whose λ-summed flux ties with the 25 % quantile (at this size
@@ -188,13 +190,6 @@ def test_make_allband_setup_full_lambda_axis():
     assert np.all(np.diff(s["wavelength_axis"]) >= 0)
 
 
-def test_diffraction_psf_is_not_ported(monkeypatch):
-    monkeypatch.setenv("SURFH_SIM_PSF", "diffraction")
-    for make in (flagship.make_allband_setup, flagship.make_flagship_setup):
-        with pytest.raises(NotImplementedError, match="A9"):
-            make(npix=11, bands=["1a"], build_sotf=False)
-
-
 # ---------------------------------------------------------------------------
 # the co-add and the mask
 
@@ -309,15 +304,11 @@ def test_allband_solve_stage(runs):
     assert tpl_j.dtype == np.float32 and tc.model.templates.dtype == np.float32
     np.testing.assert_allclose(np.linalg.norm(tc.model.templates, axis=1), 1.0, rtol=1e-6)
     s = flagship.make_allband_setup(npix=31, bands=SIZE["bands"], n_pointings=2, n_tpl=2,
-                                    lambda_subsample=4, device="cpu",
-                                    build_sotf=not runs.window_local)
+                                    lambda_subsample=4, device="cpu")
     common = (tpl_j, s["alpha_axis"], s["beta_axis"], s["wavelength_axis"], s["instrs"],
               s["step_degree"], s["pointings"])
-    if runs.window_local:
-        model = SpectroSigRLSCT(None, *common, dtype=np.float32, window_local=True,
-                                psf_stack=s["psf_stack"], conv_rank_rtol=tpl.ALLBAND_RANK_RTOL)
-    else:
-        model = SpectroSigRLSCT(s["sotf"], *common, dtype=np.float32)
+    model = SpectroSigRLSCT(s["sotf"], *common, dtype=np.float32, window_local=runs.window_local)
+    assert model.conv_impl == ("matmul" if runs.window_local else "fft")
     model.to("cpu", torch.float32)
     crit = QuadCriterion_MRS(1.0, np.array(jc.y_spectro), model, 5e3)
     res = crit.run_method(runs.method, maximum_iterations=SOLVE_ITERS)

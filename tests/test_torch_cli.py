@@ -14,6 +14,10 @@ the commands run).
   sweep (`python -m surfh_tpu_torch.utils.rehearsal_sweep`) at a small size;
 * `--method mmmg` on `fusion --simulated` and `rehearse`, against the JAX
   commands (`allband`: tests/test_torch_allband.py);
+* `gen-psf` (the band's λ table or a given axis, with and without
+  ``--opd commissioning``, a Zernike .npy OPD) against the JAX command at
+  a small size: the same report keys and values, the stacks ≤1e-5 of the
+  peak (the reference's jax f32 products, the port's NumPy ones);
 * `--sharded` and the subcommands not ported yet raise NotImplementedError
   naming the ROADMAP item; without a card and without ``SURFH_CPU`` the
   commands raise.
@@ -205,14 +209,14 @@ def test_sharded_is_not_ported(tmp_path):
 
 
 @pytest.mark.parametrize("name,item", [("deconv-cube", "A10"), ("deconv2d", "A10"),
-                                       ("metadata", "A12"), ("gen-psf", "A9"), ("warmup", "A12")])
+                                       ("metadata", "A12"), ("warmup", "A12")])
 def test_subcommands_not_ported(name, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main([name, "--npix", "31"])
 
 
 @pytest.mark.parametrize("argv", [["info"], ["fusion", "--simulated", "-np", "31"], ["rehearse"],
-                                  ["allband", "-np", "31"]])
+                                  ["allband", "-np", "31"], ["gen-psf", "--npix", "11"]])
 def test_no_card_and_no_switch_raises(monkeypatch, tmp_path, argv):
     monkeypatch.delenv("SURFH_CPU")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -232,3 +236,50 @@ def test_rehearsal_sweep(capsys):
     assert [ln.split(":")[0] for ln in lines] == ["mu 1 iterations 2", "mu 1 iterations 4",
                                                   "mu 5000 iterations 2", "mu 5000 iterations 4"]
     assert all("flux_ratio_median" in ln and "residual_rel" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("opd", ["none", "commissioning", "npy"])
+def test_gen_psf_matches_reference(tmp_path, opd):
+    from surfh_tpu_torch.utils.jwst_psf import zernike_opd
+
+    np.save(tmp_path / "lam.npy", np.array([5.3, 8.0, 11.5]))
+    argv = ["gen-psf", "-w", str(tmp_path / "lam.npy"), "--npix", "45", "--n-pupil", "96",
+            "--pixelscale", "0.05"]
+    if opd == "commissioning":
+        argv += ["--opd", "commissioning"]
+    elif opd == "npy":
+        np.save(tmp_path / "opd.npy", zernike_opd(96, {4: 400e-9}) * 1e9)
+        argv += ["--opd", str(tmp_path / "opd.npy"), "--opd-unit", "nm"]
+    got = port(argv + ["-o", str(tmp_path / "port.npy")])
+    want = ref(argv + ["-o", str(tmp_path / "jax.npy")])
+    assert list(got) == list(want)
+    for k in ("n_lambda", "npix", "pixelscale", "opd_rms_nm"):
+        assert got[k] == want[k], k
+    assert (got["opd_rms_nm"] > 0) == (opd != "none")
+    a, b = np.load(tmp_path / "port.npy"), np.load(tmp_path / "jax.npy")
+    assert a.shape == b.shape == (3, 45, 45) and a.dtype == np.float32
+    assert float(np.abs(a - b).max() / np.abs(b).max()) <= 1e-5
+
+
+def test_gen_psf_defaults_to_the_band_table(tmp_path, monkeypatch):
+    """Without `-w` the axis is the band's detector table (band 1c by
+    default): checked on a cut table, whose planes the port computes."""
+    from surfh_tpu_torch import cli as tcli
+    from surfh_tpu_torch.instrument.wavelength_mrs import get_mrs_wavelength
+
+    seen = {}
+
+    def fake_stack(wavels, scale, **kw):
+        seen.update(wavels=np.asarray(wavels), scale=scale, **kw)
+        return np.zeros((len(wavels), kw["npix"], kw["npix"]), np.float32)
+
+    import surfh_tpu_torch.utils.jwst_psf as jp
+
+    monkeypatch.setattr(jp, "psf_stack", fake_stack)
+    rep = port(["gen-psf", "--npix", "3", "-o", str(tmp_path / "p.npy")])
+    np.testing.assert_array_equal(seen["wavels"], get_mrs_wavelength("1c"))
+    assert rep["n_lambda"] == len(get_mrs_wavelength("1c")) and rep["npix"] == 3
+    assert (seen["scale"], seen["n_pupil"], seen["oversample"], seen["opd"]) == (0.025, 256, 1, None)
+    args = tcli.build_parser().parse_args(["gen-psf"])
+    assert (args.band, args.npix, args.pixelscale, args.output) == ("1c", 501, 0.025, "psf.npy")
+    assert tcli.NOT_PORTED.keys() == {"deconv-cube", "deconv2d", "metadata", "warmup"}

@@ -1,9 +1,10 @@
 """Guards of the port: no JAX and nothing of `surfh_tpu` on its import
 path (nor click), `chip_smoke.py` refuses to report anything without a card
 or without the repository, the setup functions, the real-data pipeline's
-model, the all-band pipeline, the decompositions and the Shepard regrid
-pick the card unless asked for the CPU, and `run_method` accepts the
-reference's `perf_crit` and reads it not."""
+model, the all-band pipeline, the decompositions, the Shepard regrid and
+the diffraction PSF (`psf_stack_device`, `gen-psf`) pick the card unless
+asked for the CPU, and `run_method` accepts the reference's `perf_crit`
+and reads it not."""
 
 import os
 import shutil
@@ -33,6 +34,7 @@ SLICE_MODULES = [
     "surfh_tpu_torch.instrument.miri",
     "surfh_tpu_torch.instrument.wavelength_mrs",
     "surfh_tpu_torch.utils.psf",
+    "surfh_tpu_torch.utils.jwst_psf",
     "surfh_tpu_torch.utils.profiling",
     "surfh_tpu_torch.models.slicer",
     "surfh_tpu_torch.models.channel",
@@ -171,6 +173,28 @@ def test_allband_and_decompositions_go_to_the_card_by_default(monkeypatch):
             call()
     W, H, _ = decomposition.nmf(torch.as_tensor(X), 2, n_iter=1)  # a tensor keeps its device
     assert W.device.type == "cpu"
+
+
+def test_psf_generation_goes_to_the_card_by_default(monkeypatch, tmp_path):
+    """`psf_stack_device` with no `device` and `gen-psf` without SURFH_CPU
+    run on the card: without one they raise, and never fall back to the CPU."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import cli
+    from surfh_tpu_torch.utils import jwst_psf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("SURFH_CPU", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jwst_psf.psf_stack_device(np.array([8.0]), 0.05, npix=11, n_pupil=32)
+    np.save(tmp_path / "lam.npy", np.array([8.0]))
+    out = tmp_path / "psf.npy"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["gen-psf", "-w", str(tmp_path / "lam.npy"), "--npix", "11", "-o", str(out)])
+    assert not out.exists()
+    got = jwst_psf.psf_stack_device(np.array([8.0]), 0.05, npix=11, n_pupil=32, device="cpu")
+    assert got.shape == (1, 11, 11) and got.dtype == np.float32
 
 
 @pytest.mark.parametrize("method", ["lcg", "mmmg"])

@@ -91,7 +91,8 @@ def test_small_model_on_card_matches_cpu_f64():
 
     dev = _cuda()
     model, setup = make_model(im_size=41, n_lambda=120, n_tpl=2, n_channels=2,
-                              n_pointings=2, n_slit=3, dtype=np.float64)
+                              n_pointings=2, n_slit=3, dtype=np.float64, window_local=True,
+                              psf_stamps=True, conv_freq_rtol=1e-6, conv_rank_rtol=1e-7)
     x = torch.as_tensor(setup["maps"])
     want = model.to("cpu", torch.float64).normal(x)
     before = gr.launches
@@ -483,3 +484,47 @@ def test_gather_fixed_k1_k3_shapes(W, L, misaligned):
         g, w_ = got[~poisoned], want[~poisoned]
         assert float((g - w_).abs().max() / w_.abs().max()) <= 1e-6
         assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(kernel(src, p32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tables", ["stamps", "otf_window"])
+def test_dense_window_local_normal_matches_plain_gathers(tables):
+    """The dense window-local model (the stamps with `conv_rank_rtol=0`, or
+    the OTF windows of the sotf) on the card: its fused normal through the
+    row-gather kernel against the plain gathers and against the CPU f64
+    model, and one kernel launch per pointing and direction."""
+    from surfh_tpu_torch.simulation.synthetic import make_model
+
+    dev = _cuda()
+    kw = dict(psf_stamps=True, conv_rank_rtol=0.0) if tables == "stamps" else {}
+    model, setup = make_model(im_size=41, n_lambda=120, n_tpl=2, n_channels=2, n_pointings=2,
+                              n_slit=3, dtype=np.float64, window_local=True, conv_impl="matmul",
+                              conv_freq_rtol=1e-6, **kw)
+    assert all("cu" not in t for t in model.host_tables()["chan"])
+    x = torch.as_tensor(setup["maps"])
+    want = model.to("cpu", torch.float64).normal(x)
+    model.to(dev, torch.float32)
+    xd = x.to(dev, torch.float32)
+    before = gr.launches
+    got = model.normal(xd)
+    torch.cuda.synchronize()
+    assert gr.launches - before == 2 * sum(c.oshape[0] for c in model.channels)
+    plain = model.normal(xd, plain=True)
+    assert float((got - plain).abs().max() / plain.abs().max()) <= 1e-5
+    assert float((got.cpu().double() - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opd", [False, True])
+def test_psf_stack_device_matches_host(opd):
+    """`psf_stack_device` on the card against the host NumPy stack, with a
+    ragged last chunk: ≤1e-5 of the peak."""
+    from surfh_tpu_torch.utils import jwst_psf
+
+    dev = _cuda()
+    wavels = np.array([5.3, 7.0, 9.1, 12.4, 16.0])
+    kw = dict(npix=65, n_pupil=128, opd=jwst_psf.zernike_opd(128, {4: 300e-9}) if opd else None)
+    host = jwst_psf.psf_stack(wavels, 0.05, **kw)
+    got = jwst_psf.psf_stack_device(wavels, 0.05, chunk=2, device=dev, **kw)
+    assert got.shape == host.shape and got.dtype == np.float32
+    assert float(np.abs(got - host).max() / host.max()) <= 1e-5

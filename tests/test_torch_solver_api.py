@@ -342,11 +342,7 @@ def test_banded_window_local_warns_and_runs_dense(monkeypatch):
 
 # what is not ported: (positional list, its changes, ROADMAP item)
 NOT_PORTED = {
-    "cube_mode": ("wplane", lambda s: dict(templates=None), "A9"),
     "gridding_nn": ("wplane", lambda s: dict(gridding="nn"), "A9"),
-    "window_local_otf_windows": ("wplane", lambda s: dict(window_local=True), "A9"),
-    "window_local_fft_conv": ("rank", lambda s: dict(conv_impl="fft", sotf=s["sotf"]), "A9"),
-    "window_local_dense_matmul_conv": ("rank", lambda s: dict(conv_rank_rtol=0.0), "A9"),
     "conv_precision_high": ("rank", lambda s: dict(conv_precision="high"), "Do not port"),
     "conv_precision_default": ("wplane", lambda s: dict(conv_precision="default"), "Do not port"),
 }

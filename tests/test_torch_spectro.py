@@ -38,6 +38,7 @@ torch.set_num_threads(2)
 
 KW = dict(im_size=41, n_lambda=120, n_tpl=2, n_channels=2, n_pointings=2, n_slit=3)
 RANK = dict(conv_freq_rtol=1e-6, conv_rank_rtol=1e-7)
+PORT_RANK = dict(window_local=True, psf_stamps=True, **RANK)
 MU_REG = 5e3
 
 
@@ -57,8 +58,8 @@ def pair():
     stacks = [c._composed_stack for c in jm.channels]
     host = jm.host_tables()
     psetup = make_setup(**KW)
-    pm, _ = make_model(setup=psetup, dtype=np.float64, **RANK)
-    ref = make_model(setup=psetup, dtype=np.float64, **RANK)[0].to(
+    pm, _ = make_model(setup=psetup, dtype=np.float64, **PORT_RANK)
+    ref = make_model(setup=psetup, dtype=np.float64, **PORT_RANK)[0].to(
         "cpu", torch.float64, tables=tables_from_reference(host, stacks, "cpu", torch.float64))
     pm.to("cpu", torch.float64)
     x = np.array(jsetup["maps"])
@@ -176,10 +177,3 @@ def test_criterion_value_matches_reference(pair):
     got = QuadCriterion_MRS(1.0, torch.as_tensor(pair.y), pair.pm, MU_REG).get_crit_val(x)
     # the reference returns its value rounded to f32
     assert abs(got - want) <= 1e-6 * abs(want)
-
-
-def test_declined_rank_gate_names_missing_path():
-    """M·R ≥ W/2 sends the reference to the dense W-plane path, not ported."""
-    with pytest.raises(NotImplementedError, match="dense W-plane"):
-        make_model(im_size=41, n_lambda=24, n_tpl=4, n_channels=1, n_pointings=1,
-                   n_slit=3, dtype=np.float64, **RANK)

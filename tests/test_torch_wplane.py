@@ -219,22 +219,25 @@ def test_patch_rows_are_contiguous_and_transposed_exactly():
 def test_mixing_the_modes_raises():
     """The reference's argument order (`sotf` first): what neither mode
     takes raises ValueError with the reference's text, what the port has not
-    ported NotImplementedError (tests/test_torch_solver_api.py has them all)."""
+    ported NotImplementedError (tests/test_torch_solver_api.py has them all);
+    a window-local model over the sotf builds the OTF-window tables."""
     s = make_setup(**KW)
     args = (s["templates"], s["alpha_axis"], s["beta_axis"], s["wavelength_axis"], s["instrs"],
             s["step_degree"], s["pointings"])
-    with pytest.raises(NotImplementedError, match="A9"):  # the window-local OTF-window tables
-        SpectroSigRLSCT(s["sotf"], *args, window_local=True)
+    otf_windows = SpectroSigRLSCT(s["sotf"], *args, window_local=True)
+    assert otf_windows.conv_impl == "matmul"
+    assert all("sotf_w" in t and "dftm" in t for t in otf_windows.host_tables()["chan"])
     with pytest.raises(ValueError, match="need sotf or psf_stack"):
         SpectroSigRLSCT(None, *args, window_local=False)
     with pytest.raises(ValueError, match="psf_stack-only mode requires window_local=True"):
         SpectroSigRLSCT(None, *args, psf_stack=s["spsf"])
     # banded with window_local=True warns and goes on dense; at this size the
-    # rank gate then declines (M·R ≥ W/2)
+    # rank gate then declines (M·R ≥ W/2): the dense stamp tables
     with pytest.warns(UserWarning, match="falling back to the dense"):
-        with pytest.raises(NotImplementedError, match="rank gate declined"):
-            SpectroSigRLSCT(None, *args, wblur_impl="banded", window_local=True,
-                            psf_stack=s["spsf"], conv_rank_rtol=1e-7)
+        declined = SpectroSigRLSCT(None, *args, wblur_impl="banded", window_local=True,
+                                   psf_stack=s["spsf"], conv_rank_rtol=1e-7)
+    assert declined.wblur_impl == "dense"
+    assert all("psf" in t and "cu" not in t for t in declined.host_tables()["chan"])
     dense = make_model(setup=s, window_local=False)[0].to("cpu", torch.float64)
     dense.wblur_impl = "banded"
     with pytest.raises(ValueError, match="no band tables"):
