@@ -12,8 +12,10 @@ the dense window-local mode (`conv_rank_rtol=0`); the composed-transpose
 prototype entry point (`scripts/torch_scatter_proto.py`) with its three
 fixed-fan-in kernels; through the port's command line, the band-1c
 real-data rehearsal, the all-band path with NMF templates learned on the
-card (BASELINE config 5) in both its models, and `gen-psf`; and the
-flagship under the JWST diffraction PSF.
+card (BASELINE config 5) in both its models, `gen-psf`, and the
+single-λ and λ-stack deconvolutions (BASELINE configs 1 and 2, both
+geometries); the flagship under the JWST diffraction PSF and with
+nearest-neighbour gridding; and one band's staged gridding.
 
 1. device      — the card's name and power limit (nvidia-smi);
 2. build       — nvcc builds the three kernel sources from csrc/ into
@@ -95,7 +97,25 @@ flagship under the JWST diffraction PSF.
                  against the host NumPy stack; the flagship under
                  SURFH_SIM_PSF=diffraction (stamps built on the card), its
                  rank model's per-band rank and tail, one normal, the dot
-                 test.
+                 test;
+16. nn         — (after wlocal) the W-plane banded flagship with
+                 nearest-neighbour gridding over the rank model's bands
+                 regridded and the wplane OTF: kernels against plain
+                 versions, launches and ms per normal, 20 lcg iterations
+                 counted, #1 on the NN plans at Q = W;
+17. staged     — (after nn) band 1c's channel composed, staged (direct
+                 box-sum) and with the FFT box-sum: forward and adjoint
+                 against the composed one, launches, times, #1 on the
+                 staged plans;
+18. deconv2d   — (after small) BASELINE config 1 through the port's CLI
+                 (301², 4 pointings, 200 lcg iterations, µ = 500),
+                 `--rectangle` and `--rotated`: the report, launches, the
+                 criterion's fall, f32 against f64 on the card, the f64 dot
+                 test, kernels against plain gathers, ms per normal, #1 at
+                 Q = 1 on the rotated plans;
+19. deconv-cube — BASELINE config 2 (301², 100 λ planes, 2 pointings, 100
+                 iterations, µ = 5) the same way, plus the stack forward
+                 against the 2-D forward on three planes, #1 at Q = 100.
 
 Prints the kernels' JSON record, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -799,6 +819,347 @@ def run_psf_phase(dev, card: str, cuda_ms, gen, channels, bands) -> dict:
     return res
 
 
+def host_plan(plan):
+    """A device CSR plan's host copy (the library yardstick's operand)."""
+    from surfh_tpu_torch.core.gather_rows import RowGatherPlan
+
+    return RowGatherPlan(*(getattr(plan, f).cpu().numpy() for f in ("row_ptr", "idx", "w", "dst")),
+                         plan.n_src)
+
+
+def gather_row_stats(dev, proto, cuda_ms, gen, bound, plan, q: int, what: str, tol: float) -> dict:
+    """Kernel #1 on `plan` (on the card) at row width `q`: against its plain
+    version (max rel error, checked ≤ `tol`) and torch.sparse.mm, with the
+    three times and the byte bound; logs one `[kernel]` line."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.core import gather_rows as gr
+
+    hp = host_plan(plan)
+    spm = proto.library_csr(hp, dev)
+    src = torch.rand((plan.n_src, q), generator=gen, device=dev)
+    out_k, out_p, out_l = gr.gather_rows_cuda(src, plan), gr.gather_rows_reference(src, plan), \
+        torch.sparse.mm(spm, src)
+    torch.cuda.synchronize(dev)
+    scale = float(out_p.abs().max())
+    err = float((out_k - out_p).abs().max()) / scale
+    err_l = float((out_l - out_p).abs().max()) / scale
+    ms_k = cuda_ms(lambda: gr.gather_rows_cuda(src, plan), 50)
+    ms_p = cuda_ms(lambda: gr.gather_rows_reference(src, plan), 20)
+    ms_l = cuda_ms(lambda: torch.sparse.mm(spm, src), 50)
+    n_read = np.unique(hp.idx).size
+    b_ms, _ = bound(proto.gather_bytes(plan.n_rows, n_read, q, plan.nnz))
+    shape = gr.gather_launch_shape(q, src.data_ptr() % 16 == 0, plan.nnz / max(plan.n_rows, 1))
+    log(f"[kernel] {what}: rows {plan.n_rows} x Q {q}, n_src {plan.n_src} ({n_read} read), nnz "
+        f"{plan.nnz}, launch shape (vec, cols, taps, group) {shape}: max rel err {err:.3e} "
+        f"(bound {tol:g}); kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, torch.sparse.mm {ms_l:.4f} ms "
+        f"(max rel {err_l:.3e}), byte bound {b_ms:.4f} ms ({100 * b_ms / ms_k:.1f} %)")
+    check(err <= tol and err_l <= tol, f"kernel vs plain, {what}: {err:.3e}, library {err_l:.3e}")
+    return {"err": float((out_k - out_p).abs().max()), "ms": ms_k, "plain_ms": ms_p,
+            "library_ms": ms_l, "bound_ms": b_ms}
+
+
+DECONV_ARGV = {  # BASELINE configs 1 and 2 at the reference's full size
+    "deconv2d": ["deconv2d", "-np", "301", "-ni", "200", "-hp", "500"],
+    "deconv-cube": ["deconv-cube", "-np", "301", "-nl", "100", "--pointings", "2", "-ni", "100",
+                    "-hp", "5"],
+}
+DECONV_KEYS = {"deconv2d": ["niter", "seconds", "psnr"],
+               "deconv-cube": ["n_lambda", "niter", "seconds", "iters_per_s", "psnr"]}
+CRIT_FALL = 1e-2  # J(x̂) / J(0.5): the reference's bar (tests/test_solvers.py::test_criterion_decreases)
+DECONV_STEADY_IT = 50  # lcg iterations timed again after the CLI's run, its one-time set-up paid
+
+
+def run_deconv_phase(dev, card: str, cuda_ms, gen, bound, proto, name: str) -> dict:
+    """BASELINE config 1 (`deconv2d`) or 2 (`deconv-cube`) through
+    the port's CLI at full size, `--rectangle` then `--rotated`: the
+    report, iterations/s, the row-gather launches (none on the rectangle
+    crop), the criterion's fall; on the model the CLI solved with: f32
+    forward / adjoint against the same model in float64 on the card, the
+    float64 dot test, kernels against plain gathers, launches and ms per
+    normal, lcg s/iteration again once the run's one-time set-up is paid;
+    `deconv-cube` also the stack forward against the 2-D forward on three
+    planes.  Returns the launches and the kernel rows of #1 at this
+    path's width (Q = 1 or Q = W) on the rotated pointing-0 plan."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import cli as tcli
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.models import blind2d
+    from surfh_tpu_torch.solvers import criterion
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    tag = f"[{name}]"
+    cube = name == "deconv-cube"
+    crit_name = "QuadCriterion_MRS" if cube else "QuadCriterion_MRS_2D"
+    crit_cls = getattr(criterion, crit_name)
+    seen = {}
+
+    class KeptCriterion(crit_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["crit"] = self
+
+    res = {"launches": 0, "kernel": {}}
+    for geometry in ("--rectangle", "--rotated"):
+        rotated = geometry == "--rotated"
+        argv = DECONV_ARGV[name] + [geometry]
+        work = tempfile.mkdtemp(prefix="surfh_deconv_")
+        setattr(criterion, crit_name, KeptCriterion)
+        try:
+            out = io.StringIO()
+            gr.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = tcli.main(argv + ["-o", work])
+            sync()
+            wall = time.perf_counter() - t0
+            launches = gr.launches
+            lines = out.getvalue().strip().splitlines()
+            check(rc == 0 and bool(lines), f"{name} {geometry}: exit code {rc}")
+            rep = json.loads(lines[-1])
+            x_hat = np.load(os.path.join(work, "deconv_cube_x.npy" if cube else "deconv2d_x.npy"))
+        finally:
+            setattr(criterion, crit_name, crit_cls)
+            shutil.rmtree(work, ignore_errors=True)
+        crit = seen.pop("crit")
+        model = crit.model
+        base = model.base if cube else model
+        n_pt, n_it = len(base.pointings), rep["niter"]
+        # y, the adjoint's one forward at a zero primal, b, then a normal
+        # (forward and its transpose) per lcg application
+        expect = 3 * n_pt + 2 * n_pt * (n_it + 1) if rotated else 0
+        res["launches"] += launches
+        log(f"{tag} {' '.join(argv)}: {lines[-1]} ({wall:.2f} s with the model's build); "
+            f"{n_it / rep['seconds']:.2f} iterations/s; {card}; gather_rows launches {launches} "
+            f"(expected {expect})")
+        check(list(rep) == DECONV_KEYS[name] and n_it > 0 and np.isfinite(rep["psnr"]),
+              f"{name} {geometry} report {rep}")
+        check(launches == expect, f"{name} {geometry} launches {launches} != {expect}")
+        check(x_hat.shape == model.ishape and bool(np.isfinite(x_hat).all()), f"{name} x finite, shape")
+        j0 = crit.get_crit_val(np.full(model.ishape, 0.5, np.float32))
+        j1 = crit.get_crit_val(x_hat)
+        log(f"{tag} {geometry}: criterion {j0:.6e} at x = 0.5 -> {j1:.6e} after {n_it} it "
+            f"(ratio {j1 / j0:.3e}, bound {CRIT_FALL:g})")
+        check(j1 < CRIT_FALL * j0, f"{name} {geometry}: the criterion fell to {j1 / j0:.3e}")
+
+        # the same model in float64 on the card (the plain gather: #1 is f32)
+        base64 = type(base)(base.sotf, base.alpha_axis, base.beta_axis, base.instr,
+                            base.step_degree, base.pointings, dtype=np.float64, device=dev)
+        m64 = blind2d.DeconvCube(base64, model.sotf_stack) if cube else base64
+        xr = torch.rand(model.ishape, generator=gen, device=dev)
+        yr = torch.rand(model.oshape, generator=gen, device=dev)
+        f32, a32 = model.forward(xr), model.adjoint(yr)
+        f64, a64 = m64.forward(xr.double(), plain=True), m64.adjoint(yr.double(), plain=True)
+        e_f, e_a = rel(f32.double(), f64), rel(a32.double(), a64)
+        lhs = float(torch.dot(f64, yr.double()))
+        rhs = float(torch.dot(xr.double().reshape(-1), a64.reshape(-1)))
+        dot = abs(lhs - rhs) / abs(lhs)
+        n_k, n_p = model.normal(xr), model.normal(xr, plain=True)
+        e_n = rel(n_k, n_p)
+        log(f"{tag} {geometry}: card f32 vs card f64: forward {e_f:.3e}, adjoint {e_a:.3e} (bound "
+            f"1e-5); f64 dot test <Hx,y>={lhs:.12e} <x,H'y>={rhs:.12e} rel {dot:.3e} (bound 1e-10); "
+            f"normal, kernels vs plain gathers {e_n:.3e} (bound 1e-5)")
+        check(e_f <= 1e-5 and e_a <= 1e-5, f"{name} {geometry}: f32 vs f64 {e_f:.3e} {e_a:.3e}")
+        check(dot <= 1e-10, f"{name} {geometry}: f64 dot test {dot:.3e}")
+        check(e_n <= 1e-5, f"{name} {geometry}: kernels vs plain {e_n:.3e}")
+        del base64, m64, f64, a64
+        if cube:
+            full = model.forward_fn(xr)
+            W = model.n_lambda
+            e_s = max(rel(base._forward_fn(xr[w], model._stack_t[w]), full[w]) for w in (0, W // 2, W - 1))
+            log(f"{tag} {geometry}: the stack forward vs the 2-D forward on planes 0, {W // 2}, {W - 1}: "
+                f"max rel {e_s:.3e} (bound 1e-5)")
+            check(e_s <= 1e-5, f"{name} {geometry}: stack vs 2-D forward {e_s:.3e}")
+        gr.reset_launches()
+        model.normal(xr)
+        sync()
+        per_normal = gr.launches
+        check(per_normal == (2 * n_pt if rotated else 0), f"{name} {geometry}: {per_normal} launches per normal")
+        ms_f = cuda_ms(lambda: model.forward(xr), REPS)
+        ms_a = cuda_ms(lambda: model.adjoint(yr), REPS)
+        ms_n = cuda_ms(lambda: model.normal(xr), REPS)
+        t0 = time.perf_counter()
+        again = crit.run_method("lcg", maximum_iterations=DECONV_STEADY_IT)
+        sync()
+        s_it = (time.perf_counter() - t0) / again.n_iter
+        log(f"{tag} {card}: {geometry}: forward {ms_f:.3f} ms, derived adjoint {ms_a:.3f} ms, normal "
+            f"{ms_n:.3f} ms; gather_rows launches per normal {per_normal}; CG {rep['seconds'] / n_it:.4f} "
+            f"s/iteration in the CLI's run (its set-up included), {s_it:.4f} s/iteration over "
+            f"{again.n_iter} more on its criterion (host clock)")
+        res[geometry] = {"ms_normal": ms_n, "s_per_it": s_it, "psnr": rep["psnr"],
+                         "launches": launches, "per_normal": per_normal}
+        if rotated:
+            q = model.n_lambda if cube else 1
+            for direction, plan in (("forward", base.row_plans[0]), ("transpose", base.row_plans[0].t)):
+                res["kernel"][direction] = gather_row_stats(
+                    dev, proto, cuda_ms, gen, bound, plan, q,
+                    f"{name} --rotated pointing-0 {direction} gather at Q = {q}", 1e-5)
+        del crit, model, base, xr, yr
+        torch.cuda.empty_cache()
+    return res
+
+
+NN_NITER = 20
+
+
+def run_nn_phase(dev, card: str, cuda_ms, gen, bound, proto, channels, wsetup, truth, mu_reg) -> dict:
+    """The flagship with nearest-neighbour gridding (the reference's
+    `MCMO_SigRLSCT_NN`) in the W-plane banded mode at full width, over the
+    rank model's bands regridded (their spectral tables shared) and the
+    W-plane setup's OTF: the normal through the kernels against the plain
+    versions, the forward against the plain-gather version, launches and
+    ms per normal, the main path (y, b, 20 lcg iterations) counted; #1 on
+    the biggest band's pointing-0 NN plans at Q = W."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import wblur_banded as wb
+    from surfh_tpu_torch.models.spectro import SpectroSigRLSCT
+    from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    t0 = time.perf_counter()
+    chans = [c.regrid("nn") for c in channels]
+    s = wsetup
+    nmodel = SpectroSigRLSCT(s["sotf"], s["templates"], s["alpha_axis"], s["beta_axis"],
+                             s["wavelength_axis"], s["instrs"], s["step_degree"], s["pointings"],
+                             dtype=np.float32, gridding="nn", wblur_impl="banded",
+                             wblur_band_rtol=BAND_RTOL, window_local=False, channels=chans)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nmodel.to(dev, torch.float32)
+    sync()
+    n_pt = sum(c.oshape[0] for c in nmodel.channels)
+    log(f"[nn] the NN-gridding W-plane model ({len(chans)} bands, banded blur at rtol {BAND_RTOL:g}, "
+        f"the W-plane setup's OTF): host {t_host:.2f} s (NN plans and composed plans; wpsf and band "
+        f"plans shared), upload {time.perf_counter() - t0:.2f} s")
+    y = nmodel.forward(truth)
+    y_p = nmodel.forward(truth, plain=True)
+    n_k, n_p = nmodel.normal(truth), nmodel.normal(truth, plain=True)
+    sync()
+    e_y, e_n = rel(y, y_p), rel(n_k, n_p)
+    log(f"[nn] forward vs the plain-gather version: max rel {e_y:.3e}; normal, kernels vs plain "
+        f"versions: {e_n:.3e} (bound 1e-5)")
+    check(bool(torch.isfinite(y).all()) and e_y <= 1e-5 and e_n <= 1e-5, "NN model vs plain versions")
+    del y_p, n_k, n_p
+    gr.reset_launches()
+    wb.reset_launches()
+    nmodel.normal(truth)
+    sync()
+    per_app = (gr.launches, wb.launches, wb.launches_t)
+    check(per_app == (2 * n_pt, n_pt, n_pt), f"NN launches per normal {per_app}")
+    ms_n = cuda_ms(lambda: nmodel.normal(truth), REPS)
+    log(f"[nn] {card}: normal {ms_n:.3f} ms/app; launches per normal gather_rows / wblur_banded / "
+        f"wblur_banded_t {per_app} (expected {2 * n_pt}, {n_pt}, {n_pt})")
+    gr.reset_launches()
+    t0 = time.perf_counter()
+    y = nmodel.forward(truth)
+    crit = QuadCriterion_MRS(1.0, y, nmodel, mu_reg)
+    res = crit.run_method("lcg", maximum_iterations=NN_NITER)
+    sync()
+    t_main = time.perf_counter() - t0
+    launches = gr.launches
+    expect = 2 * n_pt + 2 * n_pt * (res.n_iter + 1)
+    gn = res.grad_norm
+    log(f"[nn] main path (y, b, {res.n_iter} lcg it, mu_reg={mu_reg:g}) in {t_main:.3f} s "
+        f"({t_main / res.n_iter:.4f} s/iteration, host clock); gather_rows launches {launches} "
+        f"(expected {expect}); grad norm {gn[0]:.4e} -> {gn[-1]:.4e}")
+    check(launches == expect and res.n_iter == NN_NITER, "NN main-path launches")
+    check(bool(torch.isfinite(res.x).all()) and bool(np.isfinite(gn).all()) and gn[-1] < gn[0],
+          "NN grad norms finite, falling")
+    c_big = max(range(len(chans)), key=lambda c: nmodel.tables["chan"][c]["gather_fwd"][0].nnz)
+    t = nmodel.tables["chan"][c_big]
+    w_q = nmodel.channels[c_big].n_wslice
+    kern = {d: gather_row_stats(dev, proto, cuda_ms, gen, bound, t[k][0], w_q,
+                                f"NN {nmodel.channels[c_big].instr.name} pointing-0 {d} at Q = W", 1e-5)
+            for d, k in (("forward", "gather_fwd"), ("transpose", "gather_t"))}
+    del nmodel, crit, res, y
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms_normal": ms_n, "s_per_it": t_main / NN_NITER, "kernel": kern}
+
+
+def run_staged_phase(dev, card: str, cuda_ms, gen, bound, proto, chan) -> dict:
+    """One band's channel three ways on the card in f32: composed, staged
+    (SURFH_COMPOSED_GRIDDING=0: the gather onto the local grid and the direct
+    box-sum) and the FFT box-sum (the staged channel with no box offset):
+    forward and adjoint against the composed one, launches and ms per
+    direction; #1 on the staged pointing-0 plans at Q = W."""
+    import torch
+
+    from surfh_tpu_torch.core import gather_rows as gr
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    saved = os.environ.get("SURFH_COMPOSED_GRIDDING")
+    try:
+        os.environ["SURFH_COMPOSED_GRIDDING"] = "1"
+        composed = chan.regrid(chan.gridding)
+        os.environ["SURFH_COMPOSED_GRIDDING"] = "0"
+        staged = chan.regrid(chan.gridding)
+        fftbox = chan.regrid(chan.gridding)
+    finally:
+        if saved is None:
+            os.environ.pop("SURFH_COMPOSED_GRIDDING", None)
+        else:
+            os.environ["SURFH_COMPOSED_GRIDDING"] = saved
+    fftbox.box_offset = None
+    check(not composed.staged and staged.staged and staged.box_offset is not None,
+          "staged channel construction")
+    W = chan.n_wslice
+    xw = torch.rand((W,) + chan.imshape, generator=gen, device=dev)
+    y = torch.rand(chan.oshape, generator=gen, device=dev)
+    outs, res = {}, {"launches": 0}
+    for what, c in (("composed", composed), ("staged", staged), ("fft box-sum", fftbox)):
+        c.to(dev, torch.float32)
+        rows = c.bbox_rows(xw)
+        gr.reset_launches()
+        hx, hty = c.forward_rows(rows, c.tables), c.adjoint_windowed(y)
+        sync()
+        launches = gr.launches
+        ms_f = cuda_ms(lambda: c.forward_rows(rows, c.tables), REPS)
+        ms_a = cuda_ms(lambda: c.adjoint_windowed(y), REPS)
+        outs[what] = (hx, hty)
+        if what != "composed":
+            res["launches"] += launches
+        log(f"[staged] {card}: band {chan.instr.name} {what}: forward {ms_f:.3f} ms, adjoint {ms_a:.3f} ms; "
+            f"gather_rows launches per forward + adjoint {launches} (expected {2 * chan.oshape[0]})")
+        check(launches == 2 * chan.oshape[0], f"staged {what} launches")
+        res[what] = {"ms_forward": ms_f, "ms_adjoint": ms_a}
+    for what in ("staged", "fft box-sum"):
+        e_f = rel(outs[what][0], outs["composed"][0])
+        e_a = rel(outs[what][1], outs["composed"][1])
+        log(f"[staged] {what} vs composed: forward {e_f:.3e}, adjoint {e_a:.3e} (bound 1e-5, f32)")
+        check(e_f <= 1e-5 and e_a <= 1e-5, f"{what} vs composed: {e_f:.3e} {e_a:.3e}")
+    t = staged.tables
+    res["kernel"] = {d: gather_row_stats(dev, proto, cuda_ms, gen, bound, t[k][0], W,
+                                         f"staged {chan.instr.name} pointing-0 {d} at Q = W", 1e-5)
+                     for d, k in (("forward", "gather_fwd"), ("transpose", "gather_t"))}
+    del composed, staged, fftbox, outs, xw, y
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bands", default=None, help="comma-separated MIRI bands (default: all 12)")
@@ -922,56 +1283,18 @@ def main(argv=None) -> int:
     tol_kernel = 1e-5
     kern = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     for name in ("gather_fwd", "gather_t"):
-        plan = tb[name][0].to(dev, torch.float32)
-        spm = proto.library_csr(tb[name][0], dev)
-        src = torch.rand((plan.n_src, q), generator=gen, device=dev)
-        out_k = gr.gather_rows_cuda(src, plan)
-        out_p = gr.gather_rows_reference(src, plan)
-        out_l = torch.sparse.mm(spm, src)
-        sync()
-        err, err_l = rel(out_k, out_p), rel(out_l, out_p)
-        ms_k = cuda_ms(lambda: gr.gather_rows_cuda(src, plan), 50)
-        ms_p = cuda_ms(lambda: gr.gather_rows_reference(src, plan), 50)
-        ms_l = cuda_ms(lambda: torch.sparse.mm(spm, src), 50)
-        moved = plan.nnz * (8 + 4 * q) + plan.n_rows * 4 * (q + 1)  # every tap's row, not the least
-        b_ms, _ = bound(proto.gather_bytes(plan.n_rows, np.unique(tb[name][0].idx).size, q, plan.nnz))
-        log(f"[kernel] {model.channels[c_big].instr.name} {name}: rows {plan.n_rows} x Q {q}, "
-            f"nnz {plan.nnz}: max rel err {err:.3e} (bound {tol_kernel:g}, f32 sums in another "
-            f"order); kernel {ms_k:.4f} ms, "
-            f"plain {ms_p:.4f} ms, library torch.sparse.mm {ms_l:.4f} ms (max rel {err_l:.3e}); "
-            f"{moved / ms_k / 1e6:.1f} GB/s of tap+row traffic; byte bound {b_ms:.4f} ms "
-            f"({100 * b_ms / ms_k:.1f} % of the kernel's time)")
-        check(err <= tol_kernel, f"kernel vs plain {name}: {err:.3e} > {tol_kernel:g}")
-        check(err_l <= tol_kernel, f"library vs plain {name}: {err_l:.3e} > {tol_kernel:g}")
-        kern["err"] = max(kern["err"], float((out_k - out_p).abs().max()))
-        kern["ms"] += ms_k
-        kern["plain_ms"] += ms_p
-        kern["library_ms"] += ms_l
-        kern["bound_ms"] += b_ms
+        st = gather_row_stats(dev, proto, cuda_ms, gen, bound, tb[name][0].to(dev, torch.float32), q,
+                              f"{model.channels[c_big].instr.name} {name}", tol_kernel)
+        kern["err"] = max(kern["err"], st["err"])
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            kern[k] += st[k]
 
     # the W-plane path's shapes: every band's pointing-0 gather and transpose at Q = W
     log(f"[kernel] {card}: gather_rows at Q = W, pointing 0 of every band (ms; share = byte bound / kernel)")
     for chan, tc in zip(model.channels, host["chan"]):
-        w_q = chan.n_wslice
         for name in ("gather_fwd", "gather_t"):
-            plan = tc[name][0].to(dev, torch.float32)
-            spm = proto.library_csr(tc[name][0], dev)
-            src = torch.rand((plan.n_src, w_q), generator=gen, device=dev)
-            out_k, out_p = gr.gather_rows_cuda(src, plan), gr.gather_rows_reference(src, plan)
-            sync()
-            err = rel(out_k, out_p)
-            del out_k, out_p
-            ms_k = cuda_ms(lambda: gr.gather_rows_cuda(src, plan), 50)
-            ms_p = cuda_ms(lambda: gr.gather_rows_reference(src, plan), 10)
-            ms_l = cuda_ms(lambda: torch.sparse.mm(spm, src), 50)
-            n_read = np.unique(tc[name][0].idx).size  # the source rows the taps name
-            b_ms, _ = bound(proto.gather_bytes(plan.n_rows, n_read, w_q, plan.nnz))
-            log(f"[kernel]   {chan.instr.name} {name}: rows {plan.n_rows} x Q {w_q}, n_src {plan.n_src}, "
-                f"({n_read} read), nnz {plan.nnz}, launch shape (vec, cols, taps, group) "
-                f"{gr.gather_launch_shape(w_q, True, plan.nnz / plan.n_rows)}: max rel "
-                f"err {err:.3e}; kernel {ms_k:.4f}, plain {ms_p:.4f}, torch.sparse.mm {ms_l:.4f}, byte "
-                f"bound {b_ms:.4f} ({100 * b_ms / ms_k:.1f} %)")
-            check(err <= tol_kernel, f"kernel vs plain {chan.instr.name} {name} at Q = W: {err:.3e}")
+            gather_row_stats(dev, proto, cuda_ms, gen, bound, tc[name][0].to(dev, torch.float32),
+                             chan.n_wslice, f"  {chan.instr.name} {name} at Q = W", tol_kernel)
     # base pointers one float into their storage: no 16-byte alignment to lean on
     plan = tb["gather_t"][0].to(dev, torch.float32)
     w_q = 4 * (model.channels[c_big].n_wslice // 4)
@@ -986,7 +1309,7 @@ def main(argv=None) -> int:
         f"{err:.3e}; kernel {ms_k:.4f} ms (from an aligned base, "
         f"{gr.gather_launch_shape(w_q, True, plan.nnz / plan.n_rows)}: {ms_a:.4f} ms)")
     check(err <= tol_kernel, f"kernel vs plain on a misaligned base: {err:.3e}")
-    del src, src_a, plan, spm
+    del src, src_a, plan
 
     # 5. the prototype entry point as a user runs it, counted; every band ---
     # its defaults: band 1c alone, one pointing, 501², Q = W = 466 (float2 in K1 / K3)
@@ -1320,8 +1643,22 @@ def main(argv=None) -> int:
     wl = run_wlocal_phase(dev, card, cuda_ms, gen, bound, model, setup, wmodel, wsetup, truth, mu_reg)
     log(f"[wlocal] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on its main path "
         f"{wl['launches']}")
-    del wmodel, wsetup, sotf, y_d
+    del wmodel, y_d
     torch.cuda.empty_cache()
+
+    # [nn]: nearest-neighbour gridding on the W-plane flagship, the same OTF
+    t0 = time.perf_counter()
+    nn = run_nn_phase(dev, card, cuda_ms, gen, bound, proto, model.channels, wsetup, truth, mu_reg)
+    log(f"[nn] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on its main path "
+        f"{nn['launches']}")
+    del wsetup, sotf
+    torch.cuda.empty_cache()
+
+    # [staged]: one band's channel composed, staged and with the FFT box-sum
+    t0 = time.perf_counter()
+    c_st = next((c for c in model.channels if c.instr.name.lower().startswith("1c")), model.channels[0])
+    staged = run_staged_phase(dev, card, cuda_ms, gen, bound, proto, c_st)
+    log(f"[staged] phase in {time.perf_counter() - t0:.2f} s")
 
     # 11. small inputs against the CPU f64 operators -----------------------
     for mode, kw in (("rank", dict(im_size=41, n_lambda=120, n_tpl=2, window_local=True, psf_stamps=True,
@@ -1338,6 +1675,14 @@ def main(argv=None) -> int:
         e_y, e_n = rel(got_y, ref_y), rel(got_n, ref_n)
         log(f"[small] {mode}: card f32 vs CPU f64: forward {e_y:.3e}, normal {e_n:.3e} (bound 1e-5)")
         check(e_y <= 1e-5 and e_n <= 1e-5, f"small {mode} problem vs CPU f64")
+
+    # [deconv2d], [deconv-cube]: BASELINE configs 1 and 2 through the port's CLI
+    deconv = {}
+    for name in DECONV_ARGV:
+        t0 = time.perf_counter()
+        deconv[name] = run_deconv_phase(dev, card, cuda_ms, gen, bound, proto, name)
+        log(f"[{name}] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches "
+            f"{deconv[name]['launches']}")
 
     # 12. the real-data path through the port's CLI, band 1c at full width --
     t0 = time.perf_counter()
@@ -1363,7 +1708,10 @@ def main(argv=None) -> int:
     log(f"[psf] phase in {time.perf_counter() - t0:.2f} s")
     gather_paths = {"rank": main_launches, "wplane": wmain[0], "wlocal": wl["launches"],
                     "pipeline": pipe["launches"], "allband": allb["launches"],
-                    "allband_wl": allb_wl["launches"]}
+                    "allband_wl": allb_wl["launches"], "deconv2d": deconv["deconv2d"]["launches"],
+                    "deconv_cube": deconv["deconv-cube"]["launches"], "nn": nn["launches"],
+                    "staged": staged["launches"]}
+    check(all(gather_paths.values()), f"a path launched no row gather: {gather_paths}")
 
     log(json.dumps({"kernels": [{
         "name": "gather_rows",

@@ -2,20 +2,21 @@
 
 Counterpart of `surfh_tpu/cli.py`: the same subcommand names, options,
 defaults and JSON last line for `fusion` (real data, or `--simulated`),
-`rehearse`, `allband`, `make-cube`, `compare-flux`, `gen-psf` and `info`,
-with ``--method lcg|mmmg``.  Everything runs on the card; ``SURFH_CPU=1`` (the
+`rehearse`, `allband`, `deconv2d`, `deconv-cube`, `make-cube`,
+`compare-flux`, `gen-psf` and `info`, with ``--method lcg|mmmg``.  Everything runs on the card; ``SURFH_CPU=1`` (the
 reference's switch) runs it on the host CPU instead.  Without a card and
 without that switch, every subcommand raises.
 
 Not ported yet (NotImplementedError, naming the ROADMAP item):
-``--sharded`` (A13) and the subcommands `deconv-cube`, `deconv2d`,
-`metadata` and `warmup`.
+``--sharded`` (A13) and the subcommands `metadata` and `warmup`.
 
 Usage:
     python -m surfh_tpu_torch.cli rehearse --band 1c --pointings 4 -np 501 --step 0.025 \\
         --lambda-subsample 1
     python -m surfh_tpu_torch.cli fusion --fusion-data DIR -np 501 -m mmmg
     python -m surfh_tpu_torch.cli allband -np 501 -ni 50 --nmf-iter 300
+    python -m surfh_tpu_torch.cli deconv2d -np 301 -ni 200 -hp 500 --rotated
+    python -m surfh_tpu_torch.cli deconv-cube -np 301 -nl 100 --pointings 2 -ni 100 -hp 5
     python -m surfh_tpu_torch.cli gen-psf --band 1c --opd commissioning -o psf.npy
     SURFH_CPU=1 python -m surfh_tpu_torch.cli fusion --simulated -np 31 --n-lambda 16
 """
@@ -38,8 +39,6 @@ from .core.precision import require_cuda
 logger = logging.getLogger("surfh_tpu_torch")
 
 NOT_PORTED = {
-    "deconv-cube": "the blind-2D models (models/blind2d.py) are ROADMAP A10",
-    "deconv2d": "the blind-2D models (models/blind2d.py) are ROADMAP A10",
     "metadata": "the metadata subcommand is ROADMAP A12",
     "warmup": "warmup is ROADMAP A12",
 }
@@ -127,6 +126,96 @@ def cmd_fusion(args, parser) -> None:
         "iters_per_s": res.n_iter / max(dt, 1e-9),
         "psnr_maps": metrics.psnr(truth, x),
         "relative_error_pct": metrics.relative_error(truth, x),
+    })
+
+
+def _blobs(npix: int, rng) -> np.ndarray:
+    """The deconvolution commands' truth image: six Gaussian blobs (the
+    reference's draws, in its order, from `rng`)."""
+    truth = np.zeros((npix, npix), np.float32)
+    for _ in range(6):
+        cx, cy = rng.integers(10, npix - 10, 2)
+        s = rng.uniform(2, 6)
+        yy, xx = np.mgrid[0:npix, 0:npix]
+        truth += rng.uniform(0.5, 2) * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / (2 * s * s))
+    return truth
+
+
+def cmd_deconv_cube(args, parser) -> None:
+    """λ-stack no-rotation cube deconvolution (BASELINE config 2): the
+    rectangle-gridded (or rotated) 2-D model on every λ plane with that
+    plane's PSF, all planes in one batched operator, the separated
+    quadratic criterion, lcg."""
+    from .core.fft import ir2fr
+    from .models.blind2d import DeconvCube, MRSBlurred, MRSBlurredRectangle
+    from .simulation.synthetic import make_setup
+    from .solvers.criterion import QuadCriterion_MRS
+    from .utils import metrics
+
+    device = _device()
+    npix, n_lambda = args.npix, args.n_lambda
+    os.makedirs(args.output_dir, exist_ok=True)
+    setup = make_setup(im_size=npix, n_lambda=n_lambda, n_channels=1, n_pointings=args.pointings)
+    sotf_stack = np.stack([ir2fr(p, setup["im_shape"]) for p in setup["spsf"][:n_lambda]])
+    cls = MRSBlurredRectangle if args.rectangle else MRSBlurred
+    base = cls(sotf_stack[0], setup["alpha_axis"], setup["beta_axis"], setup["instrs"][0],
+               setup["step_degree"], setup["pointings"][0], device=device)
+    model = DeconvCube(base, sotf_stack)
+
+    rng = np.random.default_rng(1)
+    img = _blobs(npix, rng)
+    spectra = 0.5 + rng.random(n_lambda).cumsum() / n_lambda
+    truth = spectra[:, None, None].astype(np.float32) * img
+    y = model.forward(truth)
+
+    t0 = time.perf_counter()
+    crit = QuadCriterion_MRS(1.0, y, model, args.hyper_parameter, gradient="separated")
+    res = crit.run_method("lcg", maximum_iterations=args.niter)
+    x = res.x.cpu().numpy()
+    dt = time.perf_counter() - t0
+
+    np.save(os.path.join(args.output_dir, "deconv_cube_x.npy"), x)
+    _emit({
+        "n_lambda": n_lambda,
+        "niter": int(res.n_iter),
+        "seconds": dt,
+        "iters_per_s": res.n_iter / max(dt, 1e-9),
+        "psnr": metrics.psnr(truth, x.reshape(model.ishape)),
+    })
+
+
+def cmd_deconv2d(args, parser) -> None:
+    """Single-wavelength 2-D MRS deconvolution (BASELINE config 1, the
+    reference's scripts/deconvolution_mrs_single_wavelength.py): the first
+    PSF plane, four pointings, the 2-D quadratic criterion, lcg."""
+    from .core.fft import ir2fr
+    from .models.blind2d import MRSBlurred, MRSBlurredRectangle
+    from .simulation.synthetic import make_setup
+    from .solvers.criterion import QuadCriterion_MRS_2D
+    from .utils import metrics
+
+    device = _device()
+    npix = args.npix
+    os.makedirs(args.output_dir, exist_ok=True)
+    setup = make_setup(im_size=npix, n_lambda=8, n_channels=1, n_pointings=4)
+    sotf = ir2fr(setup["spsf"][0], setup["im_shape"])
+    cls = MRSBlurredRectangle if args.rectangle else MRSBlurred
+    model = cls(sotf, setup["alpha_axis"], setup["beta_axis"], setup["instrs"][0],
+                setup["step_degree"], setup["pointings"][0], device=device)
+    truth = _blobs(npix, np.random.default_rng(1))
+    y = model.forward(truth)
+
+    t0 = time.perf_counter()
+    crit = QuadCriterion_MRS_2D(1.0, y, model, args.hyper_parameter)
+    res = crit.run_method("lcg", maximum_iterations=args.niter)
+    x = res.x.cpu().numpy()
+    dt = time.perf_counter() - t0
+
+    np.save(os.path.join(args.output_dir, "deconv2d_x.npy"), x)
+    _emit({
+        "niter": int(res.n_iter),
+        "seconds": dt,
+        "psnr": metrics.psnr(truth, x),
     })
 
 
@@ -403,6 +492,31 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--opd-unit", default="m", choices=["m", "um", "nm"], help="OPD map unit.")
     g.add_argument("--output", "-o", default="psf.npy")
     g.set_defaults(run=cmd_gen_psf)
+
+    d = sub.add_parser("deconv-cube", help=cmd_deconv_cube.__doc__)
+    d.add_argument("--npix", "-np", type=int, default=81)
+    d.add_argument("--n-lambda", "-nl", type=int, default=24, help="λ planes in the deconvolved stack.")
+    d.add_argument("--hyper-parameter", "-hp", type=float, default=5.0)
+    d.add_argument("--niter", "-ni", type=int, default=100)
+    d.add_argument("--pointings", type=int, default=2,
+                   help="Dither pointings (the reference run keeps [P1, P3]).")
+    d.add_argument("--rectangle", dest="rectangle", action="store_true", default=True,
+                   help="Rectangle (no-rotation) gridding (the default).")
+    d.add_argument("--rotated", dest="rectangle", action="store_false",
+                   help="Rotated-FOV bilinear gridding.")
+    d.add_argument("--output-dir", "-o", default="./surfh_results")
+    d.set_defaults(run=cmd_deconv_cube)
+
+    d2 = sub.add_parser("deconv2d", help=cmd_deconv2d.__doc__)
+    d2.add_argument("--npix", "-np", type=int, default=81)
+    d2.add_argument("--hyper-parameter", "-hp", type=float, default=500.0)
+    d2.add_argument("--niter", "-ni", type=int, default=200)
+    d2.add_argument("--rectangle", dest="rectangle", action="store_true", default=True,
+                    help="Rectangle (no-rotation) model (the default).")
+    d2.add_argument("--rotated", dest="rectangle", action="store_false",
+                    help="Rotated-FOV model (bilinear gridding).")
+    d2.add_argument("--output-dir", "-o", default="./surfh_results")
+    d2.set_defaults(run=cmd_deconv2d)
 
     i = sub.add_parser("info", help=cmd_info.__doc__)
     i.set_defaults(run=cmd_info)

@@ -18,7 +18,16 @@ the port's device tables.
 
 Both packages then compute the same operator from the same numbers; the
 port's own `SpectroSigRLSCT.host_tables()` builds the same trees without
-JAX.  Nothing here imports JAX: the inputs are NumPy arrays and plain
+JAX.
+
+The blind-2D models and a channel's gridding: `blind2d_tables` takes a
+`MRSBlurred`, `MRSBlurredRectangle` or `DeconvCube` of either package and
+returns its host tables (slit starts and weights, the box-sum OTF, the
+sotf or sotf stack, the bilinear plans or the crop windows);
+`channel_tables_from_reference` takes a JAX `Channel` (bilinear or
+nearest-neighbour, composed or staged) and returns its gridding tables
+under the port's `Channel` attribute names (plans, FOV bbox, box offset,
+composed stack, slit tables, wpsf).  Nothing here imports JAX: the inputs are NumPy arrays and plain
 objects (a band plan is read through its attributes).
 """
 
@@ -97,3 +106,37 @@ def wplane_tables_from_reference(sotf, templates, channels, device, dtype=torch.
     host = {"sotf": np.asarray(sotf), "templates": None if templates is None else np.asarray(templates),
             "chan": tuple(chans)}
     return device_tables(host, device, dtype)
+
+
+def blind2d_tables(model) -> dict:
+    """A blind-2D model's host tables (either package: the attribute
+    names are the same), NumPy arrays keyed by the attribute they come from."""
+    base = getattr(model, "base", model)
+    t = {k: np.asarray(getattr(base, k)) for k in
+         ("slit_a_starts", "slit_b_starts", "slit_weights_sub", "otf_combined", "sotf")}
+    t["local_im_shape"] = tuple(base.local_im_shape)
+    t["slices_shape"] = tuple(base.slices_shape)
+    if hasattr(base, "plans"):
+        t["plans"] = [(np.asarray(p.idx), np.asarray(p.w)) for p in base.plans]
+    if hasattr(base, "windows"):
+        t["windows"] = [(sa.start, sa.stop, sb.start, sb.stop) for sa, sb in base.windows]
+    if hasattr(model, "sotf_stack"):
+        t["sotf_stack"] = np.asarray(model.sotf_stack)
+    return t
+
+
+def channel_tables_from_reference(chan) -> dict:
+    """A JAX `Channel`'s gridding and slit tables under the port's
+    `models.channel.Channel` attribute names."""
+    return {
+        "gridding": chan.gridding,
+        "plans_fwd": [(np.asarray(p.idx), np.asarray(p.w)) for p in chan.plans_fwd],
+        "tbbox": tuple(int(v) for v in chan._tbbox),
+        "box_offset": chan._box_offset,
+        "composed_stack": (None if chan._composed_stack is None
+                           else tuple(np.asarray(a) for a in chan._composed_stack)),
+        "slit_a_starts": np.asarray(chan.slit_a_starts),
+        "slit_b_starts": np.asarray(chan.slit_b_starts),
+        "slit_weights_sub": np.asarray(chan.slit_weights_sub),
+        "wpsf": np.asarray(chan.wpsf),
+    }

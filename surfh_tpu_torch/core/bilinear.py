@@ -9,6 +9,14 @@ Device side: the plain torch spellings of that gather and its transpose,
 in the reference's ``[..., n]`` layout.  They are the semantics the
 row-gather kernel (`core.gather_rows`) is held to; the flagship path runs
 the kernel on the row layout instead.
+
+The plan gathers on tensors (reference `apply_plan`, `scatter_plan`,
+`apply_transpose_plan`): a plan of ``[C, P]`` taps over planes
+``[..., Na, Nb]`` is a row gather (`gather_rows.plan_from_gather_table`)
+of the ``[Na·Nb, B]`` source rows, pixel-major with the B leading planes as
+columns, so kernel #1 runs it on the card, and through its gradient the
+exact adjoint too.  The host transpose plans (`transpose_plan`,
+`csr_transpose_plan`) are NumPy copies of the reference's.
 """
 
 from __future__ import annotations
@@ -18,6 +26,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from .gather_rows import (RowGatherPlan, build_row_gather_plan, gather_rows_op,
+                          gather_rows_reference, plan_from_gather_table)
 
 
 @dataclass(frozen=True)
@@ -176,3 +187,116 @@ def apply_composed_plan_t(csrc, cw, cdst, values: torch.Tensor, patch_pixels: in
     contrib = values[..., csrc.long()] * cw
     out = values.new_zeros(values.shape[:-1] + (patch_pixels,))
     return out.index_add_(-1, cdst.long(), contrib)
+
+
+# ---------------------------------------------------------------------------
+# plan gathers on tensors (reference bilinear.py:138-280)
+
+
+def row_plan(plan_idx, plan_w, n_src: int, device, dtype) -> RowGatherPlan:
+    """Gather table [C, P] (host arrays) over `n_src` source pixels → the
+    row gather's CSR plan on `device` (weights in `dtype`)."""
+    return plan_from_gather_table(np.asarray(plan_idx), np.asarray(plan_w), n_src).to(device, dtype)
+
+
+def gather_planes(plan: RowGatherPlan, planes: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """planes [..., Na, Nb] (Na·Nb = plan.n_src) → [..., plan.n_rows]
+    through the row gather, differentiable; `plain` takes the plain torch
+    version (autograd differentiates it) instead of kernel #1."""
+    lead = planes.shape[:-2]
+    src = planes.reshape(-1, plan.n_src).T.contiguous()  # [Na·Nb, B]
+    out = gather_rows_reference(src, plan) if plain else gather_rows_op(src, plan)
+    return out.T.reshape(lead + (plan.n_rows,))
+
+
+def apply_plan(plan_idx, plan_w, cube: torch.Tensor) -> torch.Tensor:
+    """Gather-interpolate every plane of `cube` [..., Na, Nb] at the plan's
+    points → [..., P]; the gradient is the exact scatter-add adjoint."""
+    n_src = int(cube.shape[-2] * cube.shape[-1])
+    return gather_planes(row_plan(plan_idx, plan_w, n_src, cube.device, cube.dtype), cube)
+
+
+def scatter_plan(plan_idx, plan_w, values: torch.Tensor, grid_shape: Tuple[int, int]) -> torch.Tensor:
+    """Exact adjoint of :func:`apply_plan`: values [..., P] → [..., Na, Nb]
+    (the gather on the transposed plan)."""
+    na, nb = grid_shape
+    plan = row_plan(plan_idx, plan_w, na * nb, values.device, values.dtype).t
+    lead = values.shape[:-1]
+    return gather_planes(plan, values.reshape(lead + (1, -1))).reshape(lead + (na, nb))
+
+
+@dataclass(frozen=True)
+class TransposePlan:
+    """Padded gather form of a plan's adjoint: per grid pixel up to C
+    (target point, weight) pairs, zero-padded.
+
+    idx: int32 [C, Na·Nb] indices into the P target points; w: float
+    [C, Na·Nb] weights (0 padding); shape: the grid (Na, Nb)."""
+
+    idx: np.ndarray
+    w: np.ndarray
+    shape: Tuple[int, int]
+
+
+def transpose_plan(plan: BilinearPlan) -> TransposePlan:
+    """Build the padded gather-form transpose of a plan (host, once)."""
+    ncorner, P = plan.idx.shape
+    N = plan.shape[0] * plan.shape[1]
+    src = np.tile(np.arange(P, dtype=np.int64), ncorner)
+    dst = plan.idx.reshape(-1).astype(np.int64)
+    w = plan.w.reshape(-1)
+    keep = w != 0
+    src, dst, w = src[keep], dst[keep], w[keep]
+    order = np.argsort(dst, kind="stable")
+    src, dst, w = src[order], dst[order], w[order]
+    counts = np.bincount(dst, minlength=N)
+    C = int(counts.max()) if counts.size else 1
+    starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    idx_arr = np.zeros((C, N), np.int32)
+    w_arr = np.zeros((C, N), plan.w.dtype)
+    present = np.flatnonzero(counts)
+    for c in range(C):
+        sel = present[counts[present] > c]
+        idx_arr[c, sel] = src[starts[sel] + c]
+        w_arr[c, sel] = w[starts[sel] + c]
+    return TransposePlan(idx_arr, w_arr, plan.shape)
+
+
+@dataclass(frozen=True)
+class CSRTransposePlan:
+    """Sorted-COO form of a plan's adjoint: per (corner, point) tap a
+    (source point, weight, destination pixel) triple, destination ascending.
+
+    src: int32 [M]; w: float [M]; dst: int32 [M]; shape: the grid (Na, Nb)."""
+
+    src: np.ndarray
+    w: np.ndarray
+    dst: np.ndarray
+    shape: Tuple[int, int]
+
+
+def csr_transpose_plan(plan: BilinearPlan) -> CSRTransposePlan:
+    """Build the sorted-COO transpose of a plan (host, once)."""
+    ncorner, P = plan.idx.shape
+    src = np.tile(np.arange(P, dtype=np.int64), ncorner)
+    dst = plan.idx.reshape(-1).astype(np.int64)
+    w = plan.w.reshape(-1)
+    keep = w != 0
+    src, dst, w = src[keep], dst[keep], w[keep]
+    order = np.argsort(dst, kind="stable")
+    return CSRTransposePlan(src[order].astype(np.int32), w[order], dst[order].astype(np.int32),
+                            plan.shape)
+
+
+def apply_transpose_plan(tplan, values: torch.Tensor) -> torch.Tensor:
+    """Exact adjoint of :func:`apply_plan` from either transpose-plan form:
+    values [..., P] → [..., Na, Nb], one row gather."""
+    na, nb = tplan.shape
+    n_pts = int(values.shape[-1])
+    if isinstance(tplan, CSRTransposePlan):
+        plan = build_row_gather_plan(tplan.src, tplan.w, tplan.dst, na * nb, n_pts)
+    else:
+        plan = plan_from_gather_table(tplan.idx, tplan.w, n_pts)
+    plan = plan.to(values.device, values.dtype)
+    lead = values.shape[:-1]
+    return gather_planes(plan, values.reshape(lead + (1, -1))).reshape(lead + (na, nb))

@@ -38,18 +38,23 @@ from .precision import require_cuda
 # host tables (NumPy copies of surfh_tpu/core/fft.py:61-413)
 
 
-def ir2fr(imp_resp: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+def ir2fr(imp_resp: np.ndarray, shape: Tuple[int, int], center=None, real: bool = True) -> np.ndarray:
     """Transfer function of an impulse response, centered, non-unitary
-    (the `udft.ir2fr` semantics: pad to `shape`, roll the center to (0, 0),
-    non-normalized real FFT over the trailing ``len(shape)`` axes)."""
+    (the `udft.ir2fr` semantics: pad to `shape`, roll `center` — by default
+    the middle of the response — to (0, 0), non-normalized real FFT over the
+    trailing ``len(shape)`` axes, or the complex FFT with ``real=False``)."""
     imp_resp = np.asarray(imp_resp)
     ndim_s = len(shape)
-    center = [length // 2 for length in imp_resp.shape[-ndim_s:]]
+    if center is None:
+        center = [length // 2 for length in imp_resp.shape[-ndim_s:]]
     padded = np.zeros(imp_resp.shape[:-ndim_s] + tuple(shape), dtype=imp_resp.dtype)
     padded[tuple(slice(0, s) for s in imp_resp.shape)] = imp_resp
     for ax, shift in enumerate(center):
         padded = np.roll(padded, -shift, imp_resp.ndim - ndim_s + ax)
-    return np.fft.rfftn(padded, axes=list(range(imp_resp.ndim - ndim_s, imp_resp.ndim)))
+    axes = list(range(imp_resp.ndim - ndim_s, imp_resp.ndim))
+    if real:
+        return np.fft.rfftn(padded, axes=axes)
+    return np.fft.fftn(padded, axes=axes)
 
 
 def laplacian(ndim: int) -> np.ndarray:

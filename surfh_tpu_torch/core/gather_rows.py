@@ -17,11 +17,15 @@ contiguous: ``src [n_src, Q]`` → ``out [n_rows, Q]``.
   wide rows: a group of lanes per row) and its shape from Q and the plan.
 * `gather_rows` — the dispatch: a CPU tensor takes the plain version, a
   CUDA tensor launches the kernel or raises.  Never a fallback.
+* `gather_rows_op` — the same with a gradient (`GatherRows`): its backward
+  is `gather_rows` on the transposed plan (`RowGatherPlan.t`, built once
+  per plan and kept), so a derived adjoint runs the kernel both ways.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -99,6 +103,21 @@ class RowGatherPlan:
     @property
     def nnz(self) -> int:
         return int(self.idx.shape[0])
+
+    @functools.cached_property
+    def t(self) -> "RowGatherPlan":
+        """The transposed plan (n_src rows reading these n_rows): every tap
+        (source i → row r, weight w) as (r → i, w), stable-sorted by its new
+        row; NumPy or tensors as this plan's, built at first use and kept."""
+        if isinstance(self.idx, torch.Tensor):
+            order = torch.sort(self.idx.long(), stable=True).indices
+            dst = self.idx[order]
+            counts = torch.bincount(dst.long(), minlength=self.n_src)
+            row_ptr = torch.zeros(self.n_src + 1, dtype=torch.int64, device=self.idx.device)
+            row_ptr[1:] = torch.cumsum(counts, 0)
+            return RowGatherPlan(row_ptr.to(torch.int32), self.dst[order].contiguous(),
+                                 self.w[order].contiguous(), dst.contiguous(), self.n_rows)
+        return build_row_gather_plan(self.dst, self.w, self.idx, self.n_src, self.n_rows)
 
     def to(self, device, dtype) -> "RowGatherPlan":
         """Tensors on `device`; weights in `dtype`, indices int32."""
@@ -201,3 +220,25 @@ def gather_rows(src: torch.Tensor, plan: RowGatherPlan) -> torch.Tensor:
     if src.device.type == "cpu":
         return gather_rows_reference(src, plan)
     raise ValueError(f"gather_rows: unsupported device {src.device}")
+
+
+class GatherRows(torch.autograd.Function):
+    """`gather_rows` with a gradient: the backward is the gather on the
+    transposed plan (itself a `GatherRows`, so twice differentiable)."""
+
+    @staticmethod
+    def forward(src, plan):
+        return gather_rows(src, plan)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.plan = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return GatherRows.apply(grad.contiguous(), ctx.plan.t), None
+
+
+def gather_rows_op(src: torch.Tensor, plan: RowGatherPlan) -> torch.Tensor:
+    """`gather_rows` through autograd (see `GatherRows`)."""
+    return GatherRows.apply(src, plan)

@@ -1,35 +1,44 @@
-"""One MRS band over its dither pointings: the composed-gather path.
+"""One MRS band over its dither pointings: the channel pipeline.
 
-Counterpart of `surfh_tpu/models/channel.py`, for the composed window
-gather (the rank-basis and the W-plane modes).
+Counterpart of `surfh_tpu/models/channel.py`.
 
 Host side (NumPy, at construction): the parts of the reference
-`Channel.__init__` that the composed path reads — the Slicer, the
-per-pointing bilinear plans, the FOV bbox of the footprint, the slit
-tables, the calibrated direct box-sum offset and the composed window
-plans (gather + sorted-COO transpose).  The spectral PSF `wpsf`, the CSR
-gather plans and the banded-blur plans are built once, at first use.
+`Channel.__init__` that the port's paths read — the Slicer, the
+per-pointing gridding plans (bilinear, or nearest-neighbour with
+``gridding="nn"``), the FOV bbox of the footprint, the slit tables, the
+calibrated direct box-sum offset and, where that offset exists and
+``SURFH_COMPOSED_GRIDDING`` (read at construction, as the reference reads
+it) is not ``0``, the composed window plans (gather + sorted-COO
+transpose).  Otherwise the channel is staged: the gather of the plans onto
+the local grid, then the direct box-sum (a reshape-sum of srf rows at the
+calibrated offset) or, with no offset, the FFT × `otf_combined` box-sum
+with the strided slit read (reference `_forward_one_pointing`).  The
+spectral PSF `wpsf`, the CSR gather plans and the banded-blur plans are
+built once, at first use; `regrid` gives the same band with its gridding
+tables built anew and its spectral tables shared.
 
-Device side: the per-pointing forward (composed gather → slit weights →
-spectral blur, reference `_forward_one_pointing` with `cgrid`) and its
-transpose (blur transpose → slit weights → composed transpose, reference
-`one_pointing` with the COO transpose), pointings unrolled in Python.
-Both composed stages run the row-gather kernel on ``[n, Q]`` rows; the
-blur is the dense GEMM or the banded kernel pair (`core.wblur_banded`).
+Device side, on ``[n, Q]`` rows: the per-pointing forward (gather, the
+staged box-sum and slit read where staged, slit weights, spectral blur)
+and its exact transpose, pointings unrolled in Python; the gathers run the
+row-gather kernel (kernel #1) and the blur is the dense GEMM or the banded
+kernel pair (`core.wblur_banded`).  After `to(device, dtype)` the channel
+applies itself to cubes as the reference does: `forward(cube)` →
+``[P, S, λ_det, α_out]``, the exact transpose `adjoint` (the whole λ axis)
+and `adjoint_windowed` (its band's λ window), and `adjoint_interp`, the
+reference's approximate adjoint through the reverse plans `plans_rev`.
 
 Data side (float64, as in the reference): `sliceToCube` (host) and
 `sliceToWindow` (its band's λ window alone, in torch on a device),
 `realData_cubeToSlice` and `realData_sliceToCube` re-project detector
 slices and cubes through the SRF-box OTF (`_otf_sr`, `decalf`), the dirac
-spectral response (`wpsf_dirac`) and the per-pointing bilinear plans
-(`plans_fwd`, and `plans_rev` local → cube, built at first use).
-
-Not ported yet (raise NotImplementedError): the staged gridding path and
-the FFT box-sum fallback, used when the direct box-sum is not exact.
+spectral response (`wpsf_dirac`) and the per-pointing plans (`plans_fwd`,
+and `plans_rev` local → cube, built at first use).
 """
 
 from __future__ import annotations
 
+import copy
+import os
 from math import ceil
 
 import numpy as np
@@ -38,7 +47,8 @@ import torch
 from ..core import bilinear, fft, numpy_ref
 from ..core.gather_rows import (build_row_gather_plan, gather_rows, gather_rows_reference,
                                 plan_from_gather_table)
-from ..core.wblur import wblur_rows, wblur_rows_t
+from ..core.nearest import nearest_plan
+from ..core.wblur import rows_table, wblur_rows, wblur_rows_t
 from ..core.wblur_banded import (BandPlan, BandPlanT, build_band_plan, build_band_plan_t,
                                  wblur_banded, wblur_banded_reference, wblur_banded_t,
                                  wblur_banded_t_reference)
@@ -59,10 +69,27 @@ def gather_plans_from_composed(stack, n_patch: int, n_out: int):
     return fwd, adj
 
 
+def gather_device_tables(t: dict, device, dtype) -> dict:
+    """A channel's host tables → its device gather tables: slit weights
+    [S·A, sb, 1], the CSR gather plans and, for a staged channel, the
+    box-sum OTF [nla, nlb//2+1]."""
+    sw = torch.as_tensor(np.asarray(t["slit_w"])).to(device=device, dtype=dtype)
+    out = {
+        "slit_w": sw.reshape(-1, sw.shape[-1], 1).contiguous(),
+        "gather_fwd": [p.to(device, dtype) for p in t["gather_fwd"]],
+        "gather_t": [p.to(device, dtype) for p in t["gather_t"]],
+    }
+    if "otf_box" in t:
+        ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+        out["otf_box"] = torch.as_tensor(t["otf_box"]).to(device=device, dtype=ctype)
+    return out
+
+
 class Channel:
     """Forward model of one IFU band across its dither pointings.
 
-    `dtype` is the NumPy dtype of the host tables (float32 or float64)."""
+    `dtype` is the NumPy dtype of the host tables (float32 or float64);
+    `gridding` is "bilinear" or "nn" (the reference's `nearest_plan`)."""
 
     def __init__(
         self,
@@ -74,6 +101,7 @@ class Channel:
         pointings: CoordList,
         step_degree: float,
         dtype=np.float32,
+        gridding: str = "bilinear",
     ):
         self.alpha_axis = np.asarray(alpha_axis, np.float64)
         self.beta_axis = np.asarray(beta_axis, np.float64)
@@ -106,19 +134,48 @@ class Channel:
         )
         self.local_im_shape = (len(local_alpha_axis), len(local_beta_axis))
         self.imshape = (len(self.alpha_axis), len(self.beta_axis))
+        self.ishape = (len(self.global_wavelength_axis),) + self.imshape
         # SRF box-sum OTF and the half-SRF phase shift, on the local grid
         self._otf_sr = fft.box_otf_sr(self.srf, self.local_im_shape, np.complex128)
         self.decalf = fft.half_srf_shift_otf(self.srf, self.local_im_shape, np.complex128)
+        ctype = np.complex64 if self.npdtype == np.float32 else np.complex128
+        self.otf_combined = np.asarray(self._otf_sr * self.decalf, ctype)
+        self.otf_combined_conj = np.asarray((self._otf_sr * self.decalf).conj(), ctype)
 
-        # per-pointing bilinear plans (cube grid → rotated local grid)
+        a_starts, b_starts, weights = self.slicer.slit_tables()
+        self.slit_a_starts = a_starts
+        self.slit_b_starts = b_starts
+        n_aout = self.oshape[3]
+        self.slit_weights_sub = np.asarray(weights[:, : n_aout * self.srf : self.srf, :], self.npdtype)
+        self.slit_shape = self.slicer.get_slit_shape()
+        self.box_offset = self._calibrate_box_offset()
+
+        self._wpsf = None
+        self._wpsf_dirac = None
+        self._band_plans = {}
+        self.device = None
+        self.dtype = None
+        self._build_gridding(gridding)
+
+    def _build_gridding(self, gridding: str) -> None:
+        """The per-pointing plans (cube grid → rotated local grid), the FOV
+        bbox and, where the channel is composed, the composed window plans;
+        reads SURFH_COMPOSED_GRIDDING."""
+        if gridding not in ("bilinear", "nn"):
+            raise ValueError(f"unknown gridding mode {gridding!r}")
+        self.gridding = gridding
+        self._plan_builder = nearest_plan if gridding == "nn" else bilinear.bilinear_plan
         plans = []
         for pointing in self.pointings:
             fov = self.instr.fov + pointing
-            ga, gb = fov.local2global(local_alpha_axis, local_beta_axis)
-            plans.append(bilinear.bilinear_plan(
-                self.alpha_axis, self.beta_axis, bilinear.grid_points(ga, gb)))
+            ga, gb = fov.local2global(self.local_alpha_axis, self.local_beta_axis)
+            plans.append(self._plan_builder(self.alpha_axis, self.beta_axis,
+                                            bilinear.grid_points(ga, gb)))
         self.plans_fwd = plans
         self._plans_rev = None
+        self._rev_dev = None
+        self._gather_plans = None
+        self.tables = None
         # FOV bbox: union over pointings of every nonzero-weight source pixel
         nb_g = self.imshape[1]
         nz = [p.idx[p.w != 0] for p in plans]
@@ -131,24 +188,14 @@ class Channel:
             a0, a1, b0, b1 = 0, 1, 0, 1
         self.tbbox = (a0, b0, a1 - a0, b1 - b0)
 
-        a_starts, b_starts, weights = self.slicer.slit_tables()
-        self.slit_a_starts = a_starts
-        self.slit_b_starts = b_starts
+        self.composed_stack = None
+        if self.box_offset is None or os.environ.get("SURFH_COMPOSED_GRIDDING", "1") == "0":
+            return  # staged
         n_aout = self.oshape[3]
-        self.slit_weights_sub = np.asarray(weights[:, : n_aout * self.srf : self.srf, :], self.npdtype)
-        self.slit_shape = self.slicer.get_slit_shape()
-
-        self.box_offset = self._calibrate_box_offset()
-        if self.box_offset is None:
-            raise NotImplementedError(
-                f"channel {self.instr.name}: the slit windows touch the local grid "
-                "edge, so the composed gather is unavailable; the staged gridding "
-                "path with the FFT box-sum is ROADMAP A9, not ported yet"
-            )
         sb = self.slit_shape[2]
         cplans = [
             bilinear.compose_window_plan(
-                p, a_starts, b_starts, self.box_offset, self.srf, n_aout, sb,
+                p, self.slit_a_starts, self.slit_b_starts, self.box_offset, self.srf, n_aout, sb,
                 self.local_im_shape, self.tbbox, self.npdtype,
             )
             for p in plans
@@ -167,10 +214,20 @@ class Channel:
             np.stack([padc(c.cw, 0) for c in cplans]),
             np.stack([padc(c.cdst, n_patch - 1) for c in cplans]),
         )
-        self._wpsf = None
-        self._wpsf_dirac = None
-        self._gather_plans = None
-        self._band_plans = {}
+
+    def regrid(self, gridding: str) -> "Channel":
+        """The same band with its gridding tables built anew (`gridding`,
+        and SURFH_COMPOSED_GRIDDING read now) and its spectral tables (wpsf,
+        band plans) shared: they depend on the band and the axes alone."""
+        new = copy.copy(self)
+        new._build_gridding(gridding)
+        new.device = new.dtype = None
+        return new
+
+    @property
+    def staged(self) -> bool:
+        """True where the gridding is the staged pipeline (no composed plans)."""
+        return self.composed_stack is None
 
     # ------------------------------------------------------------------
     @property
@@ -242,7 +299,7 @@ class Channel:
 
     @property
     def plans_rev(self):
-        """Reverse (local → cube grid) interpolation plans per pointing,
+        """Reverse (local → cube grid) plans per pointing, of the gridding's kind,
         zero outside the local grid; built on first use (they evaluate at
         every cube pixel) for the data re-projections."""
         if self._plans_rev is None:
@@ -250,7 +307,7 @@ class Channel:
             for pointing in self.pointings:
                 fov = self.instr.fov + pointing
                 la, lb = fov.global2local(self.alpha_axis, self.beta_axis)
-                self._plans_rev.append(bilinear.bilinear_plan(
+                self._plans_rev.append(self._plan_builder(
                     self.local_alpha_axis, self.local_beta_axis,
                     bilinear.grid_points(la, lb), fill_out_of_bounds=True))
         return self._plans_rev
@@ -265,11 +322,27 @@ class Channel:
         return self._wpsf
 
     def gather_plans(self):
-        """(forward, transpose) per-pointing CSR plans of the composed stack,
-        built once."""
+        """(forward, transpose) per-pointing CSR plans, built once: of the
+        composed stack (patch rows → window rows), or staged, of the plans
+        rebased to the FOV-bbox patch (patch rows → local-grid rows)."""
         if self._gather_plans is None:
-            n_patch = self.tbbox[2] * self.tbbox[3]
-            self._gather_plans = gather_plans_from_composed(self.composed_stack, n_patch, self.n_out)
+            a0, b0, ha, wb = self.tbbox
+            n_patch = ha * wb
+            if not self.staged:
+                self._gather_plans = gather_plans_from_composed(self.composed_stack, n_patch,
+                                                                self.n_out)
+            else:
+                nb_g = self.imshape[1]
+                nloc = self.local_im_shape[0] * self.local_im_shape[1]
+                fwd = []
+                for p in self.plans_fwd:
+                    idx = p.idx.astype(np.int64)
+                    pidx = (np.clip(idx // nb_g - a0, 0, ha - 1) * wb
+                            + np.clip(idx % nb_g - b0, 0, wb - 1))  # zero-weight taps may fall outside
+                    dst = np.broadcast_to(np.arange(p.npoints), idx.shape)
+                    fwd.append(build_row_gather_plan(pidx, np.asarray(p.w, self.npdtype), dst, nloc,
+                                                     n_patch))
+                self._gather_plans = fwd, [f.t for f in fwd]
         return self._gather_plans
 
     def band_plan(self, rtol: float) -> BandPlan:
@@ -289,15 +362,19 @@ class Channel:
         return self._band_plans[key]
 
     def host_tables(self) -> dict:
-        """The channel's host tables: wpsf [K, W, sb], slit weights [S, A, sb]
-        and the per-pointing forward / transpose gather plans."""
+        """The channel's host tables: wpsf [K, W, sb], slit weights [S, A, sb],
+        the per-pointing forward / transpose gather plans and, staged, the
+        box-sum OTF `otf_box` [nla, nlb//2+1]."""
         fwd, adj = self.gather_plans()
-        return {
+        t = {
             "wpsf": self.wpsf,
             "slit_w": self.slit_weights_sub,
             "gather_fwd": fwd,
             "gather_t": adj,
         }
+        if self.staged:
+            t["otf_box"] = self.otf_combined[0]
+        return t
 
     # ------------------------------------------------------------------
     # data ↔ cube re-projections (host NumPy float64, reference :1326-1410)
@@ -393,16 +470,73 @@ class Channel:
         return numpy_ref.apply_plan(plan0, sum_t).reshape(W, *self.imshape)
 
     # ------------------------------------------------------------------
-    # device side (tables from `models.spectro`): one pipeline for both
-    # modes, on rows of Q planes — Q = M·R rank-basis planes (rank mode) or
-    # Q = W λ-planes (W-plane mode).  The blur is the dense GEMM against
-    # t["wq"] [K, sb·Q], or with `banded` the banded kernel pair on
-    # t["band"] (W-plane mode only).  `plain=True` runs every kernel's plain
-    # version instead (the comparison on the card).
+    # device side (tables from `models.spectro`, or the channel's own from
+    # `to`): one pipeline for every mode, on rows of Q planes — Q = M·R
+    # rank-basis planes (rank mode) or Q = W λ-planes (W-plane mode).  The
+    # blur is the dense GEMM against t["wq"] [K, sb·Q], or with `banded`
+    # the banded kernel pair on t["band"] (W-plane mode only).  `plain=True`
+    # runs every kernel's plain version instead (the comparison on the card).
+    def bbox_rows(self, planes: torch.Tensor) -> torch.Tensor:
+        """The FOV-bbox patch of λ-planes [W, Na, Nb], laid out pixel-major
+        for the gather: [ha·wb, W] (a copy)."""
+        a0, b0, ha, wb = self.tbbox
+        patch = planes[:, a0 : a0 + ha, b0 : b0 + wb]
+        # a bbox of whole planes would reshape to a strided view: force the copy
+        return patch.permute(1, 2, 0).reshape(ha * wb, -1).contiguous()
+
+    def add_bbox_rows_(self, planes: torch.Tensor, rows: torch.Tensor) -> None:
+        """Transpose of :meth:`bbox_rows`: add rows [ha·wb, W] into `planes`."""
+        a0, b0, ha, wb = self.tbbox
+        planes[:, a0 : a0 + ha, b0 : b0 + wb].add_(rows.view(ha, wb, -1).permute(2, 0, 1))
+
+    def _slit_windows(self, loc: torch.Tensor, t: dict) -> torch.Tensor:
+        """Staged box-sum and slit read: local-grid rows [nla·nlb, Q] →
+        window rows [S·A·sb, Q] (reference `_forward_one_pointing`): the
+        direct reshape-sum of srf rows at the calibrated offset, or with no
+        offset the FFT × otf_combined box-sum read every srf-th row."""
+        nla, nlb = self.local_im_shape
+        _, S, _, A = self.oshape
+        sb, srf = self.slit_shape[2], self.srf
+        q = loc.shape[1]
+        img = loc.view(nla, nlb, q)
+        starts = zip(self.slit_a_starts.tolist(), self.slit_b_starts.tolist())
+        off = self.box_offset
+        if off is None:
+            spec = torch.fft.rfftn(img, dim=(0, 1), norm="ortho") * t["otf_box"][:, :, None]
+            img = torch.fft.irfftn(spec, s=(nla, nlb), dim=(0, 1), norm="ortho")
+            wins = [img[a0 : a0 + (A - 1) * srf + 1 : srf, b0 : b0 + sb] for a0, b0 in starts]
+        else:
+            wins = [img[a0 + off : a0 + off + A * srf, b0 : b0 + sb].reshape(A, srf, sb, q).sum(1)
+                    for a0, b0 in starts]
+        return torch.stack(wins).reshape(S * A * sb, q)
+
+    def _slit_windows_t(self, win: torch.Tensor, t: dict) -> torch.Tensor:
+        """Exact transpose of :meth:`_slit_windows`: window rows → local-grid
+        rows (adjacent slits share a β edge column: the adds accumulate)."""
+        nla, nlb = self.local_im_shape
+        _, S, _, A = self.oshape
+        sb, srf = self.slit_shape[2], self.srf
+        q = win.shape[1]
+        w4 = win.view(S, A, sb, q)
+        img = win.new_zeros((nla, nlb, q))
+        starts = zip(self.slit_a_starts.tolist(), self.slit_b_starts.tolist())
+        off = self.box_offset
+        if off is None:
+            for s, (a0, b0) in enumerate(starts):
+                img[a0 : a0 + (A - 1) * srf + 1 : srf, b0 : b0 + sb] += w4[s]
+            spec = torch.fft.rfftn(img, dim=(0, 1), norm="ortho") * t["otf_box"].conj()[:, :, None]
+            img = torch.fft.irfftn(spec, s=(nla, nlb), dim=(0, 1), norm="ortho")
+        else:
+            for s, (a0, b0) in enumerate(starts):
+                img[a0 + off : a0 + off + A * srf, b0 : b0 + sb].view(A, srf, sb, q).add_(
+                    w4[s][:, None])
+        return img.reshape(nla * nlb, q).contiguous()  # the FFT's output is strided
+
     def forward_rows(self, src: torch.Tensor, t: dict, plain: bool = False,
                      banded: bool = False) -> torch.Tensor:
         """Patch rows src [ha·wb, Q] → detector blocks [P, S, K, A]: per
-        pointing the composed gather, the slit weights, the spectral blur."""
+        pointing the composed gather (or the staged gather, box-sum and slit
+        read), the slit weights, the spectral blur."""
         P, S, K, A = self.oshape
         sb = self.slit_shape[2]
         q = src.shape[1]
@@ -410,7 +544,9 @@ class Channel:
         blur = wblur_banded_reference if plain else wblur_banded
         outs = []
         for p in range(P):
-            win = gather(src, t["gather_fwd"][p])  # [S·A·sb, Q]
+            win = gather(src, t["gather_fwd"][p])  # [S·A·sb, Q], staged: [nla·nlb, Q]
+            if self.staged:
+                win = self._slit_windows(win, t)
             win = (win.view(S * A, sb, q) * t["slit_w"]).view(S * A, sb * q)
             y2d = blur(win, t["band"]) if banded else wblur_rows(win, t["wq"])
             outs.append(y2d.view(S, A, K).transpose(1, 2))
@@ -430,7 +566,81 @@ class Channel:
             y2d = yc[p].transpose(1, 2).reshape(S * A, K)
             win = blur_t(y2d, t["band"]) if banded else wblur_rows_t(y2d, t["wq"])
             q = win.shape[1] // sb
-            win = win.view(S * A, sb, q) * t["slit_w"]
-            patch = gather(win.view(S * A * sb, q), t["gather_t"][p])
+            win = (win.view(S * A, sb, q) * t["slit_w"]).view(S * A * sb, q)
+            if self.staged:
+                win = self._slit_windows_t(win, t)
+            patch = gather(win, t["gather_t"][p])
             acc = patch if acc is None else acc.add_(patch)
         return acc
+
+    # ------------------------------------------------------------------
+    # the channel on cubes (reference `forward` / `adjoint` /
+    # `adjoint_windowed` / `adjoint_interp`), after `to`
+    def to(self, device, dtype=torch.float32) -> "Channel":
+        """Put the channel's own tables (gather plans, slit weights, the
+        dense wpsf table, staged: the box-sum OTF) on `device` in `dtype`."""
+        self.device = torch.device(device)
+        self.dtype = dtype
+        t = self.host_tables()
+        wpsf = torch.as_tensor(np.asarray(t["wpsf"])).to(device=self.device, dtype=dtype)
+        self.tables = {**gather_device_tables(t, self.device, dtype), "wq": rows_table(wpsf)}
+        self._rev_dev = None
+        return self
+
+    def _tensor(self, a, shape) -> torch.Tensor:
+        if self.tables is None:
+            raise RuntimeError("call .to(device, dtype) before applying the channel")
+        return torch.as_tensor(a).to(device=self.device, dtype=self.dtype).reshape(shape)
+
+    def forward(self, cube, plain: bool = False) -> torch.Tensor:
+        """cube [L, Na, Nb] → detector blocks [P, S, λ_det, α_out]."""
+        x = self._tensor(cube, self.ishape)
+        ws = self.wslice
+        return self.forward_rows(self.bbox_rows(x[ws.start : ws.stop]), self.tables, plain)
+
+    def adjoint_windowed(self, y, plain: bool = False) -> torch.Tensor:
+        """Exact transpose of :meth:`forward` restricted to the λ window:
+        [P, S, λ_det, α_out] → [W, Na, Nb]."""
+        rows = self.adjoint_rows(self._tensor(y, self.oshape), self.tables, plain)
+        out = torch.zeros((self.n_wslice,) + self.imshape, device=self.device, dtype=self.dtype)
+        self.add_bbox_rows_(out, rows)
+        return out
+
+    def adjoint(self, y, plain: bool = False) -> torch.Tensor:
+        """Exact transpose of :meth:`forward`: → cube [L, Na, Nb], zero
+        outside the band's λ window."""
+        out = torch.zeros(self.ishape, device=self.device, dtype=self.dtype)
+        ws = self.wslice
+        out[ws.start : ws.stop] = self.adjoint_windowed(y, plain)
+        return out
+
+    def adjoint_interp(self, y, plain: bool = False) -> torch.Tensor:
+        """The reference's approximate adjoint (reference
+        `_adjoint_interp_fn`): per pointing and slit the β-repeat and wblur_t,
+        the α upsample and β weights, the conj box-sum OTF, then the reverse
+        plans onto the cube grid (kernel #1) → the λ-window cube [W, Na, Nb]."""
+        y = self._tensor(y, self.oshape)
+        P, S, K, A = self.oshape
+        nla, nlb = self.local_im_shape
+        sb, srf = self.slit_shape[2], self.srf
+        W = self.n_wslice
+        if self._rev_dev is None:
+            n_loc = nla * nlb
+            self._rev_dev = [plan_from_gather_table(p.idx, p.w, n_loc).to(self.device, self.dtype)
+                             for p in self.plans_rev]
+        ctype = torch.complex64 if self.dtype == torch.float32 else torch.complex128
+        otf_c = torch.as_tensor(self.otf_combined_conj[0]).to(self.device, ctype)
+        wrow = torch.as_tensor(self.slit_weights_sub[:, 0, :]).to(self.device, self.dtype)  # [S, sb]
+        gather = gather_rows_reference if plain else gather_rows
+        out = None
+        for p in range(P):
+            local = torch.zeros((nla, nlb, W), device=self.device, dtype=self.dtype)
+            for s, (a0, b0) in enumerate(zip(self.slit_a_starts.tolist(),
+                                             self.slit_b_starts.tolist())):
+                bt = wblur_rows_t(y[p, s].T, self.tables["wq"]).view(A, sb, W)
+                local[a0 : a0 + A * srf : srf, b0 : b0 + sb] += bt * wrow[s][None, :, None]
+            spec = torch.fft.rfftn(local, dim=(0, 1), norm="ortho") * otf_c[:, :, None]
+            sum_t = torch.fft.irfftn(spec, s=(nla, nlb), dim=(0, 1), norm="ortho")
+            rows = gather(sum_t.reshape(nla * nlb, W).contiguous(), self._rev_dev[p])
+            out = rows if out is None else out.add_(rows)
+        return out.T.reshape((W,) + self.imshape)

@@ -36,8 +36,8 @@ Channels are independent, so `workers > 1` builds them in parallel
 processes.  The window-local stamp-mode host tables are a pure function of
 the configuration and are cached on disk (`table_cache_path`).
 
-Not ported yet (raise NotImplementedError, naming the ROADMAP item):
-nearest-neighbour gridding.
+Gridding is bilinear or nearest-neighbour (``gridding="nn"``) in every
+mode, composed or staged as each channel is (`models.channel`).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ from ..core.wblur import rows_table
 from ..core.wblur_banded import banded_tables
 from ..instrument.geometry import CoordList, get_srf
 from ..instrument.ifu import IFU
-from .channel import Channel
+from .channel import Channel, gather_device_tables
 
 TABLE_CACHE_VERSION = 1
 # the modules whose code builds the cached tables: their bytes are part of the key
@@ -213,15 +213,6 @@ def _map_given_channels(channels, jobs, workers: int):
     return [(chan, t, _merge_stamp_tables(t, out)) for chan, t, out in zip(channels, tabs, outs)]
 
 
-def _gather_tables(t: dict, device, dtype) -> dict:
-    sw = torch.as_tensor(np.asarray(t["slit_w"])).to(device=device, dtype=dtype)
-    return {
-        "slit_w": sw.reshape(-1, sw.shape[-1], 1).contiguous(),
-        "gather_fwd": [p.to(device, dtype) for p in t["gather_fwd"]],
-        "gather_t": [p.to(device, dtype) for p in t["gather_t"]],
-    }
-
-
 def _complex_dtype(dtype) -> torch.dtype:
     return torch.complex64 if dtype == torch.float32 else torch.complex128
 
@@ -248,7 +239,7 @@ def device_tables(host: dict, device, dtype=torch.float32) -> dict:
     if "sotf" in host:
         for t in host["chan"]:
             wpsf = f(t["wpsf"])
-            c = {**_gather_tables(t, device, dtype), "wq": rows_table(wpsf)}
+            c = {**gather_device_tables(t, device, dtype), "wq": rows_table(wpsf)}
             if "band_plan" in t:
                 c["band"] = banded_tables(wpsf, t["band_plan"], t["band_plan_t"])
             chans.append(c)
@@ -259,7 +250,7 @@ def device_tables(host: dict, device, dtype=torch.float32) -> dict:
             "chan": chans,
         }
     for t in host["chan"]:
-        c = _gather_tables(t, device, dtype)
+        c = gather_device_tables(t, device, dtype)
         c["dftm"] = {k: f(v) for k, v in t["dftm"].items()} if "dftm" in t else None
         if "wpsf_q" in t:
             sotf = f(t["sotf_ri"])
@@ -341,9 +332,10 @@ class SpectroSigRLSCT:
 
     ``conv_impl="auto"`` resolves as on the reference's TPU: "matmul"
     window-local (the card plays the TPU's part), "fft" with a
-    materialized sotf.  Not ported (NotImplementedError, with the ROADMAP
-    item): ``gridding="nn"`` (A9); ``conv_precision`` other than "highest"
-    (ROADMAP "Do not port": not safe under CG).
+    materialized sotf.  ``gridding`` is "bilinear" or "nn" in every mode.
+    Not ported (NotImplementedError, with the ROADMAP item):
+    ``conv_precision`` other than "highest" (ROADMAP "Do not port": not
+    safe under CG).
 
     `dtype` (NumPy or torch) is the type of the host tables; :meth:`to`
     moves them to a torch device and dtype.  `workers` > 1 builds channels
@@ -395,8 +387,6 @@ class SpectroSigRLSCT:
         if sotf is None and not (self.window_local and conv_impl == "matmul"):
             raise ValueError("psf_stack-only mode requires window_local=True and "
                              "conv_impl='matmul' (FFT paths need a materialized sotf)")
-        if gridding == "nn":
-            raise NotImplementedError("gridding='nn' (core/nearest.py) is ROADMAP A9, not ported yet")
         if conv_precision != "highest":
             raise NotImplementedError(
                 f"conv_precision={conv_precision!r}: not ported (ROADMAP 'Do not port': "
@@ -411,6 +401,7 @@ class SpectroSigRLSCT:
         self.conv_impl = conv_impl
         self.conv_precision = conv_precision
         self.wblur_impl = wblur_impl
+        self.gridding = gridding
         self.wblur_band_rtol = float(wblur_band_rtol)
         self.lmm = templates is not None
         self.templates = np.asarray(templates) if self.lmm else None
@@ -442,7 +433,7 @@ class SpectroSigRLSCT:
             wslices.append(wsl)
             job = {
                 "chan_args": (instr, self.alpha_axis, self.beta_axis, self.wavelength_axis, srf,
-                              CoordList(pointings[it]), self.step_degree, self.npdtype),
+                              CoordList(pointings[it]), self.step_degree, self.npdtype, gridding),
                 "n_w": wsl.stop - wsl.start,
                 "mode": "stamps" if self.stamps else "plain",
             }
@@ -466,6 +457,9 @@ class SpectroSigRLSCT:
             else:
                 if len(channels) != len(jobs):
                     raise ValueError(f"{len(channels)} channels for {len(jobs)} instruments")
+                if any(chan.gridding != gridding for chan in channels):
+                    raise ValueError(f"given channels are not gridding={gridding!r}: use "
+                                     "Channel.regrid")
                 built = _map_given_channels(channels, jobs, int(workers))
             self.table_cache_hit = False
             if cache is not None:
@@ -517,7 +511,8 @@ class SpectroSigRLSCT:
             _hash_array(h, instr.pce)
             _hash_array(h, np.asarray([(p.alpha, p.beta) for p in pts], np.float64))
         h.update(repr((self.conv_impl, self.conv_freq_rtol, self.conv_rank_rtol,
-                       self.conv_precision, self.npdtype.str, self.step_degree)).encode())
+                       self.conv_precision, self.npdtype.str, self.step_degree, self.gridding,
+                       os.environ.get("SURFH_COMPOSED_GRIDDING", "1") != "0")).encode())
         return os.path.join(loc, f"tables_{h.hexdigest()[:20]}.pkl")
 
     def host_tables(self) -> dict:
@@ -562,7 +557,7 @@ class SpectroSigRLSCT:
             return fft.conv_otf_matmul_rows(x[ws.start : ws.stop], *t["otf"], t["dftm"])
         cube_w = (lmm.lmm_maps2cube(x, self._tpl_w(c)) if self.lmm
                   else x[ws.start : ws.stop].clone())
-        return self._bbox_rows(fft.conv_otf_(cube_w, t["sotf"]), c)
+        return self.channels[c].bbox_rows(fft.conv_otf_(cube_w, t["sotf"]))
 
     def _conv_t(self, rows, c):
         """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the cube)."""
@@ -575,7 +570,7 @@ class SpectroSigRLSCT:
             return fft.conv_otf_matmul_rows_t(rows, *t["otf"], t["dftm"])
         chan = self.channels[c]
         cube_w = torch.zeros((chan.n_wslice,) + self.imshape, device=self.device, dtype=self.dtype)
-        self._add_bbox_rows_(cube_w, rows, c)
+        chan.add_bbox_rows_(cube_w, rows)
         fft.conv_otf_(cube_w, t["sotf"], conj=True)
         return lmm.lmm_cube2maps(cube_w, self._tpl_w(c)) if self.lmm else cube_w
 
@@ -704,29 +699,16 @@ class SpectroSigRLSCT:
             masks.append(global_img > threshold)
         return masks
 
-    def _bbox_rows(self, planes: torch.Tensor, c: int) -> torch.Tensor:
-        """Channel c's FOV-bbox patch of λ-planes [W, Na, Nb], laid out
-        pixel-major for the gather: [ha·wb, W] (a copy)."""
-        a0, b0, ha, wb = self.channels[c].tbbox
-        patch = planes[:, a0 : a0 + ha, b0 : b0 + wb]
-        # a bbox of whole planes would reshape to a strided view: force the copy
-        return patch.permute(1, 2, 0).reshape(ha * wb, -1).contiguous()
-
-    def _add_bbox_rows_(self, planes: torch.Tensor, rows: torch.Tensor, c: int) -> None:
-        """Transpose of :meth:`_bbox_rows`: add rows [ha·wb, W] into `planes`."""
-        a0, b0, ha, wb = self.channels[c].tbbox
-        planes[:, a0 : a0 + ha, b0 : b0 + wb].add_(rows.view(ha, wb, -1).permute(2, 0, 1))
-
     def patch_rows(self, cube: torch.Tensor, c: int) -> torch.Tensor:
         """Channel c's λ-window of the FOV-bbox patch of `cube`, laid out
         pixel-major for the gather: [W, ha, wb] → [ha·wb, W] (a copy)."""
         ws = self.channels[c].wslice
-        return self._bbox_rows(cube[ws.start : ws.stop], c)
+        return self.channels[c].bbox_rows(cube[ws.start : ws.stop])
 
     def add_patch_rows_(self, cube: torch.Tensor, rows: torch.Tensor, c: int) -> None:
         """Transpose of :meth:`patch_rows`: add rows [ha·wb, W] into `cube`."""
         ws = self.channels[c].wslice
-        self._add_bbox_rows_(cube[ws.start : ws.stop], rows, c)
+        self.channels[c].add_bbox_rows_(cube[ws.start : ws.stop], rows)
 
     def blurred_cube(self, x) -> torch.Tensor:
         """C T x: the templates' cube (the cube itself in cube mode)

@@ -3,7 +3,8 @@
 
 J(x) = µ_s/2·‖Hx − y‖² + µ_r/2·‖Dx‖², D the circular first differences over
 the two spatial axes of each map (``gradient="separated"``) or the joint
-Fourier Laplacian (``"joint"``).  The normal operator Q = µ_s·HᵗH + µ_r·DᵀD
+Fourier Laplacian (``"joint"``).  `QuadCriterion_MRS_2D` is the same over
+one [Nx, Ny] image (the differences on axes 0 and 1).  The normal operator Q = µ_s·HᵗH + µ_r·DᵀD
 uses the model's fused `normal`; the µ's ride as tensors in `op_args`, so
 one `normal_op` serves every µ.  Nothing is cached per model: eager
 PyTorch has no compiled program to reuse.
@@ -64,7 +65,8 @@ class QuadCriterion_MRS:
     """J(x) = µ_s/2‖Hx−y‖² + µ_r/2‖Dx‖², minimized by `lcg` or `mmmg`.
 
     `model_spectro` exposes `forward`, `adjoint`, `normal`, `ishape`,
-    `device` and `dtype` (the port's `SpectroSigRLSCT` after `.to()`).
+    `device` and `dtype` (the port's `SpectroSigRLSCT` after `.to()`, or
+    any `core.linop.LinOp`).
     `printing` prints the solve's time; `gradient` is "separated" or
     "joint".  `use_fwadj` (a model's fused `fwadj` Hessian) is not ported."""
 
@@ -153,4 +155,29 @@ class QuadCriterion_MRS:
             reg = self.mu_reg * torch.sum(diff_rows(x_hat) ** 2 + diff_cols(x_hat) ** 2)
         else:
             reg = self.mu_reg * torch.sum(self._joint.D(x_hat) ** 2)
+        return float((data_term + reg) / 2)
+
+
+class QuadCriterion_MRS_2D(QuadCriterion_MRS):
+    """The 2-D single-λ deconvolution criterion (reference
+    `criterion.py::QuadCriterion_MRS_2D`): the separated prior over one
+    image [Nx, Ny], circular differences on axes 0 and 1."""
+
+    def __init__(self, mu_spectro, y_spectro, model_spectro, mu_reg, printing: bool = False,
+                 gradient: str = "separated"):
+        if gradient != "separated":
+            raise NotImplementedError("2-D criterion supports the separated prior")
+        super().__init__(mu_spectro, y_spectro, model_spectro, mu_reg, printing, "separated")
+
+    def _dtd(self, x):
+        return (4 * x - torch.roll(x, 1, dims=0) - torch.roll(x, -1, dims=0)
+                - torch.roll(x, 1, dims=1) - torch.roll(x, -1, dims=1))
+
+    def get_crit_val(self, x_hat) -> float:
+        x_hat = torch.as_tensor(x_hat).to(device=self.model.device, dtype=self.model.dtype)
+        x_hat = x_hat.reshape(self.shape_of_output)
+        data_term = self.mu_spectro * torch.sum((self.y_spectro - self.model.forward(x_hat)) ** 2)
+        dr = torch.roll(x_hat, 1, dims=0) - x_hat
+        dc = torch.roll(x_hat, 1, dims=1) - x_hat
+        reg = self.mu_reg * torch.sum(dr**2 + dc**2)
         return float((data_term + reg) / 2)

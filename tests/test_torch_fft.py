@@ -5,7 +5,8 @@ the reference's (≤1e-12 relative: the same DFT-matmul chain, summed in
 another order), in both layouts, with truncated frequency support and a
 bbox, plus the port's own transpose dot test; the wblur GEMM pair against
 `wblur_sum_beta_batched` and its transpose; and the host DFT tables
-bit-for-bit against the reference's.
+bit-for-bit against the reference's, `ir2fr` with the reference's `center`
+and `real` parameters among them.
 """
 
 import jax.numpy as jnp
@@ -127,3 +128,18 @@ def test_wblur_pair_matches_reference():
     lhs = float(torch.sum(wblur.wblur_rows(win, wq) * y2d))
     rhs = float(torch.sum(win * wblur.wblur_rows_t(y2d, wq)))
     assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("center", [None, (1, 3)])
+def test_ir2fr_center_and_real(real, center):
+    """`ir2fr(imp_resp, shape, center, real)` as the reference's
+    (surfh_tpu/core/fft.py:61-82): a given center rolled to (0, 0), the
+    complex FFT with ``real=False``; float64, bit for bit."""
+    psf = np.random.default_rng(4).random((2, 5, 7))
+    got = fft.ir2fr(psf, (25, 22), center=center, real=real)
+    want = jfft.ir2fr(psf, (25, 22), center=center, real=real)
+    assert got.dtype == want.dtype == np.complex128
+    assert got.shape == (2, 25, 12 if real else 22)
+    np.testing.assert_array_equal(got, want)
+    assert np.array_equal(fft.ir2fr(psf, (25, 22), center, real), got)

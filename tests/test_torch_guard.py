@@ -2,8 +2,9 @@
 path (nor click), `chip_smoke.py` refuses to report anything without a card
 or without the repository, the setup functions, the real-data pipeline's
 model, the all-band pipeline, the decompositions, the Shepard regrid and
-the diffraction PSF (`psf_stack_device`, `gen-psf`) pick the card unless
-asked for the CPU, and `run_method` accepts the reference's `perf_crit`
+the diffraction PSF (`psf_stack_device`, `gen-psf`), the blind-2D models
+and `deconv2d` / `deconv-cube` pick the card unless asked for the CPU,
+and `run_method` accepts the reference's `perf_crit`
 and reads it not."""
 
 import os
@@ -27,6 +28,9 @@ SLICE_MODULES = [
     "surfh_tpu_torch.core.wblur_banded",
     "surfh_tpu_torch.core.lmm",
     "surfh_tpu_torch.core.gather_fixed",
+    "surfh_tpu_torch.core.linop",
+    "surfh_tpu_torch.core.nearest",
+    "surfh_tpu_torch.models.blind2d",
     "surfh_tpu_torch.instrument",
     "surfh_tpu_torch.instrument.geometry",
     "surfh_tpu_torch.instrument.ifu",
@@ -220,3 +224,32 @@ def test_run_method_accepts_and_ignores_perf_crit(method):
     assert calls == []
     assert torch.equal(a.x, c.x) and torch.equal(b.x, c.x)
     np.testing.assert_array_equal(a.grad_norm, c.grad_norm)
+
+
+@pytest.mark.parametrize("name", ["deconv2d", "deconv-cube"])
+def test_deconvolution_goes_to_the_card_by_default(monkeypatch, tmp_path, name):
+    """The blind-2D models with no `device` and `deconv2d` / `deconv-cube`
+    without SURFH_CPU run on the card: without one they raise, write
+    nothing, and never fall back to the CPU."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch import cli
+    from surfh_tpu_torch.core.fft import ir2fr
+    from surfh_tpu_torch.models.blind2d import MRSBlurred, MRSBlurredRectangle
+    from surfh_tpu_torch.simulation.synthetic import make_setup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("SURFH_CPU", raising=False)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([name, "-np", "41", "-ni", "2", "-o", str(out)])
+    assert not out.exists()
+    s = make_setup(im_size=41, n_lambda=8, n_channels=1, n_pointings=2)
+    args = (ir2fr(s["spsf"][0], s["im_shape"]), s["alpha_axis"], s["beta_axis"], s["instrs"][0],
+            s["step_degree"], s["pointings"][0])
+    cls = MRSBlurredRectangle if name == "deconv-cube" else MRSBlurred
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cls(*args)
+    assert cls(*args, device="cpu").device.type == "cpu"
+    assert np.isfinite(cls(*args, device="cpu").forward(np.ones(s["im_shape"])).numpy()).all()

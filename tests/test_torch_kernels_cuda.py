@@ -528,3 +528,46 @@ def test_psf_stack_device_matches_host(opd):
     got = jwst_psf.psf_stack_device(wavels, 0.05, chunk=2, device=dev, **kw)
     assert got.shape == host.shape and got.dtype == np.float32
     assert float(np.abs(got - host).max() / host.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 100])  # the deconvolution widths: config 1 and config 2
+def test_gather_gradient_runs_the_kernel_on_the_transposed_plan(q):
+    """`gather_rows_op`'s backward on the card: kernel #1 on the cached
+    transposed plan (one launch each way), against the plain transpose."""
+    dev = _cuda()
+    rng = np.random.default_rng(q)
+    plan = _plan(rng, 3000, 2000, 20000, heavy_row=5, heavy_taps=40).to(dev, torch.float32)
+    src = torch.as_tensor(rng.standard_normal((2000, q)), dtype=torch.float32,
+                          device=dev).requires_grad_()
+    g = torch.as_tensor(rng.standard_normal((3000, q)), dtype=torch.float32, device=dev)
+    before = gr.launches
+    (grad,) = torch.autograd.grad(gr.gather_rows_op(src, plan), src, g)
+    torch.cuda.synchronize()
+    assert gr.launches == before + 2
+    want = gr.gather_rows_reference(g.double(), plan.t.to(dev, torch.float64))
+    assert float((grad.double() - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_rotated_blind2d_model_on_card_matches_plain_f64():
+    """The rotated 2-D model's f32 forward / derived adjoint through #1
+    against the same model in float64 on the card (plain gather)."""
+    from surfh_tpu_torch.core.fft import ir2fr
+    from surfh_tpu_torch.models.blind2d import MRSBlurred
+    from surfh_tpu_torch.simulation.synthetic import make_setup
+
+    dev = _cuda()
+    s = make_setup(im_size=61, n_lambda=8, n_channels=1, n_pointings=4)
+    args = (ir2fr(s["spsf"][0], s["im_shape"]), s["alpha_axis"], s["beta_axis"], s["instrs"][0],
+            s["step_degree"], s["pointings"][0])
+    m32 = MRSBlurred(*args, dtype=np.float32, device=dev)
+    m64 = MRSBlurred(*args, dtype=np.float64, device=dev)
+    rng = np.random.default_rng(0)
+    x, y = rng.random(m32.ishape), rng.random(m32.oshape)
+    before = gr.launches
+    f, a = m32.forward(x), m32.adjoint(y)
+    torch.cuda.synchronize()
+    assert gr.launches > before
+    for got, want in ((f, m64.forward(x, plain=True)), (a, m64.adjoint(y, plain=True))):
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5

@@ -340,9 +340,36 @@ def test_banded_window_local_warns_and_runs_dense(monkeypatch):
     assert torch.equal(pm.normal(x), dense.normal(x))
 
 
+@pytest.mark.parametrize("mode", ["rank", "wplane"])
+def test_spectro_gridding_nn_matches_reference(monkeypatch, mode):
+    """``gridding="nn"`` by keyword beside the reference's positional list
+    (once NotImplementedError, ROADMAP A9): the port's model against the
+    reference's, forward and adjoint ≤1e-12 relative."""
+    monkeypatch.setenv("SURFH_TABLE_CACHE", "0")
+    kw = RANK_KW if mode == "rank" else WPLANE_KW
+    jsetup, psetup = jax_make_setup(**kw), make_setup(**kw)
+    names = ["sotf", "templates", "alpha_axis", "beta_axis", "wavelength_axis", "instrs",
+             "step_degree", "pointings", "dtype", "gridding", "wblur_impl", "wblur_band_rtol",
+             "window_local", "conv_impl", "conv_freq_rtol", "psf_stack", "conv_precision",
+             "conv_rank_rtol"]
+    jm = JaxSpectro(**dict(zip(names, _positional(jsetup, mode)), dtype=jnp.float64, gridding="nn"))
+    pm = SpectroSigRLSCT(**dict(zip(names, _positional(psetup, mode)), dtype=np.float64,
+                                gridding="nn")).to("cpu", torch.float64)
+    assert pm.gridding == "nn" and all(c.gridding == "nn" for c in pm.channels)
+    x = np.array(jsetup["maps"])
+    yr = np.random.default_rng(3).standard_normal(jm.oshape)
+    if mode == "rank":
+        tables = jm.device_tables()
+        want_f = jax.jit(jm._forward_fn_tabled)(jnp.asarray(x), tables)
+        want_a = jax.jit(jm._adjoint_fn_tabled)(jnp.asarray(yr), tables)
+    else:
+        want_f, want_a = jm.forward(x), jm.adjoint(yr)
+    assert rel(pm.forward(torch.as_tensor(x)).numpy(), want_f) <= 1e-12
+    assert rel(pm.adjoint(torch.as_tensor(yr)).numpy(), want_a) <= 1e-12
+
+
 # what is not ported: (positional list, its changes, ROADMAP item)
 NOT_PORTED = {
-    "gridding_nn": ("wplane", lambda s: dict(gridding="nn"), "A9"),
     "conv_precision_high": ("rank", lambda s: dict(conv_precision="high"), "Do not port"),
     "conv_precision_default": ("wplane", lambda s: dict(conv_precision="default"), "Do not port"),
 }
