@@ -1160,6 +1160,257 @@ def run_staged_phase(dev, card: str, cuda_ms, gen, bound, proto, chan) -> dict:
     return res
 
 
+FAMILY_BAND = "1c"  # the band of the family and mixing phases: its flagship setup, nothing cut
+# row gathers in one forward of each operator of the family on that setup (4 pointings)
+FAMILY_GATHERS = {"T": 0, "C": 0, "CT": 0, "R": 0, "MO_ST": 4, "SigRLSCT": 1, "SigRLSCT_NN": 1,
+                  "MO_SigRLSCT": 4, "MO_SigRLSCT_shiftConv": 1, "MCMO_SigRLSCT": 4,
+                  "MCMO_SigRLSCT_NN": 4}
+FAMILY_SOLVE_ARGV = ["--op", "SigRLSCT", "--flagship-band", FAMILY_BAND, "--solve"]
+
+
+def load_script(name: str):
+    """A script of scripts/ as a module (they are not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_family_phase(dev, card: str, cuda_ms, gen, bound, proto, model) -> dict:
+    """The single-stage operator family at the band's full flagship width
+    (501², 4 pointings, the band's whole λ axis, its OTF built on the card),
+    f32, every operator of `torch_operator_demo.OPS`: shapes, an
+    f64-accumulated dot test, the forward against the same operator in
+    float64 on the card (plain gather), ms per forward and per derived
+    adjoint, #1 launches per forward and per normal; #1 at the family's
+    cube-gather shape (Q = L) both ways; then the entry point as a user runs
+    it (`torch_operator_demo.py --op SigRLSCT --flagship-band 1c --solve`),
+    counted; and the rank flagship's `adjoint_auto` (the derived transpose
+    through `GatherRows`) against its hand-written adjoint."""
+    import torch
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.simulation.flagship import make_flagship_setup
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    demo = load_script("torch_operator_demo")
+    t0 = time.perf_counter()
+    fx = make_flagship_setup(bands=[FAMILY_BAND], build_sotf=True, device=dev)
+    sync()
+    L, sotf = len(fx["wavelength_axis"]), fx["sotf"]
+    log(f"[family] band {FAMILY_BAND} flagship setup in {time.perf_counter() - t0:.2f} s: "
+        f"{fx['im_shape'][0]}² at 0.025\", {len(fx['pointings'][0])} pointings, M = "
+        f"{fx['templates'].shape[0]}, L = {L}, lambda_det = {len(fx['instrs'][0].wavel_axis)}; "
+        f"sotf {tuple(sotf.shape)} {sotf.dtype} on the card, "
+        f"{sotf.numel() * sotf.element_size() / 2**30:.3f} GiB (read by C, CT, SCT, SigRLCT and "
+        f"the channel operators)")
+    tol_dot, tol_f64 = 1e-5, 1e-5
+    res = {"ops": {}}
+    for name in demo.OPS:
+        t0 = time.perf_counter()
+        op = demo.build(name, fx, torch.float32, dev)
+        op64 = demo.build(name, fx, torch.float64, dev)
+        sync()
+        t_build = time.perf_counter() - t0
+        x = torch.rand(op.ishape, generator=gen, device=dev)
+        y = torch.rand(op.oshape, generator=gen, device=dev)
+        gr.reset_launches()
+        hx = op.forward(x)
+        sync()
+        n_fwd = gr.launches
+        hty = op.adjoint(y)  # the first call derives the transpose (a forward at a zero primal)
+        e64 = rel(hx.double(), op64.forward(x.double(), plain=True))
+        lhs = float(torch.dot(hx.double().reshape(-1), y.double().reshape(-1)))
+        rhs = float(torch.dot(x.double().reshape(-1), hty.double().reshape(-1)))
+        d_rel = abs(lhs - rhs) / abs(lhs)
+        gr.reset_launches()
+        op.normal(x)
+        sync()
+        n_normal = gr.launches
+        ms_f = cuda_ms(lambda: op.forward(x), REPS)
+        ms_a = cuda_ms(lambda: op.adjoint(y), REPS)
+        want = FAMILY_GATHERS.get(name, 1)
+        extra = ""
+        if name == "R":
+            extra = f"; full-image wpsf {tuple(op._wpsf.shape)} f32 {op._wpsf.numel() * 4 / 2**30:.3f} GiB"
+        log(f"[family] {card}: {name}: {tuple(op.ishape)} -> {tuple(op.oshape)}, L = {L}; built in "
+            f"{t_build:.2f} s (f32 and f64); dot test (f64 sums) rel {d_rel:.3e} (bound {tol_dot:g}); "
+            f"forward vs float64 on the card {e64:.3e} (bound {tol_f64:g}); forward {ms_f:.3f} ms, "
+            f"derived adjoint {ms_a:.3f} ms; #1 launches per forward {n_fwd} (expected {want}), per "
+            f"normal {n_normal} (expected {2 * want}){extra}")
+        check(bool(torch.isfinite(hx).all()) and bool(torch.isfinite(hty).all()), f"family {name} finite")
+        check(d_rel <= tol_dot and e64 <= tol_f64, f"family {name}: dot {d_rel:.3e}, f64 {e64:.3e}")
+        check(n_fwd == want and n_normal == 2 * want, f"family {name} launches {n_fwd}, {n_normal}")
+        res["ops"][name] = {"ms_forward": ms_f, "ms_adjoint": ms_a, "launches_normal": n_normal}
+        if name == "ST":  # #1 at the family's cube-gather shape: [Na·Nb, L] rows, both ways
+            res["kernel"] = {d: gather_row_stats(dev, proto, cuda_ms, gen, bound, p, L,
+                                                 f"family ST {d} at Q = L", 1e-5)
+                             for d, p in (("forward", op._plan), ("transpose", op._plan.t))}
+        del op, op64, x, y, hx, hty
+        torch.cuda.empty_cache()
+    del fx, sotf
+    torch.cuda.empty_cache()
+
+    # the entry point as a user runs it, counted
+    gr.reset_launches()
+    t0 = time.perf_counter()
+    rep = demo.run(FAMILY_SOLVE_ARGV)
+    sync()
+    res["launches"] = gr.launches
+    log(f"[family] torch_operator_demo.py {' '.join(FAMILY_SOLVE_ARGV)}: {json.dumps(rep)} in "
+        f"{time.perf_counter() - t0:.2f} s (setup included); gather_rows launches {res['launches']}")
+    check(rep["dottest"] and 0.0 < rep["solve_grad_drop"] < 1.0 and res["launches"] > 0,
+          "operator demo entry point")
+
+    # the rank flagship's derived transpose through GatherRows
+    y = torch.rand(model.oshape, generator=gen, device=dev)
+    want = model.adjoint(y)
+    got = model.adjoint_auto(y)  # the first call: a forward at a zero primal, then the transpose
+    sync()
+    gr.reset_launches()
+    got = model.adjoint_auto(y)
+    sync()
+    n_auto = gr.launches
+    e_auto = rel(got, want)
+    ms_auto = cuda_ms(lambda: model.adjoint_auto(y), REPS)
+    ms_adj = cuda_ms(lambda: model.adjoint(y), REPS)
+    n_pt = sum(c.oshape[0] for c in model.channels)
+    log(f"[family] {card}: rank flagship ({len(model.channels)} bands) adjoint_auto vs the hand-written "
+        f"adjoint: max rel {e_auto:.3e} (bound 1e-5); #1 launches per adjoint_auto {n_auto} "
+        f"(expected {n_pt}); adjoint_auto {ms_auto:.3f} ms, adjoint {ms_adj:.3f} ms; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(e_auto <= 1e-5 and n_auto == n_pt and bool(torch.isfinite(got).all()),
+          f"adjoint_auto vs adjoint {e_auto:.3e}, launches {n_auto}")
+    model._auto_vjp = None  # drop the kept transpose's graph
+    del y, want, got
+    torch.cuda.empty_cache()
+    return res
+
+
+MIXING_MU = 1e-4  # the reference suite's expsol weight (tests/test_mixing.py)
+MIXING_NITER = 20
+MIXING_LCG_TOL = 1e-3  # lcg with and without use_fwadj: two f32 spellings of HᵗH, 20 CG iterations
+HUBER_REG, HUBER_TH = 1e-3, 0.1  # the reference suite's lmm_reconstruction weights
+
+
+def run_mixing_phase(dev, card: str, cuda_ms, gen) -> dict:
+    """`Model_WCT` at the band's full flagship width (501², the flagship's M
+    = 4 templates as spectra, the band's λ planes, its 40 × 40 PSF stamps,
+    di = dj = 1), f32 on the card: the build, `fwadj` against
+    adjoint∘forward, the dot test, `run_expsol` against the normal
+    equations (residual in float64 on the card), 20 lcg iterations with
+    `use_fwadj` against 20 without, 20 iterations of `lmm_reconstruction`
+    with its criterion falling; seconds for the build, the closed-form
+    solve and an iteration.  The path runs no kernel of this repository
+    (FFTs, einsums and batched inverses): its launch counts are read and
+    logged."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import gather_fixed as gf
+    from surfh_tpu_torch.core import wblur_banded as wb
+    from surfh_tpu_torch.models.mixing import Model_WCT
+    from surfh_tpu_torch.simulation.flagship import make_flagship_setup
+    from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS, dtd_separated
+    from surfh_tpu_torch.solvers.expsol import QuadCriterion3
+    from surfh_tpu_torch.solvers.huber import diff_axis, huber_value, lmm_reconstruction
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    fx = make_flagship_setup(bands=[FAMILY_BAND])
+    psfs, tpl = fx["psf_stack"], fx["templates"]
+    shape = fx["im_shape"]
+    for counter in (gr, wb, gf):
+        counter.reset_launches()
+    t0 = time.perf_counter()
+    model = Model_WCT(psfs, tpl, shape, dtype=torch.float32, device=dev)
+    sync()
+    t_build = time.perf_counter() - t0
+    log(f"[mixing] {card}: Model_WCT {tuple(model.ishape)} -> {tuple(model.oshape)} (PSF stamps "
+        f"{psfs.shape}, di = dj = 1) built on the card in {t_build:.2f} s (transfer functions "
+        f"{tuple(model._g.shape)}, block Hessian {tuple(model.hess_spec_freq.shape)} complex128); "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB on the card")
+    maps = torch.as_tensor(fx["maps"], dtype=torch.float32, device=dev)
+    y = model.forward(maps)
+    e_fw = rel(model.fwadj(maps), model.adjoint(y))
+    xr = torch.rand(model.ishape, generator=gen, device=dev)
+    yr = torch.rand(model.oshape, generator=gen, device=dev)
+    lhs = float(torch.dot(model.forward(xr).double().reshape(-1), yr.double().reshape(-1)))
+    rhs = float(torch.dot(xr.double().reshape(-1), model.adjoint(yr).double().reshape(-1)))
+    d_rel = abs(lhs - rhs) / abs(lhs)
+    ms_f = cuda_ms(lambda: model.forward(maps), REPS)
+    ms_a = cuda_ms(lambda: model.adjoint(y), REPS)
+    ms_h = cuda_ms(lambda: model.fwadj(maps), REPS)
+    log(f"[mixing] {card}: fwadj vs adjoint∘forward max rel {e_fw:.3e} (bound 1e-5); dot test (f64 "
+        f"sums) rel {d_rel:.3e} (bound 1e-5); forward {ms_f:.3f} ms, derived adjoint {ms_a:.3f} ms, "
+        f"fwadj (block Hessian) {ms_h:.3f} ms")
+    check(e_fw <= 1e-5 and d_rel <= 1e-5 and bool(torch.isfinite(y).all()), "Model_WCT fwadj, dot test")
+
+    t0 = time.perf_counter()
+    x_hat = QuadCriterion3(y, model, MIXING_MU).run_expsol()
+    sync()
+    t_exp = time.perf_counter() - t0
+    m64 = Model_WCT(psfs, tpl, shape, dtype=torch.float64, device=dev)
+    x64, y64 = x_hat.double(), y.double()
+    b64 = m64.adjoint(y64)
+    e_ne = rel(m64.fwadj(x64) + MIXING_MU * dtd_separated(x64), b64)
+    del m64, x64, y64, b64
+    torch.cuda.empty_cache()
+    log(f"[mixing] {card}: run_expsol (mu {MIXING_MU:g}, separated prior) in {t_exp:.3f} s (the "
+        f"regularized Hessian's {shape[0] * shape[1]} 4x4 blocks inverted in complex128 on the card); "
+        f"normal equations' residual in float64 {e_ne:.3e} of H'y (the reference's bar 1e-5)")
+    check(bool(torch.isfinite(x_hat).all()) and e_ne <= 1e-5, f"expsol normal equations {e_ne:.3e}")
+
+    crit = dict(mu_spectro=1.0, y_spectro=y, model_spectro=model, mu_reg=MIXING_MU)
+    t0 = time.perf_counter()
+    a = QuadCriterion_MRS(**crit, use_fwadj=True).run_method("lcg", MIXING_NITER)
+    sync()
+    s_it = (time.perf_counter() - t0) / MIXING_NITER
+    b = QuadCriterion_MRS(**crit).run_method("lcg", MIXING_NITER)
+    sync()
+    e_lcg = rel(a.x, b.x)
+    log(f"[mixing] {card}: lcg {MIXING_NITER} it with use_fwadj {s_it:.4f} s/iteration (host clock); "
+        f"iterate vs {MIXING_NITER} it through adjoint∘forward max rel {e_lcg:.3e} (bound "
+        f"{MIXING_LCG_TOL:g}); grad norm {a.grad_norm[0]:.4e} -> {a.grad_norm[-1]:.4e}")
+    check(e_lcg <= MIXING_LCG_TOL and a.grad_norm[-1] < a.grad_norm[0], f"use_fwadj lcg {e_lcg:.3e}")
+
+    def huber_crit(x):
+        data = 0.5 * float(((model.forward(x) - y).double() ** 2).sum())
+        return data + HUBER_REG * sum(float(huber_value(diff_axis(x, ax), HUBER_TH).double().sum())
+                                      for ax in (1, 2))
+
+    x0 = model.adjoint(y)
+    t0 = time.perf_counter()
+    h = lmm_reconstruction(y, model, spat_reg=HUBER_REG, spat_th=HUBER_TH, init=x0,
+                           max_iter=MIXING_NITER)
+    sync()
+    s_hit = (time.perf_counter() - t0) / MIXING_NITER
+    j0, j1 = huber_crit(x0), huber_crit(h.x)
+    counts = (gr.launches, wb.launches, wb.launches_t, gf.launches_k1, gf.launches_k2, gf.launches_k3)
+    log(f"[mixing] {card}: lmm_reconstruction {MIXING_NITER} it {s_hit:.4f} s/iteration (host clock); "
+        f"criterion {j0:.6e} -> {j1:.6e}, grad norm {h.grad_norm[0]:.4e} -> {h.grad_norm[-1]:.4e}; "
+        f"this repository's kernels launched on the mixing path (gather_rows, wblur_banded, "
+        f"wblur_banded_t, K1, K2, K3): {counts}; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check(j1 < j0 and bool(np.isfinite(h.grad_norm).all()) and h.grad_norm[-1] < h.grad_norm[0],
+          "lmm_reconstruction criterion falling")
+    del model, maps, y, x_hat, a, b, h, x0, xr, yr
+    torch.cuda.empty_cache()
+    return {"s_build": t_build, "s_expsol": t_exp, "s_lcg_it": s_it, "s_huber_it": s_hit}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bands", default=None, help="comma-separated MIRI bands (default: all 12)")
@@ -1174,8 +1425,6 @@ def main(argv=None) -> int:
     import numpy as np
 
     from concurrent.futures import ThreadPoolExecutor
-
-    import importlib.util
 
     from surfh_tpu_torch.core import _build, fft
     from surfh_tpu_torch.core import gather_fixed as gf
@@ -1197,11 +1446,7 @@ def main(argv=None) -> int:
         t_b, t_f = nbytes / proto.HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_scatter_proto", os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                            "scripts", "torch_scatter_proto.py"))
-    proto = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(proto)
+    proto = load_script("torch_scatter_proto")
     cuda_ms = proto.event_ms  # mean device ms per call, CUDA events around `reps` calls
 
     # 1. device --------------------------------------------------------
@@ -1660,6 +1905,15 @@ def main(argv=None) -> int:
     staged = run_staged_phase(dev, card, cuda_ms, gen, bound, proto, c_st)
     log(f"[staged] phase in {time.perf_counter() - t0:.2f} s")
 
+    # [family], [mixing]: the operator family and the mixing path at band 1c's full width
+    t0 = time.perf_counter()
+    fam = run_family_phase(dev, card, cuda_ms, gen, bound, proto, model)
+    log(f"[family] phase in {time.perf_counter() - t0:.2f} s; gather_rows launches on the entry "
+        f"point's run {fam['launches']}")
+    t0 = time.perf_counter()
+    run_mixing_phase(dev, card, cuda_ms, gen)
+    log(f"[mixing] phase in {time.perf_counter() - t0:.2f} s")
+
     # 11. small inputs against the CPU f64 operators -----------------------
     for mode, kw in (("rank", dict(im_size=41, n_lambda=120, n_tpl=2, window_local=True, psf_stamps=True,
                                    conv_freq_rtol=1e-6, conv_rank_rtol=1e-7)),
@@ -1710,7 +1964,7 @@ def main(argv=None) -> int:
                     "pipeline": pipe["launches"], "allband": allb["launches"],
                     "allband_wl": allb_wl["launches"], "deconv2d": deconv["deconv2d"]["launches"],
                     "deconv_cube": deconv["deconv-cube"]["launches"], "nn": nn["launches"],
-                    "staged": staged["launches"]}
+                    "staged": staged["launches"], "family": fam["launches"]}
     check(all(gather_paths.values()), f"a path launched no row gather: {gather_paths}")
 
     log(json.dumps({"kernels": [{

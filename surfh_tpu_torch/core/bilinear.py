@@ -27,6 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .linop import torch_dtype
 from .gather_rows import (RowGatherPlan, build_row_gather_plan, gather_rows_op,
                           gather_rows_reference, plan_from_gather_table)
 
@@ -288,9 +289,12 @@ def csr_transpose_plan(plan: BilinearPlan) -> CSRTransposePlan:
                             plan.shape)
 
 
-def apply_transpose_plan(tplan, values: torch.Tensor) -> torch.Tensor:
+def apply_transpose_plan(tplan, values: torch.Tensor, dtype=None) -> torch.Tensor:
     """Exact adjoint of :func:`apply_plan` from either transpose-plan form:
-    values [..., P] → [..., Na, Nb], one row gather."""
+    values [..., P] → [..., Na, Nb], one row gather, in `dtype` (NumPy or
+    torch; None: the values' own)."""
+    if dtype is not None:
+        values = values.to(torch_dtype(dtype))
     na, nb = tplan.shape
     n_pts = int(values.shape[-1])
     if isinstance(tplan, CSRTransposePlan):

@@ -139,16 +139,20 @@ def psf_stamp_tables(
     dtype=np.float32,
     ka_max: Optional[int] = None,
     kb_keep: Optional[int] = None,
+    center=None,
 ) -> dict:
-    """DFT-at-stamp matrices: the OTF of a padded, centered PSF stamp sampled
-    only at the kept frequency bins (closed form of ``ir2fr(psf, im_shape)``)."""
+    """DFT-at-stamp matrices: the OTF of a padded PSF stamp, `center` (by
+    default the stamp's middle) rolled to (0, 0), sampled only at the kept
+    frequency bins (closed form of ``ir2fr(psf, im_shape, center)``)."""
     na, nb = int(im_shape[0]), int(im_shape[1])
     sx, sy = int(stamp_shape[0]), int(stamp_shape[1])
     kb = nb // 2 + 1
     if kb_keep is None or kb_keep > kb:
         kb_keep = kb
     kb_keep = max(int(kb_keep), 1)
-    cx, cy = sx // 2, sy // 2
+    if center is None:
+        center = (sx // 2, sy // 2)
+    cx, cy = int(center[0]), int(center[1])
     sel_a = freq_sel_alpha(na, ka_max)
     sa = np.exp(-2j * np.pi * np.outer(sel_a, np.arange(sx) - cx) / na)
     sb = np.exp(-2j * np.pi * np.outer(np.arange(sy) - cy, np.arange(kb_keep)) / nb)
@@ -203,14 +207,16 @@ def _support_from_axis_maxima(colmax, rowmax, rtol: float):
     return ka_max, kb_keep, dropped
 
 
-def otf_support_from_psf(psf_stack, im_shape: Tuple[int, int], rtol: float, chunk: int = 64):
+def otf_support_from_psf(psf_stack, im_shape: Tuple[int, int], rtol: float, center=None,
+                         chunk: int = 64):
     """(ka_max, kb_keep, dropped_rel): the frequency support of a PSF stamp
-    stack's OTF, evaluated chunk by chunk in float64 without materializing
-    the full OTF window."""
+    stack's OTF (stamps centered at `center`, as in :func:`psf_stamp_tables`),
+    evaluated chunk by chunk in float64 without materializing the full OTF
+    window."""
     psf_stack = np.asarray(psf_stack)
     na, nb = int(im_shape[0]), int(im_shape[1])
     kb = nb // 2 + 1
-    st = psf_stamp_tables(im_shape, psf_stack.shape[-2:], np.float64)
+    st = psf_stamp_tables(im_shape, psf_stack.shape[-2:], np.float64, center=center)
     sa = st["sa_re"] + 1j * st["sa_im"]
     sb = st["sb_re"] + 1j * st["sb_im"]
     colmax = np.zeros(kb)
@@ -412,6 +418,24 @@ def idft(x: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
     return torch.fft.irfftn(x, s=tuple(im_shape), dim=(-2, -1), norm="ortho")
 
 
+def dft_mult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """rfft2(a) · b (reference `fft.dft_mult`)."""
+    return dft(a) * b
+
+
+def idft_mult(a: torch.Tensor, b: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
+    """irfft2(a · b) (reference `fft.idft_mult`)."""
+    return idft(a * b, im_shape)
+
+
+def convolve_freq(cube: torch.Tensor, otf: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
+    """Circular convolution of each plane of `cube` with the non-unitary
+    transfer function `otf` (from :func:`ir2fr`): with the unitary
+    dft / idft pair, the plain circular convolution with the impulse
+    response (reference `fft.convolve_freq`, the C operator)."""
+    return idft(dft(cube) * otf, im_shape)
+
+
 CONV_OTF_CHUNK = 256  # λ-planes per cuFFT call of `conv_otf_`
 
 
@@ -428,6 +452,16 @@ def conv_otf_(cube: torch.Tensor, otf: torch.Tensor, conj: bool = False,
         spec.mul_(o.conj() if conj else o)
         cube[i : i + chunk] = idft(spec, im_shape)
     return cube
+
+
+def conv_otf(cube: torch.Tensor, otf: torch.Tensor) -> torch.Tensor:
+    """``idft(dft(cube) · otf)`` of a temporary `cube`: in place
+    (:func:`conv_otf_`), or out of place where autograd tracks `cube` (a
+    derived transpose: the in-place chunks would overwrite what the
+    backward reads)."""
+    if cube.requires_grad and torch.is_grad_enabled():
+        return convolve_freq(cube, otf, tuple(cube.shape[-2:]))
+    return conv_otf_(cube, otf)
 
 
 def ir2fr_device(imp_resp, shape: Tuple[int, int], device=None,

@@ -16,7 +16,10 @@ contiguous: ``src [n_src, Q]`` → ``out [n_rows, Q]``.
   `gather_launch_shape` picks the kernel (narrow rows: a lane per column;
   wide rows: a group of lanes per row) and its shape from Q and the plan.
 * `gather_rows` — the dispatch: a CPU tensor takes the plain version, a
-  CUDA tensor launches the kernel or raises.  Never a fallback.
+  CUDA tensor launches the kernel or raises.  Never a fallback.  A source
+  that autograd tracks (a derived adjoint's forward, under `torch.func.vjp`
+  or `backward`) goes through `GatherRows`: the kernel writes a tensor
+  autograd knows nothing of, which would give a zero or missing transpose.
 * `gather_rows_op` — the same with a gradient (`GatherRows`): its backward
   is `gather_rows` on the transposed plan (`RowGatherPlan.t`, built once
   per plan and kept), so a derived adjoint runs the kernel both ways.
@@ -214,7 +217,10 @@ def _launch(src, plan, out, vec: int, cols: int, taps: int, group: int) -> None:
 
 
 def gather_rows(src: torch.Tensor, plan: RowGatherPlan) -> torch.Tensor:
-    """Dispatch: plain version for a CPU tensor, the kernel for a CUDA one."""
+    """Dispatch: plain version for a CPU tensor, the kernel for a CUDA one;
+    a `src` that needs a gradient takes `GatherRows` (the same launch)."""
+    if src.requires_grad and torch.is_grad_enabled():
+        return GatherRows.apply(src, plan)
     if src.is_cuda:
         return gather_rows_cuda(src, plan)
     if src.device.type == "cpu":

@@ -37,13 +37,20 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
 
+def complex_dtype(dtype) -> torch.dtype:
+    """The complex type that pairs with the float type `dtype` (NumPy or torch)."""
+    return torch.complex64 if torch_dtype(dtype) == torch.float32 else torch.complex128
+
+
 class LinOp:
     """A linear operator with explicit input / output shapes.
 
     `dtype` (NumPy or torch) is the computation type; `device` None means
     the card (raise without one).  :meth:`adjoint` is the exact transpose
-    of :meth:`forward`, derived once; :meth:`normal` (= :meth:`fwadj`) is
-    adjoint∘forward, the call the port's criteria make."""
+    of :meth:`forward`, derived once; :meth:`normal` is adjoint∘forward,
+    the call the port's criteria make, and :meth:`fwadj` the same map,
+    which a model with a fused Hessian overrides (the criterion's
+    ``use_fwadj``)."""
 
     def __init__(self, ishape: Shape, oshape: Shape, dtype=torch.float32, device=None):
         self.ishape = tuple(int(s) for s in ishape)
@@ -85,8 +92,8 @@ class LinOp:
         return self.adjoint(self.forward(x))
 
     def normal(self, x) -> torch.Tensor:
-        """Hᵗ H x, the criterion's call (= :meth:`fwadj`)."""
-        return self.fwadj(x)
+        """Hᵗ H x as adjoint∘forward, the criterion's call."""
+        return self.adjoint(self.forward(x))
 
     # -- conveniences ----------------------------------------------------
     @property

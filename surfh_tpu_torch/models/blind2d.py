@@ -32,13 +32,9 @@ import numpy as np
 import torch
 
 from ..core import bilinear, fft
-from ..core.linop import LinOp
+from ..core.linop import LinOp, complex_dtype
 from ..instrument.geometry import LocalFOV, get_srf
 from ..instrument.ifu import IFU
-
-
-def _complex(dtype: torch.dtype) -> torch.dtype:
-    return torch.complex64 if dtype == torch.float32 else torch.complex128
 
 
 class _Blind2DBase(LinOp):
@@ -74,7 +70,7 @@ class _Blind2DBase(LinOp):
         self.sotf = np.asarray(self.sotf_host, ctype)
         self._build_slit_tables()
 
-        cdt = _complex(self.dtype)
+        cdt = complex_dtype(self.dtype)
         self._sotf_t = torch.as_tensor(self.sotf).to(self.device, cdt)
         self._otf_t = torch.as_tensor(self.otf_combined).to(self.device, cdt)
         self._slit_w_t = torch.as_tensor(self.slit_weights_sub).to(self.device, self.dtype)
@@ -264,7 +260,7 @@ class DeconvCube(LinOp):
         self.cube_oshape = (w,) + base.slices_shape
         super().__init__((w,) + tuple(base.ishape), (w * int(np.prod(base.slices_shape)),),
                          base.dtype, base.device)
-        self._stack_t = torch.as_tensor(self.sotf_stack).to(self.device, _complex(self.dtype))
+        self._stack_t = torch.as_tensor(self.sotf_stack).to(self.device, complex_dtype(self.dtype))
 
     def _forward_fn(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         return self.base._forward_fn(x, self._stack_t, plain)

@@ -47,6 +47,7 @@ import torch
 from ..core import bilinear, fft, numpy_ref
 from ..core.gather_rows import (build_row_gather_plan, gather_rows, gather_rows_reference,
                                 plan_from_gather_table)
+from ..core.linop import complex_dtype
 from ..core.nearest import nearest_plan
 from ..core.wblur import rows_table, wblur_rows, wblur_rows_t
 from ..core.wblur_banded import (BandPlan, BandPlanT, build_band_plan, build_band_plan_t,
@@ -80,8 +81,7 @@ def gather_device_tables(t: dict, device, dtype) -> dict:
         "gather_t": [p.to(device, dtype) for p in t["gather_t"]],
     }
     if "otf_box" in t:
-        ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
-        out["otf_box"] = torch.as_tensor(t["otf_box"]).to(device=device, dtype=ctype)
+        out["otf_box"] = torch.as_tensor(t["otf_box"]).to(device=device, dtype=complex_dtype(dtype))
     return out
 
 
@@ -628,8 +628,7 @@ class Channel:
             n_loc = nla * nlb
             self._rev_dev = [plan_from_gather_table(p.idx, p.w, n_loc).to(self.device, self.dtype)
                              for p in self.plans_rev]
-        ctype = torch.complex64 if self.dtype == torch.float32 else torch.complex128
-        otf_c = torch.as_tensor(self.otf_combined_conj[0]).to(self.device, ctype)
+        otf_c = torch.as_tensor(self.otf_combined_conj[0]).to(self.device, complex_dtype(self.dtype))
         wrow = torch.as_tensor(self.slit_weights_sub[:, 0, :]).to(self.device, self.dtype)  # [S, sb]
         gather = gather_rows_reference if plain else gather_rows
         out = None

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core import fft, lmm, numpy_ref
+from ..core.linop import complex_dtype
 from ..core.wblur import rows_table
 from ..core.wblur_banded import banded_tables
 from ..instrument.geometry import CoordList, get_srf
@@ -213,10 +214,6 @@ def _map_given_channels(channels, jobs, workers: int):
     return [(chan, t, _merge_stamp_tables(t, out)) for chan, t, out in zip(channels, tabs, outs)]
 
 
-def _complex_dtype(dtype) -> torch.dtype:
-    return torch.complex64 if dtype == torch.float32 else torch.complex128
-
-
 def device_tables(host: dict, device, dtype=torch.float32) -> dict:
     """Host tables → tensors on `device`, in the kernel-friendly layouts.
 
@@ -234,7 +231,7 @@ def device_tables(host: dict, device, dtype=torch.float32) -> dict:
     def f(a):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype).contiguous()
 
-    ctype = _complex_dtype(dtype)
+    ctype = complex_dtype(dtype)
     chans = []
     if "sotf" in host:
         for t in host["chan"]:
@@ -481,6 +478,7 @@ class SpectroSigRLSCT:
         self.oshape = (int(self._idx[-1]),)
         self.tables = None
         self._templates_dev = None
+        self._auto_vjp = None
         self.device = None
         self.dtype = None
 
@@ -528,6 +526,7 @@ class SpectroSigRLSCT:
         self.dtype = dtype
         self.tables = device_tables(self._host, self.device, dtype) if tables is None else tables
         self._templates_dev = None
+        self._auto_vjp = None
         return self
 
     # ------------------------------------------------------------------
@@ -557,7 +556,7 @@ class SpectroSigRLSCT:
             return fft.conv_otf_matmul_rows(x[ws.start : ws.stop], *t["otf"], t["dftm"])
         cube_w = (lmm.lmm_maps2cube(x, self._tpl_w(c)) if self.lmm
                   else x[ws.start : ws.stop].clone())
-        return self.channels[c].bbox_rows(fft.conv_otf_(cube_w, t["sotf"]))
+        return self.channels[c].bbox_rows(fft.conv_otf(cube_w, t["sotf"]))
 
     def _conv_t(self, rows, c):
         """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the cube)."""
@@ -715,24 +714,37 @@ class SpectroSigRLSCT:
         convolved with the OTF (W-plane mode)."""
         x = self._x(x)
         cube = lmm.lmm_maps2cube(x, self.tables["templates"]) if self.lmm else x.clone()
-        return fft.conv_otf_(cube, self.tables["sotf"])
+        return fft.conv_otf(cube, self.tables["sotf"])
 
     def forward(self, x, plain: bool = False) -> torch.Tensor:
         """Template maps [M, Na, Nb] (the cube in cube mode) → flat data
         vector.  `plain=True` runs the kernels' plain versions."""
-        x = self._x(x)
+        return self._forward(self._x(x), plain, not self.window_local and self.banded)
+
+    def _forward(self, x: torch.Tensor, plain: bool, banded: bool) -> torch.Tensor:
         outs = []
         if self.window_local:
             for c, chan in enumerate(self.channels):
                 outs.append(chan.forward_rows(self._conv(x, c), self.tables["chan"][c],
                                               plain).reshape(-1))
         else:
-            banded = self.banded
             cube = self.blurred_cube(x)
             for c, chan in enumerate(self.channels):
                 outs.append(chan.forward_rows(self.patch_rows(cube, c), self.tables["chan"][c],
                                               plain, banded).reshape(-1))
         return torch.cat(outs)
+
+    def adjoint_auto(self, y) -> torch.Tensor:
+        """The derived transpose of the forward with the dense blur (the
+        reference's `adjoint_auto`, the comparison for the hand-written
+        :meth:`adjoint`): `torch.func.vjp` at a zero primal, taken at the
+        first call after :meth:`to` and kept.  The forward's row gathers go
+        through `GatherRows`, so on the card the transpose runs kernel #1
+        on the transposed plans."""
+        if self._auto_vjp is None:
+            zero = torch.zeros(self.ishape, device=self.device, dtype=self.dtype)
+            _, self._auto_vjp = torch.func.vjp(lambda x: self._forward(x, False, False), zero)
+        return self._auto_vjp(self._y(y))[0]
 
     def adjoint(self, y, plain: bool = False) -> torch.Tensor:
         """Transpose of :meth:`forward`: flat data → [M, Na, Nb] (the cube

@@ -14,8 +14,10 @@ On a λ-major mesh (the distortion correction's) that keeps a chunk's work
 near its own λ lines instead of the whole slit.  Chunks of `row_chunk`
 grid rows (None: 4096 on the card, few launches; 512 on the host).
 
-One backend: torch on the given device.  The reference's OpenMP C++
-kernel (`native/`) and its ``backend="auto"`` choice are not copied.
+One backend: torch on the given device.  The reference's `backend`
+argument is taken: "auto" and "jax" both run it; "native", the
+reference's OpenMP C++ kernel (`native/`), is refused (ROADMAP "Do not
+port").
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ def exponential_modified_shepard(
     lambda_res: float = 1.0,
     epsilon: float = 1e-6,
     row_chunk: Optional[int] = None,
+    backend: str = "auto",
     device=None,
 ) -> np.ndarray:
     """Interpolate scattered (α, λ, value) samples onto a regular mesh.
@@ -50,8 +53,15 @@ def exponential_modified_shepard(
     The reference's semantics in float32: pixel-unit distances (axes scaled
     by their resolutions) plus `epsilon`, weights exp(−alpha·dist^p) for
     dist ≤ pixel_cutoff, zero where no sample is in range.  Returns a host
-    float32 array shaped like the mesh.  `device` None means the card
-    (raise without one); pass "cpu" for the host."""
+    float32 array shaped like the mesh.  `backend` is the reference's:
+    "auto" or "jax" run the one torch path, "native" raises.  `device`
+    None means the card (raise without one); pass "cpu" for the host."""
+    if backend not in ("auto", "jax", "native"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "native":
+        raise NotImplementedError(
+            "backend='native': the reference's OpenMP C++ Shepard kernel is not ported "
+            "(ROADMAP 'Do not port'); 'auto' and 'jax' run the torch path")
     device = pick_device(device)
     chunk = int(row_chunk or ROW_CHUNK.get(device.type, 512))
 

@@ -43,6 +43,16 @@ def flagship_instruments(bands: Optional[List[str]] = None) -> list:
     ]
 
 
+def flagship_wavel_axis(bands: Optional[List[str]] = None, subsample: int = 3) -> np.ndarray:
+    """The flagship's global cube λ axis: the sorted union of the bands'
+    detector tables, every `subsample`-th sample (reference
+    `flagship_wavel_axis`)."""
+    if bands is None:
+        bands = miri.BANDS
+    wavel = np.sort(np.concatenate([wavelength_mrs.get_mrs_wavelength(b) for b in bands]))
+    return wavel[::subsample].copy()
+
+
 def make_flagship_setup(
     npix: int = 501,
     bands: Optional[List[str]] = None,
@@ -146,7 +156,7 @@ def _make_setup_from_instrs(instrs, bands, npix, n_pointings, n_tpl, lambda_subs
     )
 
 
-def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32, wblur_impl: str = "dense",
+def make_flagship_model(setup: Optional[dict] = None, dtype=None, wblur_impl: str = "dense",
                         window_local: bool = True, conv_impl: str = "auto",
                         conv_freq_rtol: Optional[float] = None,
                         conv_precision: Optional[str] = None,
@@ -154,7 +164,7 @@ def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32, wblur_im
                         workers: int = 1, channels=None, **kwargs):
     """The flagship `SpectroSigRLSCT` (reference `make_flagship_model`: its
     parameters, order, defaults and environment overrides, then the port's
-    `wblur_band_rtol`, `workers` and `channels`).
+    `wblur_band_rtol`, `workers` and `channels`); `dtype` None is float32.
 
     Window-local by default: `conv_freq_rtol` 1e-6 (``SURFH_CONV_FREQ_RTOL``
     overrides), `conv_precision` "highest" (``SURFH_CONV_PRECISION``),
@@ -176,6 +186,8 @@ def make_flagship_model(setup: Optional[dict] = None, dtype=np.float32, wblur_im
     if setup is None:
         setup = make_flagship_setup(build_sotf=not (window_local and resolved == "matmul"
                                                     and stamps_ok), **kwargs)
+    if dtype is None:
+        dtype = np.float32
     if conv_freq_rtol is None:
         conv_freq_rtol = float(os.environ.get("SURFH_CONV_FREQ_RTOL", "1e-6"))
     if conv_precision is None:

@@ -106,7 +106,7 @@ def make_setup(
 
 def make_model(
     setup: Optional[dict] = None,
-    dtype=np.float32,
+    dtype=None,
     gridding: str = "bilinear",
     wblur_impl: str = "dense",
     wblur_band_rtol: float = 0.0,
@@ -122,7 +122,8 @@ def make_model(
     """The `SpectroSigRLSCT` of a synthetic setup (reference
     `make_model`: its parameters, order and defaults — the exact
     materialized-OTF model — then the port's `workers` and `channels`).
-    Host tables in `dtype`; call `.to(device, dtype)` before applying it.
+    Host tables in `dtype` (None: float32); call `.to(device, dtype)`
+    before applying it.
 
     ``psf_stamps=True`` passes the setup's PSF stamps (`spsf`) instead of
     its materialized `sotf`: the stamp mode of the window-local matmul conv,
@@ -131,6 +132,8 @@ def make_model(
 
     if setup is None:
         setup = make_setup(**kwargs)
+    if dtype is None:
+        dtype = np.float32
     model = SpectroSigRLSCT(
         None if psf_stamps else setup["sotf"], setup["templates"], setup["alpha_axis"],
         setup["beta_axis"], setup["wavelength_axis"], setup["instrs"], setup["step_degree"],

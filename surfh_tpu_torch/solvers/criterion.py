@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from ..core import fft
+from ..core.linop import complex_dtype
+from ..core.precision import pick_device
 from .cg import SolverResult, lcg, mmmg
 
 
@@ -27,9 +29,19 @@ def diff_rows(x):
     return torch.roll(x, 1, dims=1) - x
 
 
+def diff_rows_t(y):
+    """Transpose of :func:`diff_rows`."""
+    return torch.roll(y, -1, dims=1) - y
+
+
 def diff_cols(x):
     """Circular first difference over axis 2."""
     return torch.roll(x, 1, dims=2) - x
+
+
+def diff_cols_t(y):
+    """Transpose of :func:`diff_cols`."""
+    return torch.roll(y, -1, dims=2) - y
 
 
 def dtd_separated(x):
@@ -46,16 +58,19 @@ def dtd_separated(x):
 class DifferenceOperatorJoint:
     """Joint Laplacian prior in Fourier (reference
     `criterion.py::DifferenceOperatorJoint`): D x = idft(dft(x)·d̂) per map,
-    d̂ the non-unitary transfer function of the 2-D Laplacian."""
+    d̂ the non-unitary transfer function of the 2-D Laplacian.  `dtype`
+    (NumPy or torch) is the maps' type; `device` None means the card."""
 
-    def __init__(self, shape_target, device, dtype):
-        ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    def __init__(self, shape_target, dtype=torch.float32, device=None):
         self.shape_target = tuple(shape_target)
         d_freq = fft.ir2fr(fft.laplacian(2), self.shape_target)[np.newaxis]
-        self.d_freq = torch.as_tensor(d_freq).to(device=device, dtype=ctype)
+        self.d_freq = torch.as_tensor(d_freq).to(device=pick_device(device), dtype=complex_dtype(dtype))
 
     def D(self, x):
         return fft.idft(fft.dft(x) * self.d_freq, self.shape_target)
+
+    def D_t(self, x):
+        return fft.idft(fft.dft(x) * self.d_freq.conj(), self.shape_target)
 
     def DtD(self, x):
         return fft.idft(fft.dft(x) * self.d_freq.abs() ** 2, self.shape_target)
@@ -68,17 +83,18 @@ class QuadCriterion_MRS:
     `device` and `dtype` (the port's `SpectroSigRLSCT` after `.to()`, or
     any `core.linop.LinOp`).
     `printing` prints the solve's time; `gradient` is "separated" or
-    "joint".  `use_fwadj` (a model's fused `fwadj` Hessian) is not ported."""
+    "joint".  `use_fwadj=True` applies HᵗH through the model's own `fwadj`
+    (e.g. `Model_WCT`'s block-Fourier Hessian) instead of `normal`, the
+    reference's ``hessp=model.fwadj``; a model without one raises."""
 
     def __init__(self, mu_spectro, y_spectro, model_spectro, mu_reg, printing: bool = False,
                  gradient: str = "separated", use_fwadj: bool = False):
         if gradient not in ("separated", "joint"):
             raise ValueError(f"unknown gradient mode {gradient!r}")
-        if use_fwadj:
-            raise NotImplementedError(
-                "use_fwadj=True: the models with a fused fwadj Hessian (Model_WCT) are "
-                "ROADMAP A10, not ported yet")
+        if use_fwadj and not hasattr(model_spectro, "fwadj"):
+            raise ValueError("use_fwadj=True requires the model to define fwadj")
         self.model = model_spectro
+        self._hess = model_spectro.fwadj if use_fwadj else model_spectro.normal
         self.printing = printing
         self.gradient = gradient
         self.shape_of_output = tuple(model_spectro.ishape)
@@ -86,7 +102,7 @@ class QuadCriterion_MRS:
         self.mu_spectro = torch.as_tensor(mu_spectro, device=dev, dtype=dt)
         self.mu_reg = torch.as_tensor(mu_reg, device=dev, dtype=dt)
         self.y_spectro = torch.as_tensor(y_spectro).to(device=dev, dtype=dt).reshape(-1)
-        self._joint = (DifferenceOperatorJoint(self.shape_of_output[1:], dev, dt)
+        self._joint = (DifferenceOperatorJoint(self.shape_of_output[1:], dt, dev)
                        if gradient == "joint" else None)
         self._b = None
         self.L_crit_val: list = []
@@ -95,7 +111,7 @@ class QuadCriterion_MRS:
         return dtd_separated(x) if self._joint is None else self._joint.DtD(x)
 
     def normal_op(self, x, mu_s, mu_r):
-        return mu_s * self.model.normal(x) + mu_r * self._dtd(x)
+        return mu_s * self._hess(x) + mu_r * self._dtd(x)
 
     @property
     def b(self) -> torch.Tensor:

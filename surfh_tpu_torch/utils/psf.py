@@ -1,8 +1,10 @@
-"""PSF helpers (NumPy copy of `surfh_tpu/utils/psf.py:16`)."""
+"""PSF helpers (NumPy copies of `surfh_tpu/utils/psf.py`: `gaussian_psf`, `otf`)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..core.fft import ir2fr
 
 
 def gaussian_psf(wavel_axis, step: float, D: float = 6.5) -> np.ndarray:
@@ -18,3 +20,8 @@ def gaussian_psf(wavel_axis, step: float, D: float = 6.5) -> np.ndarray:
         sigma = fwhm_arcsec / (step * 2.354)
         psf[w_idx] = np.exp(-(x**2 + y**2) / (2 * sigma**2))
     return psf / np.sum(psf, axis=(1, 2), keepdims=True)
+
+
+def otf(psf, shape, components) -> np.ndarray:
+    """Template-weighted OTF stack: ir2fr(psf ⊗ components)."""
+    return ir2fr(psf[np.newaxis, ...] * components[:, :, np.newaxis, np.newaxis], tuple(shape))

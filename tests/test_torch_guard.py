@@ -4,8 +4,9 @@ or without the repository, the setup functions, the real-data pipeline's
 model, the all-band pipeline, the decompositions, the Shepard regrid and
 the diffraction PSF (`psf_stack_device`, `gen-psf`), the blind-2D models
 and `deconv2d` / `deconv-cube` pick the card unless asked for the CPU,
-and `run_method` accepts the reference's `perf_crit`
-and reads it not."""
+the operator family, the mixing models and `scripts/torch_operator_demo.py`
+pick the card unless asked for the CPU, and `run_method` accepts the
+reference's `perf_crit` and reads it not."""
 
 import os
 import shutil
@@ -31,6 +32,14 @@ SLICE_MODULES = [
     "surfh_tpu_torch.core.linop",
     "surfh_tpu_torch.core.nearest",
     "surfh_tpu_torch.models.blind2d",
+    "surfh_tpu_torch.models",
+    "surfh_tpu_torch.models.family",
+    "surfh_tpu_torch.models.mixing",
+    "surfh_tpu_torch.core.blockfourier",
+    "surfh_tpu_torch.solvers",
+    "surfh_tpu_torch.solvers.expsol",
+    "surfh_tpu_torch.solvers.huber",
+    "surfh_tpu_torch.simulation",
     "surfh_tpu_torch.instrument",
     "surfh_tpu_torch.instrument.geometry",
     "surfh_tpu_torch.instrument.ifu",
@@ -68,6 +77,7 @@ SLICE_MODULES = [
     "chip_smoke",
     "torch_scatter_proto",  # scripts/
     "torch_profile",  # scripts/
+    "torch_operator_demo",  # scripts/
 ]
 
 
@@ -253,3 +263,39 @@ def test_deconvolution_goes_to_the_card_by_default(monkeypatch, tmp_path, name):
         cls(*args)
     assert cls(*args, device="cpu").device.type == "cpu"
     assert np.isfinite(cls(*args, device="cpu").forward(np.ones(s["im_shape"])).numpy()).all()
+
+
+def test_family_mixing_and_operator_demo_go_to_the_card_by_default(monkeypatch, capsys):
+    """The family and mixing operators with no `device`, the criterion's
+    joint prior, and `torch_operator_demo.py` without --cpu run on the
+    card: without one they raise, and never fall back to the CPU."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.models import family, mixing
+    from surfh_tpu_torch.simulation.synthetic import make_setup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    s = make_setup(im_size=21, n_lambda=8, n_tpl=2, n_channels=1, n_pointings=1, n_slit=3)
+    a = (s["sotf"], s["templates"], s["alpha_axis"], s["beta_axis"], s["wavelength_axis"],
+         s["instrs"][0], s["step_degree"])
+    psfs = np.ones((8, 3, 3)) / 9
+    for make in (lambda **kw: family.SpectroSigRLCT(*a, **kw),
+                 lambda **kw: family.MO_SigRLSCT(*a, s["pointings"][0], **kw),
+                 lambda **kw: mixing.Model_WCT(psfs, s["templates"], (21, 21), **kw),
+                 lambda **kw: mixing.MixingST(s["templates"], s["alpha_axis"], s["beta_axis"],
+                                              s["wavelength_axis"], **kw)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    spec = importlib.util.spec_from_file_location("torch_operator_demo",
+                                                  ROOT / "scripts" / "torch_operator_demo.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        demo.main(["--op", "SigRLT", "--npix", "21", "--n-lambda", "8", "--channels", "1"])
+    assert demo.main(["--op", "SigRLT", "--npix", "21", "--n-lambda", "8", "--channels", "1",
+                      "--cpu", "--solve"]) == 0
+    assert '"dottest": true' in capsys.readouterr().out

@@ -571,3 +571,55 @@ def test_rotated_blind2d_model_on_card_matches_plain_f64():
     assert gr.launches > before
     for got, want in ((f, m64.forward(x, plain=True)), (a, m64.adjoint(y, plain=True))):
         assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, gathers", [("SpectroSigRLCT", 1), ("MO_SigRLSCT", 4),
+                                           ("MO_SigRLSCT_shiftConv", 1), ("SpectroMO_ST", 4)])
+def test_family_derived_adjoint_runs_the_kernel_both_ways(name, gathers):
+    """A family operator's f32 forward and derived adjoint on the card: #1
+    launched once per gather in each direction (the adjoint through
+    `GatherRows` on the transposed plans), against the same operator in
+    float64 on the card with the plain gather."""
+    from surfh_tpu_torch.models import family
+    from surfh_tpu_torch.simulation.synthetic import make_setup
+
+    dev = _cuda()
+    s = make_setup(im_size=61, n_lambda=40, n_tpl=3, n_channels=1, n_pointings=4, n_slit=3)
+    a = (s["sotf"], s["templates"], s["alpha_axis"], s["beta_axis"], s["wavelength_axis"],
+         s["instrs"][0], s["step_degree"])
+    if name != "SpectroSigRLCT":
+        a = a + (s["pointings"][0],)
+    cls = getattr(family, name)
+    m32 = cls(*a, dtype=torch.float32, device=dev)
+    m64 = cls(*a, dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(0)
+    x, y = rng.random(m32.ishape), rng.random(m32.oshape)
+    m32.adjoint(y)  # the derived adjoint's one-time forward at a zero primal
+    torch.cuda.synchronize()
+    before = gr.launches
+    f, t = m32.forward(x), m32.adjoint(y)
+    torch.cuda.synchronize()
+    assert gr.launches - before == 2 * gathers
+    for got, want in ((f, m64.forward(x, plain=True)), (t, m64.adjoint(y, plain=True))):
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_spectro_adjoint_auto_through_the_kernel_matches_the_adjoint():
+    """`SpectroSigRLSCT.adjoint_auto` on the card (rank mode, f32): the
+    derived transpose through `GatherRows` against the hand-written adjoint."""
+    from surfh_tpu_torch.simulation.synthetic import make_model
+
+    dev = _cuda()
+    model, _ = make_model(im_size=61, n_lambda=120, n_tpl=2, n_channels=2, n_pointings=2, n_slit=3,
+                          window_local=True, psf_stamps=True, conv_freq_rtol=1e-6,
+                          conv_rank_rtol=1e-7)
+    model.to(dev, torch.float32)
+    y = torch.rand(model.oshape, device=dev)
+    want = model.adjoint(y)
+    before = gr.launches
+    got = model.adjoint_auto(y)
+    torch.cuda.synchronize()
+    assert gr.launches > before
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

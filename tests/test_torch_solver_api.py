@@ -247,9 +247,9 @@ def test_joint_prior_matches_reference_difference_operator():
 
     x = np.random.default_rng(6).standard_normal(ISHAPE)
     jj = JaxJoint(ISHAPE[1:], jnp.float64)
-    tj = DifferenceOperatorJoint(ISHAPE[1:], "cpu", torch.float64)
+    tj = DifferenceOperatorJoint(ISHAPE[1:], torch.float64, "cpu")
     assert np.abs(tj.d_freq.numpy() - jj.d_freq).max() <= 1e-15 * np.abs(jj.d_freq).max()
-    for op in ("D", "DtD"):
+    for op in ("D", "D_t", "DtD"):
         assert rel(getattr(tj, op)(torch.as_tensor(x)).numpy(), getattr(jj, op)(jnp.asarray(x))) <= 1e-12
 
 
@@ -389,10 +389,12 @@ def test_spectro_not_ported_raises(case):
         SpectroSigRLSCT(**kw)
 
 
-@pytest.mark.parametrize("case, item", [("use_fwadj", "A10")])
+@pytest.mark.parametrize("case, item", [("use_fwadj", "define fwadj")])
 def test_criterion_not_ported_raises(toy, case, item):
+    """What the criterion refuses, as the reference does: `use_fwadj` on a
+    model without `fwadj` (ValueError), an unknown prior, an unknown method."""
     model = _TorchToy(toy.w)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1, False, "separated", True)
     with pytest.raises(ValueError, match="gradient"):
         QuadCriterion_MRS(1.0, torch.as_tensor(toy.y), model, 0.1, gradient="laplace")

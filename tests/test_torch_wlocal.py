@@ -397,15 +397,14 @@ def test_table_cache_switch_and_scope(monkeypatch, tmp_path):
 
 
 def test_make_model_takes_the_reference_parameters():
-    """C5: the reference's parameters in its order with its defaults, then
-    the port's `workers` and `channels`."""
+    """C5: the reference's parameters in its order with its defaults
+    (C10: `dtype=None`, which builds float32 in both), then the port's
+    `workers` and `channels`."""
     jp = list(inspect.signature(jax_make_model).parameters.values())
     pp = list(inspect.signature(make_model).parameters.values())
     assert [p.name for p in pp] == [p.name for p in jp[:-1]] + ["workers", "channels", "kwargs"]
     for p, j in zip(pp, jp[:-1]):
-        if p.name != "dtype":
-            assert p.default == j.default, p.name
-    assert pp[1].default is np.float32  # the reference's None means jnp.float32
+        assert p.default == j.default, p.name
 
 
 def test_make_model_default_is_the_reference_model():
