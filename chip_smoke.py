@@ -15,7 +15,10 @@ real-data rehearsal, the all-band path with NMF templates learned on the
 card (BASELINE config 5) in both its models, `gen-psf`, and the
 single-λ and λ-stack deconvolutions (BASELINE configs 1 and 2, both
 geometries); the flagship under the JWST diffraction PSF and with
-nearest-neighbour gridding; and one band's staged gridding.
+nearest-neighbour gridding; one band's staged gridding; the sharded paths
+over `torch.distributed` (channel-expert, λ, 2-D; NCCL at world 1, gloo
+for two processes on the one card) and BASELINE config 4 through
+`torchrun`; and `warmup`.
 
 1. device      — the card's name and power limit (nvidia-smi);
 2. build       — nvcc builds the three kernel sources from csrc/ into
@@ -115,7 +118,32 @@ nearest-neighbour gridding; and one band's staged gridding.
                  Q = 1 on the rotated plans;
 19. deconv-cube — BASELINE config 2 (301², 100 λ planes, 2 pointings, 100
                  iterations, µ = 5) the same way, plus the stack forward
-                 against the 2-D forward on three planes, #1 at Q = 100.
+                 against the 2-D forward on three planes, #1 at Q = 100;
+20. sharded    — (after wplane) `parallel.ShardedSpectro` at world 1 over
+                 NCCL: on the rank flagship, the sharded normal bit for bit
+                 `model.normal`, against the plain gathers, #1's launches
+                 per normal, ms per normal and per all_reduce, 10 solve
+                 iterations against 10 unsharded lcg ones; on the W-plane
+                 banded flagship (each band's own λ window), against its
+                 normal and the plain versions, launches of #1–#3, ms; then
+                 two processes on the card over gloo from [host]'s table
+                 cache with `shard_tables=True`: the normal against world
+                 1's, the iterates of 10 solve iterations bit for bit
+                 across the ranks, the table bytes per rank;
+21. lambda     — `LambdaShardedChannel` on band 1c's channel at world 1
+                 (NCCL) and 2 (gloo): the forward against the channel's,
+                 the float64 pair's dot test, #1's launches;
+22. mesh2d     — `ShardedSpectro2D` on the rank flagship over the two
+                 processes as meshes (2, 1) and (1, 2): the normal against
+                 `model.normal`, the all_reduces per normal;
+23. config4    — (after psf) BASELINE config 4 through the port's CLI:
+                 `fusion --simulated --sharded -nc 3 --pointings 4 -np 501
+                 -nt 4 -ni 50 -hp 5e3` under torchrun and the same unsharded:
+                 the reports, the criterion's fall, the command's maps bit
+                 for bit the library's sharded solve, ms per normal and per
+                 iteration, the objective against the unsharded lcg's;
+24. warmup     — `warmup --bands 1c,2a --programs fwd,adj,normal` into a
+                 fresh table cache, then again as a cache hit.
 
 Prints the kernels' JSON record, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -125,6 +153,7 @@ when there is no CUDA device or any check fails.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import re
@@ -1411,6 +1440,496 @@ def run_mixing_phase(dev, card: str, cuda_ms, gen) -> dict:
     return {"s_build": t_build, "s_expsol": t_exp, "s_lcg_it": s_it, "s_huber_it": s_hit}
 
 
+SHARDED_NITER = 10  # solve iterations of the sharded phases (as [slice]'s lcg)
+TOL_SHARD = 1e-5  # f32: another sum order (a window's FFT conv, a gloo reduction) than the reference's
+TOL_DOT64 = 1e-12  # a float64 transpose pair (the reference's operator bar)
+
+
+def lambda_bands(model, lam_band: str, world: int) -> list:
+    """Band `lam_band`'s channel index, then that of the band whose λ window
+    the first rank's block boundary (ceil(L / world)) cuts, where another."""
+    lp = -(-model.cube_shape[0] // world)
+    out = [next(c for c, ch in enumerate(model.channels) if ch.instr.name.lower().startswith(lam_band))]
+    cut = next((c for c, ch in enumerate(model.channels) if ch.wslice.start < lp < ch.wslice.stop), None)
+    return out + ([cut] if cut is not None and cut not in out else [])
+
+
+def lambda_dot_test(chan, dev, seed: int, mesh) -> float:
+    """The λ-sharded pair's dot test in float64 (the plain gathers: kernel #1
+    is f32), summed over the ranks of `mesh`; leaves the channel in
+    float32."""
+    import torch
+    import torch.distributed as dist
+
+    from surfh_tpu_torch.parallel import LambdaShardedChannel
+
+    chan.to(dev, torch.float64)
+    try:
+        # an axis that ends past the window by as many planes as precede it,
+        # so that two ranks split the window in its middle
+        L = chan.wslice.start + chan.wslice.stop
+        lam = LambdaShardedChannel(chan, L, mesh)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        y = torch.rand(chan.oshape, generator=g, device=dev, dtype=torch.float64)  # the same on every rank
+        g.manual_seed(seed + 2 + lam.rank)  # each rank's own block of the cube
+        shard = torch.rand((lam.Lp,) + chan.imshape, generator=g, device=dev, dtype=torch.float64)
+        lhs = float(torch.dot(lam.forward(shard, plain=True).reshape(-1), y.reshape(-1)))
+        part = torch.dot(shard.reshape(-1), lam.adjoint(y, plain=True).reshape(-1)).reshape(1)
+        dist.all_reduce(part, group=lam.group)
+        return abs(lhs - float(part)) / abs(lhs)
+    finally:
+        chan.to(dev, torch.float32)
+
+
+def sharded_rank_worker(rank: int, world: int, bands, cache_dir: str, mu_reg: float, lam_band: str,
+                        seed: int) -> dict:
+    """One of two processes on the one card over gloo (spawned by
+    `parallel.fusion.spawn_world`): the rank flagship from the table cache
+    that [host] filled, `ShardedSpectro(shard_tables=True)` (its normal, its
+    table bytes, SHARDED_NITER solve iterations), the λ-sharded band
+    `lam_band` at world 2, and `ShardedSpectro2D` on the meshes (2, 1) and
+    (1, 2).  Returns host arrays and numbers for the parent's checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.parallel import (LambdaShardedChannel, ShardedSpectro, ShardedSpectro2D,
+                                          make_mesh, make_mesh_2d)
+    from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    os.environ["SURFH_TABLE_CACHE"] = cache_dir
+    out = {"backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    setup = make_flagship_setup(bands=bands)
+    own, _ = make_flagship_model(setup, dtype=np.float32)
+    out["cache_hit"] = own.table_cache_hit
+    sh = ShardedSpectro(own, make_mesh(device_type="cuda"), shard_tables=True)
+    torch.cuda.synchronize(dev)
+    out["t_setup_s"] = time.perf_counter() - t0
+    out["mine"], out["bytes"] = sh.mine, sh.table_hbm_bytes()
+    out["mem_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+    truth = torch.as_tensor(setup["maps"], dtype=torch.float32, device=dev)
+    gr.reset_launches()
+    out["normal"] = sh.normal(truth).cpu().numpy()
+    torch.cuda.synchronize(dev)
+    out["normal_launches"] = gr.launches
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sh.normal(truth)
+    torch.cuda.synchronize(dev)
+    out["normal_ms_host"] = (time.perf_counter() - t0) / 3 * 1e3
+    acc = torch.zeros(own.ishape, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dist.all_reduce(acc, group=sh.group)
+    torch.cuda.synchronize(dev)
+    out["all_reduce_ms_host"] = (time.perf_counter() - t0) / 5 * 1e3
+    y = sh.unpack(sh.gather_packed(sh.forward(truth)))  # the data, from the owners' blocks
+    gr.reset_launches()
+    res = sh.solve(y, mu_reg=mu_reg, max_iter=SHARDED_NITER, tol=0.0)
+    torch.cuda.synchronize(dev)
+    out["solve_launches"] = gr.launches
+    out["x"], out["grad_norm"] = res.x.cpu().numpy(), res.grad_norm
+    del sh, own
+
+    # λ-sharded at world 2: band `lam_band`, and the band whose window the
+    # two ranks' blocks split
+    full, _ = make_flagship_model(setup, dtype=np.float32)
+    L = full.cube_shape[0]
+    lam_mesh = make_mesh(axis_name="lam", device_type="cuda")
+    out["lam"] = {}
+    for c in lambda_bands(full, lam_band, 2):
+        chan = full.channels[c].to(dev, torch.float32)
+        lam = LambdaShardedChannel(chan, L, lam_mesh)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cube = torch.rand(full.cube_shape, generator=g, device=dev)
+        yc = torch.rand(chan.oshape, generator=g, device=dev)
+        shard = lam.shard_cube(cube)
+        gr.reset_launches()
+        fwd = lam.forward(shard)
+        lam.adjoint(yc)
+        torch.cuda.synchronize(dev)
+        q = {"launches": gr.launches, "span": lam.span, "P": chan.oshape[0]}
+        want = chan.forward(cube)
+        q["err"] = float((fwd - want).abs().max() / want.abs().max())
+        del cube, shard, fwd, want, lam
+        q["dot"] = lambda_dot_test(chan, dev, seed, lam_mesh)
+        out["lam"][chan.instr.name] = q
+        del chan
+
+    # 2-D meshes over the two processes, every table on each
+    full.to(dev, torch.float32)
+    for shape in ((2, 1), (1, 2)):
+        s2 = ShardedSpectro2D(full, make_mesh_2d(*shape, device_type="cuda"))
+        counted = {"n": 0}
+        orig = dist.all_reduce
+
+        def counting(*a, **k):
+            counted["n"] += 1
+            return orig(*a, **k)
+
+        gr.reset_launches()
+        dist.all_reduce = counting
+        try:
+            n2 = s2.normal(truth)
+        finally:
+            dist.all_reduce = orig
+        torch.cuda.synchronize(dev)
+        key = f"{shape[0]}x{shape[1]}"
+        out[f"mesh2d_{key}_reductions"] = counted["n"]
+        out[f"mesh2d_{key}_launches"] = gr.launches
+        out[f"mesh2d_{key}_normal"] = n2.cpu().numpy()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            s2.normal(truth)
+        torch.cuda.synchronize(dev)
+        out[f"mesh2d_{key}_ms_host"] = (time.perf_counter() - t0) / 3 * 1e3
+    return out
+
+
+def run_sharded_phase(dev, card: str, cuda_ms, gen, model, wmodel, setup, truth, mu_reg, bands,
+                      cache_dir: str) -> dict:
+    """[sharded], [lambda], [mesh2d]: the channel-expert sharding at world 1
+    over NCCL on the rank flagship (bit for bit `model.normal`, against the
+    plain gathers, launches, ms per normal and per all_reduce, the solve
+    against the unsharded lcg) and the W-plane banded flagship (against its
+    normal, launches of #1–#3, ms); the λ-sharded band 1c at world 1; then
+    two processes on the card over gloo (`sharded_rank_worker`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import wblur_banded as wb
+    from surfh_tpu_torch.parallel import LambdaShardedChannel, ShardedSpectro, make_mesh
+    from surfh_tpu_torch.parallel.fusion import spawn_world
+    from surfh_tpu_torch.solvers.cg import lcg
+    from surfh_tpu_torch.solvers.criterion import dtd_separated
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    res = {}
+    n_pt = sum(c.oshape[0] for c in model.channels)
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "world 1 over NCCL")
+    sh = ShardedSpectro(model, mesh)
+    n_m, n_s, n_p = model.normal(truth), sh.normal(truth), sh.normal(truth, plain=True)
+    sync()
+    same, e_p = torch.equal(n_s, n_m), rel(n_s, n_p)
+    log(f"[sharded] world 1 (NCCL), rank flagship: sharded normal bit for bit model.normal {same}; "
+        f"against the plain gathers {e_p:.3e} (bound {TOL_SHARD:g})")
+    check(same and e_p <= TOL_SHARD, "sharded rank normal")
+    gr.reset_launches()
+    sh.normal(truth)
+    sync()
+    per_normal = gr.launches
+    check(per_normal == 2 * n_pt, f"sharded normal launches {per_normal}")
+    ms_s = cuda_ms(lambda: sh.normal(truth), REPS)
+    ms_m = cuda_ms(lambda: model.normal(truth), REPS)
+    acc = torch.zeros(model.ishape, device=dev)
+    ms_ar = cuda_ms(lambda: dist.all_reduce(acc), 20)
+    log(f"[sharded] {card}: sharded normal {ms_s:.3f} ms (model.normal {ms_m:.3f} ms), its all_reduce "
+        f"of {acc.numel() * 4 / 1e6:.2f} MB {ms_ar:.4f} ms; gather_rows launches per normal "
+        f"{per_normal} (expected {2 * n_pt}); tables {sh.table_hbm_bytes()['per_device'] / 2**30:.3f} GiB")
+    res.update(rank_ms=ms_s, model_ms=ms_m, all_reduce_ms=ms_ar)
+
+    y = model.forward(truth)
+    gr.reset_launches()
+    t0 = time.perf_counter()
+    sres = sh.solve(y, mu_reg=mu_reg, max_iter=SHARDED_NITER, tol=0.0)
+    sync()
+    t_solve = time.perf_counter() - t0
+    res["launches"] = gr.launches
+    expect = n_pt + 2 * n_pt * (SHARDED_NITER + 1)
+    b = 1.0 * model.adjoint(y)
+    ures = lcg(lambda x: 1.0 * model.normal(x) + mu_reg * dtd_separated(x), b, torch.zeros_like(b),
+               max_iter=SHARDED_NITER, tol=0.0)
+    sync()
+    e_x = rel(sres.x, ures.x)
+    log(f"[sharded] main path (b, {sres.n_iter} solve iterations, mu_reg={mu_reg:g}) in {t_solve:.3f} s; "
+        f"gather_rows launches {res['launches']} (expected {expect}); iterate against the unsharded "
+        f"lcg: {e_x:.3e}, bit for bit {torch.equal(sres.x, ures.x)}; grad norms "
+        f"{sres.grad_norm[0]:.4e} -> {sres.grad_norm[-1]:.4e}")
+    check(res["launches"] == expect and e_x <= TOL_SHARD and sres.grad_norm[-1] < sres.grad_norm[0],
+          "sharded solve")
+    del sres, ures, b, n_m, n_s, n_p
+
+    shw = ShardedSpectro(wmodel, mesh)
+    w_ref = wmodel.normal(truth)
+    w_s = shw.normal(truth)
+    w_p = shw.normal(truth, plain=True)
+    sync()
+    e_w, e_wp = rel(w_s, w_ref), rel(w_s, w_p)
+    gr.reset_launches()
+    wb.reset_launches()
+    shw.normal(truth)
+    sync()
+    w_launch = (gr.launches, wb.launches, wb.launches_t)
+    ms_w = cuda_ms(lambda: shw.normal(truth), 3)
+    ms_wm = cuda_ms(lambda: wmodel.normal(truth), 3)
+    n_w = sum(c.n_wslice for c in wmodel.channels)
+    log(f"[sharded] {card}: W-plane banded flagship at world 1: each band's own λ window "
+        f"(ΣW = {n_w} planes, against the model's {wmodel.cube_shape[0]}): against wmodel.normal "
+        f"{e_w:.3e}, against the plain versions {e_wp:.3e} (bound {TOL_SHARD:g}); launches per normal "
+        f"gather_rows / wblur_banded / wblur_banded_t {w_launch} (expected {(2 * n_pt, n_pt, n_pt)}); "
+        f"{ms_w:.3f} ms per normal (wmodel.normal {ms_wm:.3f} ms)")
+    check(e_w <= TOL_SHARD and e_wp <= TOL_SHARD and w_launch == (2 * n_pt, n_pt, n_pt),
+          "sharded W-plane normal")
+    res.update(wplane_launches=w_launch, wplane_ms=ms_w, wplane_model_ms=ms_wm)
+    del shw, w_ref, w_s, w_p
+    torch.cuda.empty_cache()
+
+    # [lambda] band 1c's channel, world 1
+    lam_band = "1c"
+    c = next((i for i, ch in enumerate(model.channels) if ch.instr.name.lower().startswith(lam_band)), 0)
+    chan = model.channels[c].to(dev, torch.float32)
+    L = model.cube_shape[0]
+    lam = LambdaShardedChannel(chan, L, make_mesh(axis_name="lam"))
+    seed = 7
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cube = torch.rand(model.cube_shape, generator=g, device=dev)
+    yc = torch.rand(chan.oshape, generator=g, device=dev)
+    shard = lam.shard_cube(cube)
+    gr.reset_launches()
+    fwd = lam.forward(shard)
+    lam.adjoint(yc)
+    sync()
+    res["lambda_launches"] = gr.launches
+    e_l = rel(fwd, chan.forward(cube))
+    e_lp = rel(fwd, lam.forward(shard, plain=True))
+    ms_lf = cuda_ms(lambda: lam.forward(shard), REPS)
+    ms_la = cuda_ms(lambda: lam.adjoint(yc), REPS)
+    del cube, shard, fwd
+    d_l = lambda_dot_test(chan, dev, seed, make_mesh(axis_name="lam"))
+    log(f"[lambda] {card}: band {chan.instr.name} λ-sharded at world 1 (W = {chan.n_wslice} of L = {L}): "
+        f"forward against the channel's {e_l:.3e}, against the plain gathers {e_lp:.3e} (bound "
+        f"{TOL_SHARD:g}); the float64 pair's dot test {d_l:.3e} (bound {TOL_DOT64:g}); gather_rows "
+        f"launches forward + adjoint {res['lambda_launches']} (expected {2 * chan.oshape[0]}); forward "
+        f"{ms_lf:.3f} ms, adjoint {ms_la:.3f} ms")
+    check(e_l <= TOL_SHARD and e_lp <= TOL_SHARD and d_l <= TOL_DOT64
+          and res["lambda_launches"] == 2 * chan.oshape[0], "λ-sharded world 1")
+    del lam
+    torch.cuda.empty_cache()
+
+    # two processes on the one card over gloo
+    t0 = time.perf_counter()
+    ranks = spawn_world(sharded_rank_worker, 2, (bands, cache_dir, mu_reg, lam_band, seed),
+                        backend="gloo", timeout=600.0)
+    t_two = time.perf_counter() - t0
+    r0, r1 = ranks
+    x_same = np.array_equal(r0["x"], r1["x"])
+    n1 = sh.normal(truth).cpu().numpy()
+    e_n = [float(np.abs(r["normal"] - n1).max() / np.abs(n1).max()) for r in ranks]
+    log(f"[sharded] {card}: two processes on the one card over {r0['backend']} (shard_tables, the "
+        f"tables from [host]'s cache: hit {r0['cache_hit']}, {r1['cache_hit']}) in {t_two:.1f} s: ranks own "
+        f"{r0['mine']} / {r1['mine']}; table bytes per rank {r0['bytes']['per_device'] / 2**30:.3f} / "
+        f"{r1['bytes']['per_device'] / 2**30:.3f} GiB of {r0['bytes']['replicated_would_be'] / 2**30:.3f} "
+        f"replicated; normal against world 1 {max(e_n):.3e} (bound {TOL_SHARD:g}); {SHARDED_NITER} solve "
+        f"iterations, iterates bit for bit across the ranks {x_same}; gather_rows launches per normal "
+        f"{r0['normal_launches']} + {r1['normal_launches']}, on the solve {r0['solve_launches']} + "
+        f"{r1['solve_launches']}; host ms per normal {r0['normal_ms_host']:.2f} / {r1['normal_ms_host']:.2f}, "
+        f"per gloo all_reduce {r0['all_reduce_ms_host']:.2f} / {r1['all_reduce_ms_host']:.2f}")
+    check(r0["cache_hit"] and r1["cache_hit"] and x_same and max(e_n) <= TOL_SHARD
+          and r0["backend"] == "gloo" and sorted(r0["mine"] + r1["mine"]) == list(range(len(model.channels)))
+          and r0["normal_launches"] + r1["normal_launches"] == 2 * n_pt, "two-rank sharded run")
+    res["two_rank_launches"] = r0["solve_launches"] + r1["solve_launches"]
+    res["two_rank_ms_host"] = max(r0["normal_ms_host"], r1["normal_ms_host"])
+    res["gloo_all_reduce_ms_host"] = max(r0["all_reduce_ms_host"], r1["all_reduce_ms_host"])
+    for name, q0 in r0["lam"].items():
+        q1 = r1["lam"][name]
+        log(f"[lambda] {card}: band {name} at world 2 over gloo: the ranks' spans (start, planes, window "
+            f"column) {q0['span']} / {q1['span']}; forward against the channel's {q0['err']:.3e} / "
+            f"{q1['err']:.3e} (bound {TOL_SHARD:g}); the float64 pair's dot test, the window split "
+            f"between the ranks, {q0['dot']:.3e} (bound {TOL_DOT64:g}); gather_rows launches "
+            f"{q0['launches']} + {q1['launches']} (expected 2 x {q0['P']} on each rank whose block meets "
+            f"the window)")
+        busy = sum(q["span"] is not None for q in (q0, q1))  # ranks whose block meets the window
+        check(max(q0["err"], q1["err"]) <= TOL_SHARD and q0["dot"] <= TOL_DOT64
+              and q0["launches"] + q1["launches"] == 2 * q0["P"] * busy, f"λ-sharded world 2, band {name}")
+        res["lambda_launches"] += q0["launches"] + q1["launches"]
+    check(any(q["span"] is not None and r1["lam"][n]["span"] is not None for n, q in r0["lam"].items()),
+          "a band split over the two ranks")
+    m_ref = model.normal(truth).cpu().numpy()
+    res["mesh2d_launches"] = 0
+    for key in ("2x1", "1x2"):
+        errs = [float(np.abs(r[f"mesh2d_{key}_normal"] - m_ref).max() / np.abs(m_ref).max()) for r in ranks]
+        nred = (r0[f"mesh2d_{key}_reductions"], r1[f"mesh2d_{key}_reductions"])
+        nl = (r0[f"mesh2d_{key}_launches"], r1[f"mesh2d_{key}_launches"])
+        log(f"[mesh2d] {card}: mesh {key} (chan x lam) over gloo, rank flagship: normal against "
+            f"model.normal {max(errs):.3e} (bound {TOL_SHARD:g}); all_reduces per normal {nred} "
+            f"(expected 2 each); gather_rows launches per normal {nl}; host ms per normal "
+            f"{r0[f'mesh2d_{key}_ms_host']:.2f} / {r1[f'mesh2d_{key}_ms_host']:.2f}")
+        check(max(errs) <= TOL_SHARD and nred == (2, 2) and min(nl) > 0, f"mesh2d {key}")
+        res["mesh2d_launches"] += sum(nl)
+    res["mesh2d_ms_host"] = {k: max(r0[f"mesh2d_{k}_ms_host"], r1[f"mesh2d_{k}_ms_host"])
+                             for k in ("2x1", "1x2")}
+    res["bytes"] = [r0["bytes"], r1["bytes"]]
+    del sh
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return res
+
+
+CONFIG4_ARGV = ["fusion", "--simulated", "-nc", "3", "--pointings", "4", "-np", "501", "-nt", "4",
+                "-ni", "50", "-hp", "5e3"]
+# λ samples of BASELINE config 4's simulated run: the synthetic 7.51–8.75 µm axis sampled at
+# about the gratings' resolution element (λ/R ≈ 2.6e-3 µm at R ≈ 3050)
+CONFIG4_NLAMBDA = 480
+CONFIG4_J_FALL = 1e-4  # J(x̂) / J(0) after 50 iterations, both solves
+# |J(sharded) − J(unsharded lcg)| / J(unsharded), both from 0: f32 CG in another sum
+# order; measured 8e-6 (1.133890e10 against 1.133881e10), so ~10× headroom
+CONFIG4_J_AGREE = 1e-4
+
+
+def run_config4_phase(dev, card: str, cuda_ms) -> dict:
+    """[config4]: BASELINE config 4 through the port's CLI, sharded under
+    torchrun (world 1, NCCL) and unsharded with the same arguments: the
+    reports and the criterion's fall; the sharded command's maps bit for
+    bit an in-process `ShardedSpectro.solve` of the same model (the command
+    is the library's path); the sharded normal against the model's within
+    f32 rounding; ms per normal and per iteration of both after their
+    one-time set-up (NCCL's communicator, cuFFT plans); the objective J of
+    the sharded solve and of the unsharded lcg from the same zero start (the reference's sharded start; the
+    unsharded command starts at 0.5).  50 CG iterations amplify an operator
+    rounding difference far past it (PERF.md), so the iterates are compared
+    on the record, not against a rounding bound."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.parallel import ShardedSpectro, make_mesh
+    from surfh_tpu_torch.simulation.synthetic import make_model
+    from surfh_tpu_torch.solvers.cg import lcg
+    from surfh_tpu_torch.solvers.criterion import dtd_separated
+
+    argv = CONFIG4_ARGV + ["--n-lambda", str(CONFIG4_NLAMBDA)]
+    mu, niter = float(argv[argv.index("-hp") + 1]), int(argv[argv.index("-ni") + 1])
+    work = tempfile.mkdtemp(prefix="surfh_config4_")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        runs = {}
+        for name, pre in (("sharded", [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                       "--nproc-per-node", "1", "-m", "surfh_tpu_torch.cli"]),
+                          ("unsharded", [sys.executable, "-m", "surfh_tpu_torch.cli"])):
+            out = os.path.join(work, name)
+            extra = ["--sharded"] if name == "sharded" else []
+            t0 = time.perf_counter()
+            proc = subprocess.run(pre + argv + extra + ["-o", out], env=env, capture_output=True,
+                                  text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                log(proc.stderr[-4000:])
+            check(proc.returncode == 0, f"config4 {name} run")
+            rep = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+            runs[name] = (rep, np.load(os.path.join(out, "res_x.npy")),
+                          np.load(os.path.join(out, "criterion.npy")))
+            log(f"[config4] {card}: `{' '.join(argv + extra)}`{' under torchrun (1 process)' if extra else ''}: "
+                f"{json.dumps(rep)}; wall {wall:.1f} s (process start and model build included)")
+            gn = runs[name][2]
+            check(set(rep) == {"method", "niter", "seconds", "iters_per_s", "psnr_maps",
+                               "relative_error_pct"} and rep["niter"] == niter, f"config4 {name} report")
+            check(bool(np.isfinite(gn).all()) and gn[-1] < 1e-2 * gn[0], f"config4 {name} criterion falls")
+
+        model, setup = make_model(dtype=np.float32, window_local=False, im_size=501,
+                                  n_lambda=CONFIG4_NLAMBDA, n_tpl=4, n_channels=3, n_pointings=4)
+        model.to(dev, torch.float32)
+        truth = torch.as_tensor(setup["maps"], dtype=torch.float32, device=dev)
+        y = model.forward(truth)
+        sh = ShardedSpectro(model, make_mesh())
+        b = 1.0 * model.adjoint(y)
+
+        def unsharded(n):
+            return lcg(lambda x: 1.0 * model.normal(x) + mu * dtd_separated(x), b, torch.zeros_like(b),
+                       max_iter=n)
+
+        try:
+            t0 = time.perf_counter()
+            e_n = float((sh.normal(truth) - model.normal(truth)).abs().max() / model.normal(truth).abs().max())
+            torch.cuda.synchronize(dev)
+            t_first = time.perf_counter() - t0
+            gr.reset_launches()
+            xs = sh.solve(y.cpu().numpy(), mu_reg=mu, max_iter=niter).x
+            torch.cuda.synchronize(dev)
+            launches = gr.launches
+            ms = {"sharded": cuda_ms(lambda: sh.normal(truth), REPS),
+                  "unsharded": cuda_ms(lambda: model.normal(truth), REPS)}
+            its = {}
+            for name, run in (("sharded", lambda: sh.solve(y, mu_reg=mu, max_iter=REPS)),
+                              ("unsharded", lambda: unsharded(REPS))):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize(dev)
+                its[name] = (time.perf_counter() - t0) / REPS
+        finally:
+            dist.destroy_process_group()
+        same = np.array_equal(xs.cpu().numpy(), runs["sharded"][1])
+        xu = unsharded(niter).x
+        log(f"[config4] {card}: normal {ms['sharded']:.3f} ms sharded (each band's window: ΣW = "
+            f"{sum(c.n_wslice for c in model.channels)} planes) against {ms['unsharded']:.3f} ms unsharded "
+            f"(L = {model.cube_shape[0]}); a CG iteration after the set-up {its['sharded'] * 1e3:.2f} ms "
+            f"sharded, {its['unsharded'] * 1e3:.2f} ms unsharded (host clock, {REPS} iterations); the first "
+            f"sharded normal (NCCL's communicator made) {t_first * 1e3:.1f} ms")
+
+        def J(x):
+            r = (y - model.forward(x)).double()
+            return float(0.5 * (r * r).sum() + 0.5 * mu * (x.double() * dtd_separated(x).double()).sum())
+
+        j0, js, ju = J(torch.zeros_like(b)), J(xs), J(xu)
+        e_x = float((xs - xu).abs().max() / xu.abs().max())
+        xc = torch.as_tensor(runs["unsharded"][1], device=dev)
+        log(f"[config4] {card}: bands W = {[c.n_wslice for c in model.channels]}, y {model.oshape[0]}; the "
+            f"command's sharded maps bit for bit the in-process ShardedSpectro.solve {same} (gather_rows "
+            f"launches {launches}); sharded normal against model.normal {e_n:.3e} (bound {TOL_SHARD:g}); "
+            f"J(0) {j0:.6e}, J(sharded) {js:.6e}, J(unsharded lcg from 0) {ju:.6e}, J(unsharded command, "
+            f"from 0.5) {J(xc):.6e} (bounds J/J(0) <= {CONFIG4_J_FALL:g}, |J(sharded) - J(unsharded)| / "
+            f"J(unsharded) {abs(js - ju) / ju:.3e} <= {CONFIG4_J_AGREE:g}); maps sharded vs unsharded "
+            f"from 0: {e_x:.3e} of the max")
+        check(same and e_n <= TOL_SHARD and launches > 0 and max(js, ju) <= CONFIG4_J_FALL * j0
+              and abs(js - ju) <= CONFIG4_J_AGREE * ju, "config4 against the library and the unsharded solve")
+        del model, sh, xs, xu, xc, b, y
+        torch.cuda.empty_cache()
+        return {"report": runs["sharded"][0], "unsharded": runs["unsharded"][0], "launches": launches,
+                "J": (j0, js, ju), "err_x": e_x, "ms": ms, "it_s": its}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+WARMUP_ARGV = ["warmup", "--bands", "1c,2a", "--programs", "fwd,adj,normal"]
+
+
+def run_warmup_phase(card: str) -> dict:
+    """[warmup]: `warmup --bands 1c,2a --programs fwd,adj,normal` into a
+    fresh table-cache directory, then again: the second finds its tables
+    in the cache."""
+    cache = tempfile.mkdtemp(prefix="surfh_warmup_cache_")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    reps = []
+    try:
+        for i in range(2):
+            proc = subprocess.run([sys.executable, "-m", "surfh_tpu_torch.cli"] + WARMUP_ARGV
+                                  + ["--cache-dir", cache], env=env, capture_output=True, text=True,
+                                  timeout=600)
+            if proc.returncode != 0:
+                log(proc.stderr[-4000:])
+            check(proc.returncode == 0, f"warmup run {i + 1}")
+            rep = json.loads(proc.stdout.strip().splitlines()[-1])
+            reps.append(rep)
+            log(f"[warmup] {card}: run {i + 1}: {json.dumps(rep)}")
+        check(reps[0]["backend"] == "cuda" and not reps[0]["table_cache_hit"] and reps[1]["table_cache_hit"]
+              and all(f"t_first_{p}_s" in reps[1] for p in ("fwd", "adj", "normal")), "warmup report")
+        return {"cold": reps[0], "hit": reps[1]}
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bands", default=None, help="comma-separated MIRI bands (default: all 12)")
@@ -1487,7 +2006,8 @@ def main(argv=None) -> int:
 
     # 3. host tables: cold into a fresh cache directory, then a cache hit --
     bands = args.bands.split(",") if args.bands else None
-    cache_dir = tempfile.mkdtemp(prefix="surfh_table_cache_")
+    cache_dir = tempfile.mkdtemp(prefix="surfh_table_cache_")  # read again by [sharded]'s two ranks
+    atexit.register(shutil.rmtree, cache_dir, True)
     os.environ["SURFH_TABLE_CACHE"] = cache_dir
     try:
         t0 = time.perf_counter()
@@ -1505,7 +2025,6 @@ def main(argv=None) -> int:
         del hit
     finally:
         os.environ["SURFH_TABLE_CACHE"] = "0"  # the later models neither read nor write one
-        shutil.rmtree(cache_dir, ignore_errors=True)
     n_pt = sum(c.oshape[0] for c in model.channels)
     log(f"[host] {len(model.channels)} bands {setup['bands']}, cube {model.cube_shape}, "
         f"maps {model.ishape}, y {model.oshape[0]}: host tables in {t_host:.2f} s "
@@ -1883,6 +2402,15 @@ def main(argv=None) -> int:
     del wcrit, wres, wres2, y_b, y_w, xr, yr
     torch.cuda.empty_cache()
 
+    # [sharded], [lambda], [mesh2d]: both models over torch.distributed
+    t0 = time.perf_counter()
+    shard = run_sharded_phase(dev, card, cuda_ms, gen, model, wmodel, setup, truth, mu_reg, bands,
+                              cache_dir)
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    log(f"[sharded] phases [sharded], [lambda], [mesh2d] in {time.perf_counter() - t0:.2f} s; "
+        f"gather_rows launches on the sharded solve {shard['launches']}, the two ranks' "
+        f"{shard['two_rank_launches']}, λ {shard['lambda_launches']}, 2-D {shard['mesh2d_launches']}")
+
     # 10. the dense window-local flagship and its OTF-window variant -------
     t0 = time.perf_counter()
     wl = run_wlocal_phase(dev, card, cuda_ms, gen, bound, model, setup, wmodel, wsetup, truth, mu_reg)
@@ -1960,11 +2488,22 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_psf_phase(dev, card, cuda_ms, gen, model.channels, bands)
     log(f"[psf] phase in {time.perf_counter() - t0:.2f} s")
+
+    # [config4], [warmup]: BASELINE config 4 sharded through torchrun; warmup
+    t0 = time.perf_counter()
+    run_config4_phase(dev, card, cuda_ms)
+    log(f"[config4] phase in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    run_warmup_phase(card)
+    log(f"[warmup] phase in {time.perf_counter() - t0:.2f} s")
     gather_paths = {"rank": main_launches, "wplane": wmain[0], "wlocal": wl["launches"],
                     "pipeline": pipe["launches"], "allband": allb["launches"],
                     "allband_wl": allb_wl["launches"], "deconv2d": deconv["deconv2d"]["launches"],
                     "deconv_cube": deconv["deconv-cube"]["launches"], "nn": nn["launches"],
-                    "staged": staged["launches"], "family": fam["launches"]}
+                    "staged": staged["launches"], "family": fam["launches"],
+                    "sharded": shard["launches"], "sharded_two_rank": shard["two_rank_launches"],
+                    "sharded_wplane": shard["wplane_launches"][0], "lambda": shard["lambda_launches"],
+                    "mesh2d": shard["mesh2d_launches"]}
     check(all(gather_paths.values()), f"a path launched no row gather: {gather_paths}")
 
     log(json.dumps({"kernels": [{
@@ -1985,16 +2524,18 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "surfh_tpu_torch/csrc/wblur_banded.cu",
         "replaces": replaces,
-        "launches": launches,
+        "launches": launches + shard_launches,
+        "launches_by_path": {"wplane": launches, "sharded_wplane": shard_launches},
         "max_abs_err": bkern[name]["err"],
         "ms": bkern[name]["ms"],
         "plain_ms": bkern[name]["plain_ms"],
         "bound_ms": bkern[name]["bound_ms"],
         "bound_by": bkern[name]["bound_by"],
         "library_ms": bkern[name]["library_ms"],
-    } for name, replaces, launches in (
-        ("wblur_banded", "surfh_tpu/core/wblur_pallas.py:102", wmain[1]),
-        ("wblur_banded_t", "surfh_tpu/core/wblur_pallas.py:227", wmain[2]))] + [{
+    } for name, replaces, launches, shard_launches in (
+        ("wblur_banded", "surfh_tpu/core/wblur_pallas.py:102", wmain[1], shard["wplane_launches"][1]),
+        ("wblur_banded_t", "surfh_tpu/core/wblur_pallas.py:227", wmain[2],
+         shard["wplane_launches"][2]))] + [{
         "name": f"gather_fixed_{k.lower()}",
         "route": "cuda",
         "source": "surfh_tpu_torch/csrc/gather_fixed.cu",

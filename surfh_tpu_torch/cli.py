@@ -3,12 +3,17 @@
 Counterpart of `surfh_tpu/cli.py`: the same subcommand names, options,
 defaults and JSON last line for `fusion` (real data, or `--simulated`),
 `rehearse`, `allband`, `deconv2d`, `deconv-cube`, `make-cube`,
-`compare-flux`, `gen-psf` and `info`, with ``--method lcg|mmmg``.  Everything runs on the card; ``SURFH_CPU=1`` (the
+`compare-flux`, `gen-psf`, `metadata`, `warmup` and `info`, with
+``--method lcg|mmmg``.  Everything runs on the card; ``SURFH_CPU=1`` (the
 reference's switch) runs it on the host CPU instead.  Without a card and
 without that switch, every subcommand raises.
 
-Not ported yet (NotImplementedError, naming the ROADMAP item):
-``--sharded`` (A13) and the subcommands `metadata` and `warmup`.
+``fusion --simulated --sharded`` shards the bands over the processes of a
+``torch.distributed`` world (`parallel.ShardedSpectro`): one process runs
+it at world 1; under ``torchrun --standalone --nproc-per-node N -m
+surfh_tpu_torch.cli fusion --simulated --sharded …`` each of the N ranks
+drives ``cuda:LOCAL_RANK`` (the CPU under SURFH_CPU), and rank 0 alone
+prints the report and writes the outputs.
 
 Usage:
     python -m surfh_tpu_torch.cli rehearse --band 1c --pointings 4 -np 501 --step 0.025 \\
@@ -18,6 +23,9 @@ Usage:
     python -m surfh_tpu_torch.cli deconv2d -np 301 -ni 200 -hp 500 --rotated
     python -m surfh_tpu_torch.cli deconv-cube -np 301 -nl 100 --pointings 2 -ni 100 -hp 5
     python -m surfh_tpu_torch.cli gen-psf --band 1c --opd commissioning -o psf.npy
+    torchrun --standalone --nproc-per-node 1 -m surfh_tpu_torch.cli fusion --simulated \
+        --sharded -nc 3 --pointings 4 -np 501 -nt 4 -ni 50 -hp 5e3
+    python -m surfh_tpu_torch.cli warmup --bands 1c,2a --programs fwd,adj,normal
     SURFH_CPU=1 python -m surfh_tpu_torch.cli fusion --simulated -np 31 --n-lambda 16
 """
 
@@ -38,11 +46,6 @@ from .core.precision import require_cuda
 
 logger = logging.getLogger("surfh_tpu_torch")
 
-NOT_PORTED = {
-    "metadata": "the metadata subcommand is ROADMAP A12",
-    "warmup": "warmup is ROADMAP A12",
-}
-
 
 def _device() -> torch.device:
     """The card, or the host CPU under ``SURFH_CPU`` (any non-empty value)."""
@@ -57,24 +60,28 @@ def _emit(obj) -> None:
 
 def cmd_fusion(args, parser) -> None:
     """Multi-channel multi-observation LMM fusion (the flagship run)."""
-    from .simulation.synthetic import make_model
-    from .solvers.checkpoint import run_checkpointed
-    from .solvers.criterion import QuadCriterion_MRS
-    from .utils import metrics
-
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     if not args.simulated and args.fusion_data is None:
         parser.error("provide --fusion-data DIR or --simulated")
-    if args.sharded:
-        raise NotImplementedError("--sharded: the channel-sharded solve (parallel/fusion.py) "
-                                  "is ROADMAP A13")
-    device = _device()
-    os.makedirs(args.output_dir, exist_ok=True)
+    if args.sharded and args.simulated:
+        import torch.distributed as dist
 
+        from .parallel.fusion import make_mesh
+
+        own_world = not dist.is_initialized()
+        mesh = make_mesh()  # joins the launcher's world (or makes one of 1), takes LOCAL_RANK's card
+        try:
+            _simulated_fusion(args, mesh)
+        finally:
+            if own_world:
+                dist.destroy_process_group()
+        return
     if not args.simulated:
         from .pipeline import run_real_fusion
 
+        device = _device()
+        os.makedirs(args.output_dir, exist_ok=True)
         slices = os.path.join(args.fusion_data, "Filtered_slices")
         bands = sorted({f.split("_")[0].lower() for f in os.listdir(slices) if f.endswith(".fits")})
         logger.info("real-data fusion: bands %s", bands)
@@ -87,7 +94,21 @@ def cmd_fusion(args, parser) -> None:
         _emit({"method": args.method, "niter": int(res.n_iter),
                "final_grad_norm": float(res.grad_norm[-1])})
         return
+    _simulated_fusion(args, None)
 
+
+def _simulated_fusion(args, mesh) -> None:
+    """`fusion --simulated`, unsharded (`mesh` None: the criterion's
+    checkpointed solve) or sharded over `mesh` (rank 0 reports and writes)."""
+    from .simulation.synthetic import make_model
+    from .solvers.checkpoint import run_checkpointed
+    from .solvers.criterion import QuadCriterion_MRS
+    from .utils import metrics
+
+    device = _device()
+    lead = mesh is None or mesh.get_rank() == 0
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
     logger.info("building simulated model: %d² grid, %dλ, %d bands, %d pointings",
                 args.npix, args.n_lambda, args.channels, args.pointings)
     model, setup = make_model(
@@ -105,14 +126,19 @@ def cmd_fusion(args, parser) -> None:
     logger.info("data synthesized in %.2fs (%d samples)", time.perf_counter() - t0, y.size)
 
     t0 = time.perf_counter()
-    crit = QuadCriterion_MRS(1.0, y, model, args.hyper_parameter, printing=args.verbose)
-    res = run_checkpointed(
-        crit, method=args.method, niter=args.niter,
-        checkpoint_path=os.path.join(args.output_dir, "solver_state.npz"),
-        checkpoint_every=args.checkpoint_every,
-    )
+    ckpt_path = os.path.join(args.output_dir, "solver_state.npz")
+    if mesh is not None:
+        from .parallel.fusion import ShardedSpectro
+
+        res = _sharded_solve(ShardedSpectro(model, mesh), y, args, ckpt_path, lead)
+    else:
+        crit = QuadCriterion_MRS(1.0, y, model, args.hyper_parameter, printing=args.verbose)
+        res = run_checkpointed(crit, method=args.method, niter=args.niter,
+                               checkpoint_path=ckpt_path, checkpoint_every=args.checkpoint_every)
     x = res.x.cpu().numpy()
     dt = time.perf_counter() - t0
+    if not lead:
+        return
     logger.info("%s: %d iterations in %.2fs (%.2f it/s)", args.method, res.n_iter, dt,
                 res.n_iter / max(dt, 1e-9))
 
@@ -127,6 +153,39 @@ def cmd_fusion(args, parser) -> None:
         "psnr_maps": metrics.psnr(truth, x),
         "relative_error_pct": metrics.relative_error(truth, x),
     })
+
+
+def _sharded_solve(sh, y, args, ckpt_path: str, lead: bool):
+    """`ShardedSpectro.solve` for `fusion --sharded`: in one go, or (lcg with
+    ``--checkpoint-every``) in segments that carry the solver state, rank 0
+    alone writing the checkpoint, every rank resuming from it."""
+    from .solvers.cg import SolverResult
+    from .solvers.checkpoint import load_checkpoint, save_checkpoint
+
+    kw = dict(mu_reg=args.hyper_parameter, method=args.method)
+    if args.checkpoint_every <= 0 or args.method != "lcg":
+        return sh.solve(y, max_iter=args.niter, **kw)
+    done, hist, x, state = 0, [], None, None
+    ck = load_checkpoint(ckpt_path)
+    if ck is not None and ck["n_iter_done"] > 0:
+        done, hist, x = min(ck["n_iter_done"], args.niter), list(ck["grad_norm"]), ck["x"]
+        state = tuple(torch.as_tensor(np.asarray(a)).to(sh.device, sh.dtype)
+                      for a in ck.get("state") or ()) or None
+    res = None
+    while done < args.niter:
+        step = min(args.checkpoint_every, args.niter - done)
+        res = sh.solve(y, max_iter=step, x0=x, state=state, return_state=True, **kw)
+        x, state = res.x, res.state
+        done += res.n_iter if res.n_iter > 0 else step
+        hist.extend(res.grad_norm.tolist())
+        if lead:
+            save_checkpoint(ckpt_path, x, done, hist, state=state)
+        if res.converged and res.n_iter < step:
+            break
+    if x is None:  # --niter 0: the solve's start
+        x = torch.zeros(sh.model.ishape, device=sh.device, dtype=sh.dtype)
+    return SolverResult(x=x, grad_norm=np.asarray(hist), n_iter=done,
+                        converged=True if res is None else res.converged)
 
 
 def _blobs(npix: int, rng) -> np.ndarray:
@@ -377,6 +436,100 @@ def cmd_gen_psf(args, parser) -> None:
     })
 
 
+def cmd_metadata(args, parser) -> None:
+    """Header-metadata fix-ups of the real-data correction chain
+    (targ-coords, rotation, swap-slits, rank-target), as the reference's
+    `metadata` command."""
+    from .preprocessing import metadata as md
+
+    op, slice_dirs = args.operation, args.slice_dirs or []
+    if op == "targ-coords":
+        if not args.raw_dir or not slice_dirs:
+            parser.error("targ-coords needs --raw-dir and --slice-dir")
+        n = md.propagate_target_coords(args.raw_dir, list(slice_dirs), verbose=args.verbose)
+        _emit({"operation": op, "files_updated": n})
+    elif op == "rotation":
+        if not args.raw_dir or len(slice_dirs) != 1:
+            parser.error("rotation needs --raw-dir and ONE --slice-dir")
+        n = md.propagate_rotation(args.raw_dir, slice_dirs[0], verbose=args.verbose)
+        _emit({"operation": op, "files_updated": n})
+    elif op == "swap-slits":
+        if len(slice_dirs) != 1:
+            parser.error("swap-slits needs ONE --slice-dir")
+        n = md.swap_slit_blocks_in_files(slice_dirs[0], match=args.match, n_slit=args.n_slit,
+                                         block_width=args.block_width, verbose=args.verbose)
+        _emit({"operation": op, "files_updated": n})
+    else:  # rank-target
+        if not args.raw_dir or args.ref_ra is None or args.ref_dec is None:
+            parser.error("rank-target needs --raw-dir, --ref-ra, --ref-dec")
+        paths = [os.path.join(args.raw_dir, f) for f in sorted(os.listdir(args.raw_dir))
+                 if f.endswith(".fits")]
+        ranked = md.rank_files_by_target_distance(paths, args.ref_ra, args.ref_dec)
+        _emit({"operation": op, "ranked": [{"path": p, "distance_deg": d} for p, d in ranked]})
+
+
+WARMUP_PROGRAMS = ("fwd", "adj", "normal")
+
+
+def cmd_warmup(args, parser) -> None:
+    """Prepare an environment for the flagship programs: build the kernel
+    libraries with nvcc, fill the host-table cache for --bands, and run one
+    application of each named program on the card (cuBLAS / cuFFT plans
+    and workspaces made).  Later processes then find the libraries built
+    and the tables cached.  Prints one JSON line of per-step seconds."""
+    from .models.spectro import table_cache_dir
+    from .simulation.flagship import make_flagship_model
+
+    want = [p.strip() for p in args.programs.split(",") if p.strip()]
+    bad = sorted(set(want) - set(WARMUP_PROGRAMS))
+    if bad:
+        parser.error(f"unknown programs {bad}: choose from {','.join(WARMUP_PROGRAMS)}")
+    device = _device()
+    if args.cache_dir:
+        os.environ["SURFH_TABLE_CACHE"] = args.cache_dir
+    report = {"cache_dir": table_cache_dir(), "backend": device.type}
+    if device.type == "cuda":
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .core import gather_fixed, gather_rows, wblur_banded
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(3) as ex:  # one nvcc per source
+            for f in [ex.submit(gather_rows.load_kernel), ex.submit(wblur_banded.load_kernels),
+                      ex.submit(gather_fixed.load_kernels)]:
+                f.result()
+        report["t_kernels_s"] = round(time.perf_counter() - t0, 2)
+        report["kernels"] = ["gather_rows", "wblur_banded", "gather_fixed"]
+    else:
+        report["kernels"] = "not built: cpu"
+
+    t0 = time.perf_counter()
+    bands = [b.strip() for b in args.bands.split(",")] if args.bands else None
+    model, setup = make_flagship_model(bands=bands, workers=min(8, os.cpu_count() or 1))
+    report["t_build_s"] = round(time.perf_counter() - t0, 2)
+    report["table_cache_hit"] = bool(model.table_cache_hit)
+    t0 = time.perf_counter()
+    model.to(device, torch.float32)
+    _sync(device)
+    report["t_tables_s"] = round(time.perf_counter() - t0, 2)
+    x = torch.as_tensor(setup["maps"], dtype=torch.float32, device=device)
+    y = torch.zeros(model.oshape, dtype=torch.float32, device=device)
+    run = {"fwd": lambda: model.forward(x), "adj": lambda: model.adjoint(y),
+           "normal": lambda: model.normal(x)}
+    for name in WARMUP_PROGRAMS:
+        if name in want:
+            t0 = time.perf_counter()
+            run[name]()
+            _sync(device)
+            report[f"t_first_{name}_s"] = round(time.perf_counter() - t0, 3)
+    _emit(report)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def cmd_info(args, parser) -> None:
     """Print device information (the card's, or the CPU's under SURFH_CPU)."""
     device = _device()
@@ -518,18 +671,37 @@ def build_parser() -> argparse.ArgumentParser:
     d2.add_argument("--output-dir", "-o", default="./surfh_results")
     d2.set_defaults(run=cmd_deconv2d)
 
+    md = sub.add_parser("metadata", help=cmd_metadata.__doc__)
+    md.add_argument("operation", choices=["targ-coords", "rotation", "swap-slits", "rank-target"])
+    md.add_argument("--raw-dir", default=None,
+                    help="Raw-exposure directory (source of RA_V1/DEC_V1/PA_V3).")
+    md.add_argument("--slice-dir", dest="slice_dirs", action="append", default=None,
+                    help="Corrected/filtered slice directory (repeatable).")
+    md.add_argument("--match", default="ch2", help="Filename substring filter (swap-slits).")
+    md.add_argument("--n-slit", type=int, default=17)
+    md.add_argument("--block-width", type=int, default=24)
+    md.add_argument("--ref-ra", type=float, default=None, help="Target RA (rank-target).")
+    md.add_argument("--ref-dec", type=float, default=None, help="Target DEC (rank-target).")
+    md.add_argument("--verbose", "-v", action="store_true")
+    md.set_defaults(run=cmd_metadata)
+
+    w = sub.add_parser("warmup", help=cmd_warmup.__doc__)
+    w.add_argument("--bands", "-b", default=None, help="Comma-separated band list (default: all 12).")
+    w.add_argument("--cache-dir", default=None,
+                   help="Host-table cache directory to fill (sets SURFH_TABLE_CACHE; default: "
+                        "SURFH_TABLE_CACHE, else ~/.cache/surfh_tpu_torch).")
+    w.add_argument("--programs", default="fwd,adj",
+                   help="Comma-set of programs to run once: fwd,adj,normal (default fwd,adj).")
+    w.set_defaults(run=cmd_warmup)
+
     i = sub.add_parser("info", help=cmd_info.__doc__)
     i.set_defaults(run=cmd_info)
 
-    for name in NOT_PORTED:  # listed in the help; `main` refuses them before parsing
-        sub.add_parser(name, help=f"not ported yet: {NOT_PORTED[name]}")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        raise NotImplementedError(f"{argv[0]}: not ported yet; {NOT_PORTED[argv[0]]}")
     parser = build_parser()
     args = parser.parse_args(argv)
     args.run(args, parser)

@@ -489,18 +489,19 @@ class Channel:
         a0, b0, ha, wb = self.tbbox
         planes[:, a0 : a0 + ha, b0 : b0 + wb].add_(rows.view(ha, wb, -1).permute(2, 0, 1))
 
-    def _slit_windows(self, loc: torch.Tensor, t: dict) -> torch.Tensor:
+    def _slit_windows(self, loc: torch.Tensor, t: dict, fft_box: bool = False) -> torch.Tensor:
         """Staged box-sum and slit read: local-grid rows [nla·nlb, Q] →
         window rows [S·A·sb, Q] (reference `_forward_one_pointing`): the
         direct reshape-sum of srf rows at the calibrated offset, or with no
-        offset the FFT × otf_combined box-sum read every srf-th row."""
+        offset (or `fft_box`) the FFT × otf_combined box-sum read every
+        srf-th row."""
         nla, nlb = self.local_im_shape
         _, S, _, A = self.oshape
         sb, srf = self.slit_shape[2], self.srf
         q = loc.shape[1]
         img = loc.view(nla, nlb, q)
         starts = zip(self.slit_a_starts.tolist(), self.slit_b_starts.tolist())
-        off = self.box_offset
+        off = None if fft_box else self.box_offset
         if off is None:
             spec = torch.fft.rfftn(img, dim=(0, 1), norm="ortho") * t["otf_box"][:, :, None]
             img = torch.fft.irfftn(spec, s=(nla, nlb), dim=(0, 1), norm="ortho")
@@ -510,7 +511,7 @@ class Channel:
                     for a0, b0 in starts]
         return torch.stack(wins).reshape(S * A * sb, q)
 
-    def _slit_windows_t(self, win: torch.Tensor, t: dict) -> torch.Tensor:
+    def _slit_windows_t(self, win: torch.Tensor, t: dict, fft_box: bool = False) -> torch.Tensor:
         """Exact transpose of :meth:`_slit_windows`: window rows → local-grid
         rows (adjacent slits share a β edge column: the adds accumulate)."""
         nla, nlb = self.local_im_shape
@@ -520,7 +521,7 @@ class Channel:
         w4 = win.view(S, A, sb, q)
         img = win.new_zeros((nla, nlb, q))
         starts = zip(self.slit_a_starts.tolist(), self.slit_b_starts.tolist())
-        off = self.box_offset
+        off = None if fft_box else self.box_offset
         if off is None:
             for s, (a0, b0) in enumerate(starts):
                 img[a0 : a0 + (A - 1) * srf + 1 : srf, b0 : b0 + sb] += w4[s]

@@ -81,8 +81,8 @@ def stamp_tables(job: dict, tbbox, npdtype, wpsf=None):
     """One channel's window-local stamp-mode tables (reference
     `_build_host_tables`, spectro.py:378-484) from its stamps, templates
     and FOV bbox: returns (the tables, the support record).  The rank gate
-    opens where the reference's does (`conv_rank_rtol` > 0, LMM mode,
-    M·R < W // 2; the composed gather is always present here): the rank
+    opens where the reference's does (`conv_rank_rtol` > 0, LMM mode, a
+    composed channel — ``job["composed"]`` — and M·R < W // 2): the rank
     tables `dftm`, `cu`, `sotf_ri` and `wpsf_q` (folded from the channel's
     `wpsf`, which the caller then drops from the channel's tables).
     Otherwise the dense tables: `dftm`, the stamps `psf` and their DFT
@@ -120,7 +120,9 @@ def stamp_tables(job: dict, tbbox, npdtype, wpsf=None):
 
 
 def _rank_possible(job: dict) -> bool:
-    return job["conv_rank_rtol"] > 0.0 and job["tpl_w"] is not None
+    """The reference's gate before the SVD: rank planes ride the composed
+    gather, so a staged channel keeps the dense conv."""
+    return job["conv_rank_rtol"] > 0.0 and job["tpl_w"] is not None and job["composed"]
 
 
 def _merge_stamp_tables(t: dict, out) -> dict:
@@ -162,6 +164,7 @@ def _channel_tables(chan: Channel, job: dict):
     (the OTF-window tables are added afterwards, in the calling process)."""
     t = chan.host_tables()
     if job["mode"] == "stamps":
+        job = {**job, "composed": not chan.staged}
         wpsf = t["wpsf"] if _rank_possible(job) else None
         return chan, t, _merge_stamp_tables(t, stamp_tables(job, chan.tbbox, chan.npdtype, wpsf))
     if job.get("banded"):
@@ -208,6 +211,7 @@ def _map_given_channels(channels, jobs, workers: int):
     if workers <= 1 or len(jobs) <= 1 or jobs[0]["mode"] != "stamps":
         return [_channel_tables(chan, job) for chan, job in zip(channels, jobs)]
     tabs = [chan.host_tables() for chan in channels]
+    jobs = [{**job, "composed": not chan.staged} for chan, job in zip(channels, jobs)]
     args = [(job, chan.tbbox, chan.npdtype, t["wpsf"] if _rank_possible(job) else None)
             for chan, job, t in zip(channels, jobs, tabs)]
     outs = _pool_map(stamp_tables, args, [j["n_w"] for j in jobs], workers)
@@ -247,6 +251,9 @@ def device_tables(host: dict, device, dtype=torch.float32) -> dict:
             "chan": chans,
         }
     for t in host["chan"]:
+        if t is None:  # a channel this device does not hold (`SpectroSigRLSCT.to(channels=...)`)
+            chans.append(None)
+            continue
         c = gather_device_tables(t, device, dtype)
         c["dftm"] = {k: f(v) for k, v in t["dftm"].items()} if "dftm" in t else None
         if "wpsf_q" in t:
@@ -518,13 +525,22 @@ class SpectroSigRLSCT:
         and its windows as given); do not mutate."""
         return self._host
 
-    def to(self, device, dtype=torch.float32, tables: Optional[dict] = None):
+    def to(self, device, dtype=torch.float32, tables: Optional[dict] = None,
+           channels: Optional[List[int]] = None):
         """Move the tables (or adopt the given device `tables`, e.g. from
         `convert`) to `device` / `dtype`; stamp-mode OTF windows are
-        evaluated there, once."""
+        evaluated there, once.  `channels` (window-local models) moves only
+        those channels' tables: the model then applies only them, as a
+        rank of `parallel.ShardedSpectro(shard_tables=True)` does."""
         self.device = torch.device(device)
         self.dtype = dtype
-        self.tables = device_tables(self._host, self.device, dtype) if tables is None else tables
+        host = self._host
+        if channels is not None:
+            if not self.window_local:
+                raise ValueError("moving a subset of channels needs a window_local model")
+            keep = set(channels)
+            host = {**host, "chan": tuple(t if c in keep else None for c, t in enumerate(host["chan"]))}
+        self.tables = device_tables(host, self.device, dtype) if tables is None else tables
         self._templates_dev = None
         self._auto_vjp = None
         return self
@@ -544,41 +560,69 @@ class SpectroSigRLSCT:
         ws = self.channels[c].wslice
         return self._templates()[:, ws.start : ws.stop]
 
-    def _conv(self, x, c):
-        """Channel c's conv: maps (or the cube) → its bbox rows [ha·wb, Q]."""
+    def _rank_band(self, c: int) -> bool:
+        """Channel c convolves through its λ-rank basis (window-local)."""
+        return self.window_local and "otf_re" in self.tables["chan"][c]
+
+    def _n_cols(self, c: int) -> int:
+        """Channel c's conv columns, as `cols` counts them: its template
+        maps for a λ-rank band (R columns of the rows each), else its λ window."""
+        return self.ishape[0] if self._rank_band(c) else self.channels[c].n_wslice
+
+    def _conv(self, x, c, cols=None):
+        """Channel c's conv: maps (or the cube) → its bbox rows [ha·wb, Q].
+        `cols` = (lo, hi) keeps only columns lo..hi (:meth:`_n_cols`), as a
+        rank of a λ split does.  A W-plane model convolves the channel's λ
+        window with its planes of the whole cube's sotf, as a rank of a
+        channel split does."""
         t = self.tables["chan"][c]
-        if "otf_re" in t:
-            return fft.lmm_conv_rank_rows(x, t["otf_re"], t["otf_im"], t["dftm"])
+        lo, hi = (0, self._n_cols(c)) if cols is None else cols
+        if self._rank_band(c):
+            return fft.lmm_conv_rank_rows(x[lo:hi], t["otf_re"], t["otf_im"], t["dftm"])
         ws = self.channels[c].wslice
-        if "otf" in t:
+        if self.window_local and "otf" in t:
+            o_re, o_im = t["otf"][0][lo:hi], t["otf"][1][lo:hi]
             if self.lmm:
-                return fft.lmm_conv_otf_rows(x, self._tpl_w(c), *t["otf"], t["dftm"])
-            return fft.conv_otf_matmul_rows(x[ws.start : ws.stop], *t["otf"], t["dftm"])
-        cube_w = (lmm.lmm_maps2cube(x, self._tpl_w(c)) if self.lmm
-                  else x[ws.start : ws.stop].clone())
-        return self.channels[c].bbox_rows(fft.conv_otf(cube_w, t["sotf"]))
+                return fft.lmm_conv_otf_rows(x, self._tpl_w(c)[:, lo:hi], o_re, o_im, t["dftm"])
+            return fft.conv_otf_matmul_rows(x[ws.start + lo : ws.start + hi], o_re, o_im, t["dftm"])
+        cube_w = (lmm.lmm_maps2cube(x, self._tpl_w(c)[:, lo:hi]) if self.lmm
+                  else x[ws.start + lo : ws.start + hi].clone())
+        return self.channels[c].bbox_rows(fft.conv_otf(cube_w, self._sotf_w(c, lo, hi)))
 
-    def _conv_t(self, rows, c):
-        """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the cube)."""
+    def _conv_t(self, rows, c, cols=None):
+        """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the
+        cube); add it in with :meth:`_add_contrib_` and the same `cols`."""
         t = self.tables["chan"][c]
-        if "otf_re" in t:
+        lo, hi = (0, self._n_cols(c)) if cols is None else cols
+        if self._rank_band(c):
             return fft.lmm_conv_rank_rows_t(rows, t["otf_re"], t["otf_im"], t["dftm"])
-        if "otf" in t:
+        if self.window_local and "otf" in t:
+            o_re, o_im = t["otf"][0][lo:hi], t["otf"][1][lo:hi]
             if self.lmm:
-                return fft.lmm_conv_otf_rows_t(rows, self._tpl_w(c), *t["otf"], t["dftm"])
-            return fft.conv_otf_matmul_rows_t(rows, *t["otf"], t["dftm"])
+                return fft.lmm_conv_otf_rows_t(rows, self._tpl_w(c)[:, lo:hi], o_re, o_im, t["dftm"])
+            return fft.conv_otf_matmul_rows_t(rows, o_re, o_im, t["dftm"])
         chan = self.channels[c]
-        cube_w = torch.zeros((chan.n_wslice,) + self.imshape, device=self.device, dtype=self.dtype)
+        cube_w = torch.zeros((hi - lo,) + self.imshape, device=self.device, dtype=self.dtype)
         chan.add_bbox_rows_(cube_w, rows)
-        fft.conv_otf_(cube_w, t["sotf"], conj=True)
-        return lmm.lmm_cube2maps(cube_w, self._tpl_w(c)) if self.lmm else cube_w
+        fft.conv_otf_(cube_w, self._sotf_w(c, lo, hi), conj=True)
+        return lmm.lmm_cube2maps(cube_w, self._tpl_w(c)[:, lo:hi]) if self.lmm else cube_w
 
-    def _add_contrib_(self, acc, contrib, c) -> None:
-        if self.lmm:
+    def _sotf_w(self, c: int, lo: int, hi: int) -> torch.Tensor:
+        """Planes lo..hi of channel c's λ-window OTF: its own table
+        (window-local) or the whole cube's sotf (W-plane)."""
+        if self.window_local:
+            return self.tables["chan"][c]["sotf"][lo:hi]
+        ws = self.channels[c].wslice
+        return self.tables["sotf"][ws.start + lo : ws.start + hi]
+
+    def _add_contrib_(self, acc, contrib, c, cols=None) -> None:
+        """acc += a :meth:`_conv_t` output of columns `cols` (None: all)."""
+        lo = 0 if cols is None else cols[0]
+        if self.lmm and not self._rank_band(c):
             acc.add_(contrib)
         else:
-            ws = self.channels[c].wslice
-            acc[ws.start : ws.stop].add_(contrib)
+            start = lo if self.lmm else self.channels[c].wslice.start + lo
+            acc[start : start + contrib.shape[0]].add_(contrib)
 
     @property
     def banded(self) -> bool:

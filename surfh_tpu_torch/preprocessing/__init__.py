@@ -1,7 +1,6 @@
 """Real-data preprocessing: FITS I/O, distortion correction, Shepard
 re-interpolation (torch, on a device), spectral median filtering, header
-metadata.  Counterpart of `surfh_tpu/preprocessing/`; the s3d cube
-ingestion (`s3d.py`) is not ported yet (ROADMAP A12)."""
+metadata, s3d cube ingestion.  Counterpart of `surfh_tpu/preprocessing/`."""
 
 from .distortion import (
     generate_label_image,
@@ -20,6 +19,7 @@ from .metadata import (
     swap_slit_blocks,
     swap_slit_blocks_in_files,
 )
+from .s3d import nan_border, oversample_plane_cloud, read_s3d, resample_cube_to_grid
 from .shepard import exponential_modified_shepard
 
 __all__ = [
@@ -31,10 +31,14 @@ __all__ = [
     "mean_slit_world_coords",
     "median_filter_slices",
     "mrs_slices_distortion_correction",
+    "nan_border",
+    "oversample_plane_cloud",
     "parse_raw_name",
     "propagate_rotation",
     "propagate_target_coords",
     "rank_files_by_target_distance",
+    "read_s3d",
+    "resample_cube_to_grid",
     "sort_labels_by_centroid",
     "swap_slit_blocks",
     "swap_slit_blocks_in_files",

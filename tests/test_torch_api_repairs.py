@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-REF_PACKAGES = ["models", "solvers", "simulation", "preprocessing", "learning"]
+REF_PACKAGES = ["models", "solvers", "simulation", "preprocessing", "learning", "parallel"]
 
 
 def rel(a, b) -> float:
@@ -40,7 +40,7 @@ def test_reference_exports_import_from_the_port(pkg):
         obj = getattr(ref, name)  # an alias names its object's module (MCMO_SigRLSCT: spectro)
         mod = obj.__module__.replace("surfh_tpu.", "surfh_tpu_torch.", 1)
         if importlib.util.find_spec(mod) is None:
-            continue  # not ported yet (ROADMAP A12, A13)
+            continue  # a JAX-only module (ROADMAP "Do not port")
         assert getattr(port, name) is getattr(importlib.import_module(mod), obj.__name__), name
         checked += 1
     assert checked > 0

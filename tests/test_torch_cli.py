@@ -21,12 +21,21 @@ the commands run).
 * `deconv2d` and `deconv-cube`, rectangle and rotated, at the JAX CLI
   tests' sizes: the same report keys and iterations, the psnr within
   1e-2 dB of the JAX command's;
-* `--sharded` and the subcommands not ported yet raise NotImplementedError
-  naming the ROADMAP item; without a card and without ``SURFH_CPU`` the
-  commands raise.
+* `fusion --simulated --sharded` at world 1 in-process against the JAX
+  command's sharded run (8 virtual devices): the same report keys and
+  iterations, x within 1e-4 of its max; checkpointed in segments, bit for
+  bit the uninterrupted run; at world 2 under ``torchrun`` (rank 0 alone
+  reports and writes) against world 1 within 1e-4;
+* `metadata` (all four operations) on FITS files the test writes, against
+  the JAX command on a copy of them: the same JSON and the same headers and
+  data afterwards; its usage errors exit with the same code;
+* `warmup` on a toy band list: its JSON, no kernel built on the CPU, a
+  cold table build then a cache hit;
+* without a card and without ``SURFH_CPU`` the commands raise.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -206,15 +215,159 @@ def test_rehearse_mmmg(tmp_path):
     assert got["flux_shape_corr"] > 0.9 and got["flux_points"] > 50
 
 
-def test_sharded_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A13"):
-        cli.main(["fusion", "--simulated", "--sharded", "-o", str(tmp_path)])
+SHARDED = ["fusion", "--simulated", "--sharded", "-np", "31", "--n-lambda", "16", "-nc", "2",
+           "-nt", "3", "-ni", "4", "-hp", "10"]
 
 
-@pytest.mark.parametrize("name,item", [("metadata", "A12"), ("warmup", "A12")])
-def test_subcommands_not_ported(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([name, "--npix", "31"])
+def test_fusion_sharded_matches_reference(tmp_path):
+    """The sharded solve starts from zero maps, as the reference's does."""
+    got = port(SHARDED + ["-o", str(tmp_path / "port")])
+    want = ref(SHARDED + ["-o", str(tmp_path / "jax")])
+    assert list(got) == list(want) and got["niter"] == want["niter"] == 4
+    assert abs(got["psnr_maps"] - want["psnr_maps"]) <= 1e-2
+    px, jx = np.load(tmp_path / "port" / "res_x.npy"), np.load(tmp_path / "jax" / "res_x.npy")
+    assert px.shape == jx.shape and np.abs(px - jx).max() <= 1e-4 * np.abs(jx).max()
+    for f in ("res_cube.npy", "criterion.npy"):
+        assert os.path.exists(tmp_path / "port" / f)
+
+
+def test_fusion_sharded_checkpoint_segments(tmp_path):
+    """--checkpoint-every: segments that carry the lcg state give the
+    uninterrupted run's bits; the checkpoint is written."""
+    port(SHARDED + ["-o", str(tmp_path / "whole")])
+    port(SHARDED + ["--checkpoint-every", "3", "-o", str(tmp_path / "seg")])
+    np.testing.assert_array_equal(np.load(tmp_path / "seg" / "res_x.npy"),
+                                  np.load(tmp_path / "whole" / "res_x.npy"))
+    assert os.path.exists(tmp_path / "seg" / "solver_state.npz")
+
+
+def test_fusion_sharded_under_torchrun(tmp_path):
+    """Two ranks under torchrun on the CPU: rank 0 alone prints the report
+    and writes; the result is world 1's to f32 rounding (another sum order)."""
+    import subprocess
+    import sys
+
+    port(SHARDED + ["-o", str(tmp_path / "w1")])
+    env = dict(os.environ, SURFH_CPU="1", OMP_NUM_THREADS="1")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "surfh_tpu_torch.cli"] + SHARDED + ["-o", str(tmp_path / "w2")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    reports = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    assert len(reports) == 1 and reports[0]["niter"] == 4
+    x1, x2 = np.load(tmp_path / "w1" / "res_x.npy"), np.load(tmp_path / "w2" / "res_x.npy")
+    assert np.abs(x2 - x1).max() <= 1e-4 * np.abs(x1).max()
+
+
+def _write_raw(path, cards):
+    """A raw-exposure stand-in: an empty primary HDU, then a float32 SCI HDU
+    whose header holds the pointing keywords (tests/test_metadata.py)."""
+    from surfh_tpu_torch.preprocessing.fits_io import CARD, _format_card, _pad_block
+
+    def header(cs):
+        return _pad_block(b"".join([_format_card(k, v) for k, v in cs] + [b"END".ljust(CARD)]))
+
+    buf = header([("SIMPLE", True), ("BITPIX", 8), ("NAXIS", 0)])
+    buf += header([("XTENSION", "IMAGE"), ("BITPIX", -32), ("NAXIS", 2), ("NAXIS1", 4),
+                   ("NAXIS2", 4), ("EXTNAME", "SCI")] + list(cards))
+    buf += _pad_block(np.zeros((4, 4), ">f4").tobytes(), b"\x00")
+    path.write_bytes(buf)
+
+
+def _metadata_tree(root):
+    from surfh_tpu_torch.preprocessing import fits_write
+
+    raw, corr, filt = root / "raw", root / "corr", root / "filt"
+    for d in (raw, corr, filt):
+        d.mkdir(parents=True)
+    _write_raw(raw / "ch1a_ch2a_0210j_00001_mirifushort_cal.fits",
+               [("RA_V1", 83.83), ("DEC_V1", -5.42), ("PA_V3", 90.0)])
+    _write_raw(raw / "ch3a_ch4a_0210j_00002_mirifulong_cal.fits",
+               [("RA_V1", 83.9), ("DEC_V1", -5.4), ("PA_V3", 100.0)])
+    fits_write(str(corr / "ch1a_00001_corr.fits"), np.ones((3, 3)), header={"BAND": "SHORT"})
+    fits_write(str(corr / "ch2a_00001_corr.fits"), np.ones((3, 3)))
+    data = np.arange(2 * 17 * 24, dtype=np.float32).reshape(2, 17 * 24)
+    fits_write(str(filt / "ch2a_00001_filt.fits"), data, header={"PA_V3": 10.0, "BAND": "MEDIUM"})
+    fits_write(str(filt / "ch3b_00002_filt.fits"), np.ones((3, 3)), header={"PA_V3": 0.0})
+    fits_write(str(filt / "ch1a_00001_filt.fits"), data)
+
+
+METADATA = {
+    "targ-coords": ["--raw-dir", "{r}/raw", "--slice-dir", "{r}/corr", "--slice-dir", "{r}/filt"],
+    "rotation": ["--raw-dir", "{r}/raw", "--slice-dir", "{r}/filt"],
+    "swap-slits": ["--slice-dir", "{r}/filt"],
+    "rank-target": ["--raw-dir", "{r}/raw", "--ref-ra", "83.9", "--ref-dec", "-5.4"],
+}
+
+
+def _tree_contents(root):
+    from surfh_tpu_torch.preprocessing import fits_open
+
+    out = {}
+    for d in ("raw", "corr", "filt"):
+        for f in sorted(os.listdir(root / d)):
+            hdus = fits_open(str(root / d / f))
+            out[f"{d}/{f}"] = [(dict(h.header), None if h.data is None else np.asarray(h.data))
+                               for h in hdus]
+    return out
+
+
+@pytest.mark.parametrize("op", list(METADATA))
+def test_metadata_matches_reference(tmp_path, op):
+    """Both commands on copies of one tree: the same JSON (paths relative to
+    their tree), then the same headers and data in every file."""
+    for side in ("port", "jax"):
+        _metadata_tree(tmp_path / side)
+    opts = {side: [a.format(r=tmp_path / side) for a in METADATA[op]] for side in ("port", "jax")}
+    got = port(["metadata", op] + opts["port"])
+    want = ref(["metadata", op] + opts["jax"])
+    if op == "rank-target":
+        for rep, side in ((got, "port"), (want, "jax")):
+            for e in rep["ranked"]:
+                e["path"] = os.path.relpath(e["path"], tmp_path / side)
+        assert len(want["ranked"]) == 2
+    else:
+        assert want["files_updated"] > 0
+    assert got == want
+    a, b = _tree_contents(tmp_path / "port"), _tree_contents(tmp_path / "jax")
+    assert list(a) == list(b)
+    for name in a:
+        for (ha, da), (hb, db) in zip(a[name], b[name]):
+            assert ha == hb, name
+            assert (da is None and db is None) or np.array_equal(da, db), name
+
+
+@pytest.mark.parametrize("argv", [["targ-coords"], ["rotation", "--raw-dir", "."],
+                                  ["swap-slits"], ["rank-target", "--raw-dir", "."],
+                                  ["no-such-op"]])
+def test_metadata_usage_errors(argv):
+    want = CliRunner().invoke(jax_cli, ["metadata"] + argv)
+    with pytest.raises(SystemExit) as err:
+        cli.main(["metadata"] + argv)
+    assert err.value.code == want.exit_code == 2
+
+
+def test_warmup_on_the_cpu(monkeypatch, tmp_path):
+    # the flagship's 501² grid is too large for a CPU test: warm a 31² one
+    from surfh_tpu_torch.simulation import flagship
+    monkeypatch.setattr(flagship, "make_flagship_model",
+                        functools.partial(flagship.make_flagship_model, npix=31))
+    argv = ["warmup", "--bands", "1a", "--programs", "fwd,adj,normal",
+            "--cache-dir", str(tmp_path / "cache")]
+    first = port(argv)
+    second = port(argv)
+    assert first["kernels"] == "not built: cpu" and first["backend"] == "cpu"
+    assert first["cache_dir"] == str(tmp_path / "cache")
+    for rep in (first, second):
+        for k in ("t_build_s", "t_tables_s", "t_first_fwd_s", "t_first_adj_s", "t_first_normal_s"):
+            assert rep[k] >= 0.0, k
+    assert (first["table_cache_hit"], second["table_cache_hit"]) == (False, True)
+    assert any(f.startswith("tables_") for f in os.listdir(tmp_path / "cache"))
+    with pytest.raises(SystemExit):
+        cli.main(["warmup", "--programs", "fwd,bogus"])
 
 
 DECONV = {
@@ -247,7 +400,9 @@ def test_deconv_matches_reference(tmp_path, name, geometry):
 
 @pytest.mark.parametrize("argv", [["info"], ["fusion", "--simulated", "-np", "31"], ["rehearse"],
                                   ["allband", "-np", "31"], ["gen-psf", "--npix", "11"],
-                                  ["deconv2d", "-np", "41"], ["deconv-cube", "-np", "41"]])
+                                  ["deconv2d", "-np", "41"], ["deconv-cube", "-np", "41"],
+                                  ["fusion", "--simulated", "--sharded", "-np", "31"],
+                                  ["warmup", "--bands", "1a"]])
 def test_no_card_and_no_switch_raises(monkeypatch, tmp_path, argv):
     monkeypatch.delenv("SURFH_CPU")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -313,4 +468,6 @@ def test_gen_psf_defaults_to_the_band_table(tmp_path, monkeypatch):
     assert (seen["scale"], seen["n_pupil"], seen["oversample"], seen["opd"]) == (0.025, 256, 1, None)
     args = tcli.build_parser().parse_args(["gen-psf"])
     assert (args.band, args.npix, args.pixelscale, args.output) == ("1c", 501, 0.025, "psf.npy")
-    assert tcli.NOT_PORTED.keys() == {"metadata", "warmup"}
+    # every subcommand of the reference is the port's now (metadata and warmup were the last)
+    sub = next(a for a in tcli.build_parser()._actions if a.dest == "command")
+    assert set(jax_cli.commands) <= set(sub.choices) and not hasattr(tcli, "NOT_PORTED")

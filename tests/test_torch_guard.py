@@ -5,8 +5,10 @@ model, the all-band pipeline, the decompositions, the Shepard regrid and
 the diffraction PSF (`psf_stack_device`, `gen-psf`), the blind-2D models
 and `deconv2d` / `deconv-cube` pick the card unless asked for the CPU,
 the operator family, the mixing models and `scripts/torch_operator_demo.py`
-pick the card unless asked for the CPU, and `run_method` accepts the
-reference's `perf_crit` and reads it not."""
+pick the card unless asked for the CPU, `run_method` accepts the
+reference's `perf_crit` and reads it not, and the sharded paths take NCCL
+on the card and raise without one unless SURFH_CPU asks for gloo on the
+CPU."""
 
 import os
 import shutil
@@ -19,6 +21,15 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 SLICE_MODULES = [
     "surfh_tpu_torch",
+    "surfh_tpu_torch.core",
+    "surfh_tpu_torch.utils",
+    "surfh_tpu_torch.parallel",
+    "surfh_tpu_torch.parallel.fusion",
+    "surfh_tpu_torch.parallel.lambda_sharded",
+    "surfh_tpu_torch.parallel.mesh2d",
+    "surfh_tpu_torch.preprocessing.s3d",
+    "surfh_tpu_torch.simulation.data",
+    "surfh_tpu_torch.viz",
     "surfh_tpu_torch.convert",
     "surfh_tpu_torch.core.precision",
     "surfh_tpu_torch.core.fft",
@@ -299,3 +310,55 @@ def test_family_mixing_and_operator_demo_go_to_the_card_by_default(monkeypatch, 
     assert demo.main(["--op", "SigRLT", "--npix", "21", "--n-lambda", "8", "--channels", "1",
                       "--cpu", "--solve"]) == 0
     assert '"dottest": true' in capsys.readouterr().out
+
+
+def test_sharding_on_the_card_takes_nccl(monkeypatch):
+    """`make_mesh()` (what `ShardedSpectro` and `fusion --sharded` run on)
+    with a card and no process group: the card of LOCAL_RANK, then an NCCL
+    world of 1, then a "cuda" mesh — never gloo, never the CPU."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed.device_mesh as dm
+
+    from surfh_tpu_torch.parallel import fusion
+
+    calls = {}
+    monkeypatch.delenv("SURFH_CPU", raising=False)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda d: calls.setdefault("device", d))
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.setdefault("backend", (backend, kw["world_size"])))
+    monkeypatch.setattr(dist, "get_world_size", lambda *a: 1)
+    monkeypatch.setattr(dm, "init_device_mesh",
+                        lambda t, shape, mesh_dim_names: calls.setdefault("mesh", (t, shape)))
+    fusion.make_mesh()
+    assert calls == {"device": 0, "backend": ("nccl", 1), "mesh": ("cuda", (1,))}
+
+
+def test_fusion_sharded_needs_a_card_or_the_switch(monkeypatch, tmp_path):
+    """`fusion --sharded` and `make_mesh()` without a card raise; under
+    SURFH_CPU the mesh is a gloo world on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from surfh_tpu_torch import cli
+    from surfh_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("SURFH_CPU", raising=False)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["fusion", "--simulated", "--sharded", "-np", "31", "-o", str(out)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert not out.exists() and not dist.is_initialized()
+    monkeypatch.setenv("SURFH_CPU", "1")
+    mesh = make_mesh()
+    try:
+        assert mesh.device_type == "cpu" and dist.get_backend() == "gloo"
+    finally:
+        dist.destroy_process_group()

@@ -623,3 +623,67 @@ def test_spectro_adjoint_auto_through_the_kernel_matches_the_adjoint():
     torch.cuda.synchronize()
     assert gr.launches > before
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rank", "wplane_banded"])
+def test_sharded_normal_on_the_card(mode):
+    """`ShardedSpectro` at world 1 on the card (NCCL): the rank model's
+    sharded normal bit for bit `model.normal`; the W-plane banded model's
+    (each band's own λ window) within f32 rounding of it; the kernels
+    launched once per pointing and direction."""
+    import torch.distributed as dist
+
+    from surfh_tpu_torch.core import wblur_banded as wb
+    from surfh_tpu_torch.parallel import ShardedSpectro, make_mesh
+    from surfh_tpu_torch.simulation.synthetic import make_model
+
+    dev = _cuda()
+    kw = (dict(window_local=True, psf_stamps=True, conv_freq_rtol=1e-6, conv_rank_rtol=1e-7)
+          if mode == "rank" else dict(wblur_impl="banded", wblur_band_rtol=1e-4))
+    model, setup = make_model(im_size=61, n_lambda=120, n_tpl=2, n_channels=2, n_pointings=2,
+                              n_slit=3, **kw)
+    model.to(dev, torch.float32)
+    x = torch.as_tensor(setup["maps"], dtype=torch.float32, device=dev)
+    sh = ShardedSpectro(model, make_mesh())
+    try:
+        assert dist.get_backend() == "nccl"
+        n_pt = sum(c.oshape[0] for c in model.channels)
+        before, before_b = gr.launches, wb.launches
+        got = sh.normal(x)
+        torch.cuda.synchronize()
+        assert gr.launches - before == 2 * n_pt
+        assert wb.launches - before_b == (n_pt if mode != "rank" else 0)
+        want = model.normal(x)
+        if mode == "rank":
+            assert torch.equal(got, want)
+        else:
+            assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_lambda_sharded_forward_on_the_card():
+    """`LambdaShardedChannel` at world 1 on the card: its forward through the
+    row-gather kernel against the channel's own forward, one launch per
+    pointing."""
+    import torch.distributed as dist
+
+    from surfh_tpu_torch.parallel import LambdaShardedChannel, make_mesh
+    from surfh_tpu_torch.simulation.synthetic import make_model
+
+    dev = _cuda()
+    model, _ = make_model(im_size=61, n_lambda=40, n_tpl=2, n_channels=1, n_pointings=2, n_slit=3)
+    chan = model.channels[0].to(dev, torch.float32)
+    cube = torch.rand(model.cube_shape, device=dev)
+    lam = LambdaShardedChannel(chan, model.cube_shape[0], make_mesh(axis_name="lam"))
+    try:
+        before = gr.launches
+        got = lam.forward(lam.shard_cube(cube))
+        torch.cuda.synchronize()
+        assert gr.launches - before == chan.oshape[0]
+        want = chan.forward(cube)
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    finally:
+        dist.destroy_process_group()
