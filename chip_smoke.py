@@ -18,7 +18,8 @@ geometries); the flagship under the JWST diffraction PSF and with
 nearest-neighbour gridding; one band's staged gridding; the sharded paths
 over `torch.distributed` (channel-expert, λ, 2-D; NCCL at world 1, gloo
 for two processes on the one card) and BASELINE config 4 through
-`torchrun`; and `warmup`.
+`torchrun`; `warmup`; and the repository's entry points: `bench_torch.py`,
+the headline-measurement scripts and the user tools.
 
 1. device      — the card's name and power limit (nvidia-smi);
 2. build       — nvcc builds the three kernel sources from csrc/ into
@@ -143,7 +144,33 @@ for two processes on the one card) and BASELINE config 4 through
                  for bit the library's sharded solve, ms per normal and per
                  iteration, the objective against the unsharded lcg's;
 24. warmup     — `warmup --bands 1c,2a --programs fwd,adj,normal` into a
-                 fresh table cache, then again as a cache hit.
+                 fresh table cache, then again as a cache hit;
+25. bench      — on [host]'s flagship model in this process, 3 dependent
+                 applications g = Hᵗ(H x) (`bench_torch.apply_chain`)
+                 through the kernels against the plain versions, their
+                 launches, and the chain's CUDA-graph replay against the
+                 eager chain; the same chain of `bench_torch.py`'s medium
+                 preset with the dense and the banded blur (#1, #2, #3)
+                 against the plain versions; then `bench_torch.py` as a user
+                 runs it, three times: the flagship (dispatch mode, its
+                 tables from [host]'s cache), medium (loop mode: the CUDA
+                 graph) and medium with the banded blur: each result line's
+                 keys, its device time from the profiler trace, the
+                 wrappers' launches and the replay's gap read from its log;
+26. flagship-cg — `scripts/torch_flagship_cg.py --niter 50` on all 12 bands
+                 (the tables from [host]'s cache): the report, the
+                 gradient's fall, #1's launches;
+27. quality    — `scripts/torch_quality_surface.py` on one point (Orion,
+                 noise 0.01, µ = 5e3, 50 iterations) at full width;
+28. audit      — `scripts/torch_rank_fidelity_audit.py --phase deviation`
+                 on bands 1c and 2a (a cut in depth): both deviations within
+                 the script's bound, #1's launches;
+29. tools      — `torch_learn_templates.py --demo` (NMF, N-FINDR + FCLS on
+                 the card), `torch_correct_mrs_data.py` then
+                 `torch_filter_slices.py` on [pipeline]'s four stage-2
+                 frames against the rehearsal's filtered slices, and
+                 `torch_run_fusion_simulated.py` at its defaults with #1's
+                 launches counted.
 
 Prints the kernels' JSON record, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
@@ -166,7 +193,6 @@ import time
 WORKERS = min(8, os.cpu_count() or 1)  # processes for the host table build
 REPS = 10  # timed applications per operator
 BAND_RTOL = 1e-4  # the banded blur's support threshold (the throughput setting)
-FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 
 
 def log(msg: str) -> None:
@@ -305,6 +331,12 @@ def run_pipeline_phase(dev, card: str, cuda_ms, gen) -> dict:
               f"rehearse quality bars ({REHEARSE_BARS}): {rep}")
         check(res["launches"] == expect, "rehearse gather_rows launches")
         os.remove(os.path.join(work, "out", "res_cube.npy"))
+        # [tools] corrects and filters the rehearsal's stage-2 frames again
+        res["stage2_dir"] = tempfile.mkdtemp(prefix="surfh_stage2_")
+        atexit.register(shutil.rmtree, res["stage2_dir"], True)
+        for d in ("raw", "Filtered_slices"):
+            shutil.copytree(os.path.join(work, d), os.path.join(res["stage2_dir"], d))
+        shutil.copy(os.path.join(work, "Templates", "wavel_axis.npy"), res["stage2_dir"])
 
         # 2. Shepard on the card against the dense float64 version, one slit of pointing 0
         a, k, got = shep["first"]
@@ -1930,6 +1962,281 @@ def run_warmup_phase(card: str) -> dict:
         shutil.rmtree(cache, ignore_errors=True)
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BENCH_KEYS = {
+    "metric", "value", "unit", "vs_baseline", "preset", "t_app_s", "t_compile_s",
+    "compile_breakdown", "flops_per_app", "tflops", "mfu_est", "mfu_note", "cube_shape",
+    "n_channels", "n_pointings", "baseline_s", "baseline_config", "device_ms_per_app",
+    "dispatch_ms_per_app", "device_busy_frac", "t_total_s", "mode", "device",
+}
+BENCH_RUNS = (  # (tag, environment, the mode it runs in)
+    ("flagship", {"SURFH_BENCH_PRESET": "flagship"}, "dispatch"),
+    ("medium", {"SURFH_BENCH_PRESET": "medium"}, "loop"),
+    ("medium-banded", {"SURFH_BENCH_PRESET": "medium", "SURFH_WBLUR_IMPL": "banded"}, "loop"),
+)
+BENCH_CHECK_CHAIN = 3  # dependent applications of the in-process checks
+FLAGSHIP_CG_NITER = 50
+QUALITY_ARGV = ["--scenes", "orion", "--noise", "0.01", "--mus", "5e3", "--niter", "50"]
+AUDIT_BANDS = "1c,2a"  # the audit's depth cut: two bands of the twelve
+
+
+def run_script(name: str, argv, tag: str) -> list:
+    """`scripts/<name>.py`'s `main(argv)` in this process, as a user runs it
+    (its launches land in this process's counts): its stdout lines go to the
+    log; returns its JSON lines.  A non-zero return fails the check."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = load_script(name).main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[{tag}] {line}")
+    check(rc == 0, f"{name} {' '.join(argv)}: exit code {rc}")
+    return [json.loads(line) for line in lines if line.startswith("{")]
+
+
+def run_bench_phase(dev, card: str, model, truth, cache_dir: str, normal_ms: float) -> dict:
+    """[bench]: `bench_torch.py` as a user runs it, three times (flagship in
+    dispatch mode, medium in loop mode: the CUDA graph, medium with the
+    banded blur), each result line checked and its wrappers' launches read
+    from its log; before them, in this process on [host]'s flagship model,
+    the timed chain through the kernels against the plain versions and its
+    CUDA-graph replay against the eager chain.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    import bench_torch
+    from surfh_tpu_torch.core import gather_rows as gr
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    n_pt = sum(c.oshape[0] for c in model.channels)
+    gr.reset_launches()
+    g_k = bench_torch.apply_chain(model, truth, BENCH_CHECK_CHAIN)
+    torch.cuda.synchronize(dev)
+    n_k = gr.launches
+    g_p = bench_torch.apply_chain(model, truth, BENCH_CHECK_CHAIN, plain=True)
+    err = rel(g_k, g_p)
+    graph, g_gr, _ = bench_torch.capture_chain(model, truth, BENCH_CHECK_CHAIN)
+    graph.replay()
+    gap = rel(g_gr, bench_torch.apply_chain(model, truth, BENCH_CHECK_CHAIN))
+    del graph, g_gr, g_k, g_p
+    log(f"[bench] flagship chain of {BENCH_CHECK_CHAIN} (g = H'(H x), x = x0 + 1e-30 g) in this "
+        f"process: kernels vs plain versions max rel {err:.3e} (bound 1e-5), gather_rows launches "
+        f"{n_k} (expected {2 * n_pt * BENCH_CHECK_CHAIN}); CUDA-graph replay vs eager chain {gap:.3e} "
+        f"(bound 1e-6)")
+    check(err <= 1e-5, "bench chain kernels vs plain")
+    check(n_k == 2 * n_pt * BENCH_CHECK_CHAIN, "bench chain launches")
+    check(gap <= 1e-6, "bench chain CUDA graph vs eager")
+
+    # the medium preset in this process, both blurs: the chain through the
+    # kernels (#1, and #2 / #3 banded) against their plain versions
+    from surfh_tpu_torch.core import wblur_banded as wb
+
+    for impl in ("dense", "banded"):
+        mmodel, msetup, _ = bench_torch.build_model("medium", dev, impl)
+        mmodel.to(dev, torch.float32)
+        x0 = torch.as_tensor(np.asarray(msetup["maps"]), dtype=torch.float32, device=dev)
+        m_pt = sum(c.oshape[0] for c in mmodel.channels)
+        gr.reset_launches()
+        wb.reset_launches()
+        g_k = bench_torch.apply_chain(mmodel, x0, BENCH_CHECK_CHAIN)
+        torch.cuda.synchronize(dev)
+        got = (gr.launches, wb.launches, wb.launches_t)
+        k = BENCH_CHECK_CHAIN * m_pt
+        want = (2 * k, k, k) if impl == "banded" else (2 * k, 0, 0)
+        err = rel(g_k, bench_torch.apply_chain(mmodel, x0, BENCH_CHECK_CHAIN, plain=True))
+        log(f"[bench] medium chain of {BENCH_CHECK_CHAIN}, {impl} blur, in this process: kernels vs "
+            f"plain versions max rel {err:.3e} (bound 1e-5); launches gather_rows / wblur_banded / "
+            f"wblur_banded_t {got} (expected {want})")
+        check(err <= 1e-5 and got == want, f"bench medium {impl} chain kernels vs plain, launches")
+        del mmodel, g_k, x0
+    torch.cuda.empty_cache()
+
+    out = {}
+    for tag, extra, mode in BENCH_RUNS:
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("SURFH_BENCH", "SURFH_WBLUR"))}
+        env.update(SURFH_TABLE_CACHE=cache_dir, **extra)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        for line in proc.stderr.splitlines():
+            if line.startswith("[bench"):
+                log(f"[bench] {tag}: {line}")
+        if proc.returncode != 0:
+            log(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"bench_torch.py {tag}: exit code {proc.returncode}")
+        lines = proc.stdout.strip().splitlines()
+        res = json.loads(lines[-1])
+        log(f"[bench] {tag}: {lines[-1]}")
+        m = re.search(r"gather_rows (\d+), wblur_banded (\d+), wblur_banded_t (\d+)", proc.stderr)
+        launches = tuple(int(v) for v in m.groups()) if m else (0, 0, 0)
+        missing = sorted(BENCH_KEYS - set(res))
+        check(len(lines) == 1 and not missing, f"bench {tag}: one line, keys missing {missing}")
+        check(res["mode"] == mode and res["device"] == card and res["value"] > 0
+              and res["device_ms_per_app"] is not None and res["device_busy_frac"] is not None,
+              f"bench {tag}: mode, device, value, device time")
+        check(launches[0] > 0, f"bench {tag}: gather_rows launched")
+        if "BANDED" in json.dumps(extra).upper():
+            check(min(launches[1:]) > 0, f"bench {tag}: both banded kernels launched")
+        if mode == "loop":
+            g = re.search(r"max rel gap (\S+)", proc.stderr)
+            check(g is not None and float(g.group(1)) <= 1e-6,
+                  f"bench {tag}: CUDA-graph replay vs eager chain {g and g.group(1)} (bound 1e-6)")
+        cb = res["compile_breakdown"]
+        log(f"[bench] {card}: {tag} ({mode}): {res['t_app_s'] * 1e3:.3f} ms/app, {res['value']:.3f} "
+            f"GVox/s, device {res['device_ms_per_app']:.3f} ms/app (busy {res['device_busy_frac']:.3f}, "
+            f"host-paced {res['dispatch_ms_per_app']:.3f} ms), {res['tflops']:.3f} TFLOP/s analytic, "
+            f"host build {cb['host_build_s']:.2f} s (table cache {cb['table_cache']}), upload "
+            f"{cb['upload_mb']:.1f} MB in {cb['tables_dispatch_s']:.3f} s; launches gather_rows / "
+            f"wblur_banded / wblur_banded_t {launches}; {time.perf_counter() - t0:.2f} s in all")
+        out[tag] = {"result": res, "launches": launches}
+    log(f"[bench] {card}: flagship dispatch t_app {out['flagship']['result']['t_app_s'] * 1e3:.3f} "
+        f"ms (fwd then adjoint, host clock) beside [slice]'s eager fused normal {normal_ms:.3f} ms "
+        f"(CUDA events)")
+    return out
+
+
+def run_measure_scripts_phase(dev, card: str, model, bands, cache_dir: str) -> dict:
+    """[flagship-cg], [quality], [audit]: the headline-measurement scripts
+    in this process, as a user runs them, the flagship's tables from
+    [host]'s cache, their row-gather launches counted."""
+    import numpy as np
+
+    from surfh_tpu_torch.core import gather_rows as gr
+
+    n_pt = sum(c.oshape[0] for c in model.channels)
+    band_args = ["--bands", ",".join(bands)] if bands else []
+    out = {}
+    os.environ["SURFH_TABLE_CACHE"] = cache_dir
+    try:
+        t0 = time.perf_counter()
+        gr.reset_launches()
+        rep = run_script("torch_flagship_cg", ["--niter", str(FLAGSHIP_CG_NITER)] + band_args,
+                         "flagship-cg")[-1]
+        out["flagship_cg"] = gr.launches
+        # y, b, the warm-up's r0 and 2 iterations, the solve's r0 and iterations: 2 a normal
+        expect = 2 * n_pt + 2 * n_pt * 3 + 2 * n_pt * (1 + FLAGSHIP_CG_NITER)
+        log(f"[flagship-cg] {card}: {rep['niter']} lcg iterations (graph loop) at "
+            f"{rep['iters_per_s']:.2f} it/s ({rep['solve_s']:.3f} s), build {rep['build_s']:.2f} s, "
+            f"grad norm {rep['grad_norm_marks']} reduction {rep['grad_reduction']:.4e}, relative error "
+            f"{rep['relative_error_pct']:.4f} %, gather_rows launches {out['flagship_cg']} (expected "
+            f"{expect}); phase {time.perf_counter() - t0:.2f} s")
+        check(rep["niter"] == FLAGSHIP_CG_NITER and rep["grad_reduction"] > 1
+              and np.isfinite(rep["relative_error_pct"]) and rep["device"] == card, "flagship-cg report")
+        check(out["flagship_cg"] == expect, "flagship-cg launches")
+
+        t0 = time.perf_counter()
+        gr.reset_launches()
+        rows = run_script("torch_quality_surface", QUALITY_ARGV + band_args, "quality")
+        out["quality"] = gr.launches
+        row = rows[0]
+        # the coverage mask's Hᵗ1, y, b, r0 and 50 iterations
+        expect = 3 * n_pt + 2 * n_pt * (1 + row["niter"])
+        log(f"[quality] {card}: {json.dumps(row)}; gather_rows launches {out['quality']} (expected "
+            f"{expect}); phase {time.perf_counter() - t0:.2f} s")
+        check(len(rows) == 2 and all(np.isfinite(row[k]) for k in ("rel_err_pct", "psnr", "grad_norm_final")),
+              "quality row")
+        check(out["quality"] == expect, "quality launches")
+    finally:
+        os.environ["SURFH_TABLE_CACHE"] = "0"
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="surfh_audit_")
+    try:
+        gr.reset_launches()
+        rec = run_script("torch_rank_fidelity_audit",
+                         ["--phase", "deviation", "--bands", AUDIT_BANDS, "--out-dir", work], "audit")[-1]
+        out["audit"] = gr.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n_pt2 = 4 * len(AUDIT_BANDS.split(","))
+    log(f"[audit] {card}: bands {AUDIT_BANDS} of the twelve (a cut in depth), 501², 4 pointings: ranks "
+        f"{rec['ranks']}, tails {rec['svd_tails']}; forward max rel {rec['fwd_max_rel']:.3e}, adjoint "
+        f"{rec['adj_max_rel']:.3e} (bound {rec['bound']:.3e}); gather_rows launches {out['audit']} "
+        f"(expected {4 * n_pt2}: two models, forward and adjoint); phase {time.perf_counter() - t0:.2f} s")
+    check(rec["within_bound"] and rec["device"] == card, "audit deviations within the bound")
+    check(out["audit"] == 4 * n_pt2, "audit launches")
+    return out
+
+
+def run_tools_phase(dev, card: str, stage2_dir: str) -> dict:
+    """[tools]: the user tools in this process, as a user runs them:
+    `torch_learn_templates.py --demo` with NMF and N-FINDR on the card,
+    `torch_correct_mrs_data.py` then `torch_filter_slices.py` on
+    [pipeline]'s stage-2 frames against the rehearsal's own filtered
+    slices, and `torch_run_fusion_simulated.py` at its defaults with its
+    row-gather launches counted."""
+    import numpy as np
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.preprocessing.fits_io import fits_open
+
+    out = {}
+    work = tempfile.mkdtemp(prefix="surfh_tools_")
+    try:
+        for method in ("nmf", "nfindr"):
+            t0 = time.perf_counter()
+            o = os.path.join(work, method)
+            rep = run_script("torch_learn_templates", ["--demo", "--method", method, "-o", o], "tools")[-1]
+            tpl = np.load(os.path.join(o, "templates.npy"))
+            ok = tpl.shape == (4, 300) and bool(np.isfinite(tpl).all()) and rep["device"] == card
+            if method == "nmf":
+                ab = np.load(os.path.join(o, "abundances.npy"))
+                ok = ok and np.isfinite(rep["error"]) and bool((tpl >= 0).all()) and ab.shape == (4, 100, 100)
+                what = f"error {rep['error']:.6e}"
+            else:
+                ab = np.load(os.path.join(o, "abundances_flat.npy"))
+                sums = float(np.abs(ab.sum(axis=1) - 1).max())
+                ok = ok and len(set(rep["endmember_indices"])) == 4 and sums <= 1e-4 and bool((ab >= 0).all())
+                what = f"endmembers {rep['endmember_indices']}, |Σ abundances − 1| ≤ {sums:.2e}"
+            log(f"[tools] {card}: learn_templates --demo --method {method}: {what}; "
+                f"{time.perf_counter() - t0:.2f} s")
+            check(ok, f"learn_templates {method}")
+
+        t0 = time.perf_counter()
+        corr, filt = os.path.join(work, "corrected"), os.path.join(work, "filtered")
+        run_script("torch_correct_mrs_data", ["--raw-dir", os.path.join(stage2_dir, "raw"), "--out-dir", corr,
+                                              "--npix", str(REHEARSE_NPIX), "--wavel-cube",
+                                              os.path.join(stage2_dir, "wavel_axis.npy"), "--wcs", "stage2"],
+                   "tools")
+        run_script("torch_filter_slices", ["--in-dir", corr, "--out-dir", filt], "tools")
+        got = sorted(os.listdir(filt))
+        want = sorted(os.listdir(os.path.join(stage2_dir, "Filtered_slices")))
+        check(len(got) == len(want) == 4, f"filtered slices {got} against the rehearsal's {want}")
+        errs, same = [], True
+        for g, w in zip(got, want):
+            a = np.asarray(fits_open(os.path.join(filt, g))[0].data)
+            b = np.asarray(fits_open(os.path.join(stage2_dir, "Filtered_slices", w))[0].data)
+            check(a.shape == b.shape and bool(np.isfinite(a).all()), f"{g} shape")
+            errs.append(float(np.abs(a - b).max() / np.abs(b).max()))
+            same = same and np.array_equal(a, b)
+        # the same f32 Shepard regrid and median filter as the rehearsal's: [pipeline]'s Shepard bar
+        log(f"[tools] {card}: correct_mrs_data + filter_slices on [pipeline]'s 4 stage-2 frames (band "
+            f"{REHEARSE_BAND}, {REHEARSE_NPIX}²) against the rehearsal's filtered slices: max rel "
+            f"{max(errs):.3e} (bound 1e-5), bit for bit {same}; {time.perf_counter() - t0:.2f} s")
+        check(max(errs) <= 1e-5, "tools correct + filter against the rehearsal")
+
+        t0 = time.perf_counter()
+        gr.reset_launches()
+        rep = run_script("torch_run_fusion_simulated", ["--output-dir", os.path.join(work, "fusion")],
+                         "tools")[-1]
+        out["run_fusion_simulated"] = gr.launches
+        n_pt = 4 * 4  # its defaults: 4 bands, 4 pointings
+        expect = n_pt + n_pt + 2 * n_pt * (1 + rep["niter"])  # y, b, r0, one normal an iteration
+        log(f"[tools] {card}: run_fusion_simulated at its defaults: {json.dumps(rep)}; gather_rows "
+            f"launches {out['run_fusion_simulated']} (expected {expect}); {time.perf_counter() - t0:.2f} s")
+        check(rep["niter"] == 50 and np.isfinite(rep["relative_error_pct"]) and rep["device"] == card,
+              "run_fusion_simulated report")
+        check(out["run_fusion_simulated"] == expect, "run_fusion_simulated launches")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bands", default=None, help="comma-separated MIRI bands (default: all 12)")
@@ -1952,6 +2259,7 @@ def main(argv=None) -> int:
     from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
     from surfh_tpu_torch.simulation.synthetic import make_model
     from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
+    from surfh_tpu_torch.utils.profiling import FP32_FLOPS_PER_S, HBM_BYTES_PER_S, card_name
 
     def sync():
         torch.cuda.synchronize(dev)
@@ -1962,18 +2270,14 @@ def main(argv=None) -> int:
     def bound(nbytes: float, flops: float = 0.0):
         """The least time the card could take: bytes over the memory rate or
         operations over the FP32 rate, whichever is larger (ms, which)."""
-        t_b, t_f = nbytes / proto.HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
     proto = load_script("torch_scatter_proto")
     cuda_ms = proto.event_ms  # mean device ms per call, CUDA events around `reps` calls
 
     # 1. device --------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    card = smi[0].strip()
+    card = card_name(dev)
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(dev)} x{torch.cuda.device_count()}, "
@@ -2406,7 +2710,6 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     shard = run_sharded_phase(dev, card, cuda_ms, gen, model, wmodel, setup, truth, mu_reg, bands,
                               cache_dir)
-    shutil.rmtree(cache_dir, ignore_errors=True)
     log(f"[sharded] phases [sharded], [lambda], [mesh2d] in {time.perf_counter() - t0:.2f} s; "
         f"gather_rows launches on the sharded solve {shard['launches']}, the two ranks' "
         f"{shard['two_rank_launches']}, λ {shard['lambda_launches']}, 2-D {shard['mesh2d_launches']}")
@@ -2496,6 +2799,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     run_warmup_phase(card)
     log(f"[warmup] phase in {time.perf_counter() - t0:.2f} s")
+
+    # [bench], [flagship-cg], [quality], [audit], [tools]: the repo's entry
+    # points, the flagship's tables from [host]'s cache
+    t0 = time.perf_counter()
+    bench = run_bench_phase(dev, card, model, truth, cache_dir, t_app)
+    log(f"[bench] phase in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    scripts = run_measure_scripts_phase(dev, card, model, bands, cache_dir)
+    log(f"[flagship-cg] [quality] [audit] phases in {time.perf_counter() - t0:.2f} s")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    tools = run_tools_phase(dev, card, pipe["stage2_dir"])
+    log(f"[tools] phase in {time.perf_counter() - t0:.2f} s")
     gather_paths = {"rank": main_launches, "wplane": wmain[0], "wlocal": wl["launches"],
                     "pipeline": pipe["launches"], "allband": allb["launches"],
                     "allband_wl": allb_wl["launches"], "deconv2d": deconv["deconv2d"]["launches"],
@@ -2503,7 +2819,9 @@ def main(argv=None) -> int:
                     "staged": staged["launches"], "family": fam["launches"],
                     "sharded": shard["launches"], "sharded_two_rank": shard["two_rank_launches"],
                     "sharded_wplane": shard["wplane_launches"][0], "lambda": shard["lambda_launches"],
-                    "mesh2d": shard["mesh2d_launches"]}
+                    "mesh2d": shard["mesh2d_launches"],
+                    **{f"bench_{tag}": b["launches"][0] for tag, b in bench.items()},
+                    **scripts, **tools}
     check(all(gather_paths.values()), f"a path launched no row gather: {gather_paths}")
 
     log(json.dumps({"kernels": [{
@@ -2524,18 +2842,20 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "surfh_tpu_torch/csrc/wblur_banded.cu",
         "replaces": replaces,
-        "launches": launches + shard_launches,
-        "launches_by_path": {"wplane": launches, "sharded_wplane": shard_launches},
+        "launches": launches + shard_launches + bench_launches,
+        "launches_by_path": {"wplane": launches, "sharded_wplane": shard_launches,
+                             "bench_medium-banded": bench_launches},
         "max_abs_err": bkern[name]["err"],
         "ms": bkern[name]["ms"],
         "plain_ms": bkern[name]["plain_ms"],
         "bound_ms": bkern[name]["bound_ms"],
         "bound_by": bkern[name]["bound_by"],
         "library_ms": bkern[name]["library_ms"],
-    } for name, replaces, launches, shard_launches in (
-        ("wblur_banded", "surfh_tpu/core/wblur_pallas.py:102", wmain[1], shard["wplane_launches"][1]),
+    } for name, replaces, launches, shard_launches, bench_launches in (
+        ("wblur_banded", "surfh_tpu/core/wblur_pallas.py:102", wmain[1], shard["wplane_launches"][1],
+         bench["medium-banded"]["launches"][1]),
         ("wblur_banded_t", "surfh_tpu/core/wblur_pallas.py:227", wmain[2],
-         shard["wplane_launches"][2]))] + [{
+         shard["wplane_launches"][2], bench["medium-banded"]["launches"][2]))] + [{
         "name": f"gather_fixed_{k.lower()}",
         "route": "cuda",
         "source": "surfh_tpu_torch/csrc/gather_fixed.cu",

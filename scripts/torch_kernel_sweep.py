@@ -53,9 +53,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torch_scatter_proto import HBM_BYTES_PER_S, event_ms, gather_bytes  # noqa: E402  (beside this script)
-
-FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
+from surfh_tpu_torch.utils.profiling import FP32_FLOPS_PER_S, HBM_BYTES_PER_S, card_name  # noqa: E402
+from torch_scatter_proto import event_ms, gather_bytes  # noqa: E402  (beside this script)
 
 # band: S·A, K, W, B, LB, λ'-tiles
 BANDS = {
@@ -325,8 +324,7 @@ def main(argv=None) -> int:
     from surfh_tpu_torch.core.precision import require_cuda
 
     dev = require_cuda()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    print(card_name(dev), flush=True)
     gr.load_kernel()
     wb.load_kernels()
     gf.load_kernels()

@@ -43,7 +43,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 WORKERS = min(8, os.cpu_count() or 1)  # processes for the host table build
 REPS = 5  # profiled applications
 BAND_RTOL = 1e-4  # the banded blur's support threshold (--wplane banded)
-FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 
 
 def kernel_class(name: str) -> str:
@@ -109,6 +108,7 @@ def main(argv=None) -> int:
 
     from surfh_tpu_torch.core.precision import require_cuda
     from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
+    from surfh_tpu_torch.utils.profiling import FP32_FLOPS_PER_S
 
     def smi(query: str) -> str:
         return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],

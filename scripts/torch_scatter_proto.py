@@ -42,7 +42,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+from surfh_tpu_torch.utils.profiling import HBM_BYTES_PER_S  # noqa: E402  (the card's memory rate)
+
 SM_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: the unit of the device-side wait in event_ms
 EVENT_WARMUP, EVENT_REPS = 2, 50  # untimed and timed launches per CUDA-event time
 PLAIN_REPS = 20  # timed applications of a plain version

@@ -2,19 +2,26 @@
 `surfh_tpu/utils/profiling.py`.
 
 Named phase timers with a summary table, `torch.profiler` trace capture,
-and a chained timer: N dependent applications per measurement, timed
-between CUDA events on the card (the host clock on the CPU).
+a chained timer (N dependent applications per measurement, timed between
+CUDA events on the card, the host clock on the CPU), the device time of a
+run as the profiler reads it, and the card's published peaks, the
+denominators of every bound and utilization the port reports.
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict
 
 import numpy as np
 import torch
+
+# NVIDIA H100 SXM, NVIDIA's data sheet (dense rates, at the 700 W limit)
+FP32_FLOPS_PER_S = 67e12  # FP32 outside the tensor cores: the port runs FP32, TF32 off
+HBM_BYTES_PER_S = 3.35e12  # device memory (HBM3)
 
 
 class PhaseTimer:
@@ -96,3 +103,31 @@ def chained_time(fn, x: torch.Tensor, chain: int = 10, reps: int = 3) -> float:
             run()
             times.append(time.perf_counter() - t0)
     return float(np.median(times)) / chain
+
+
+def card_name(device) -> str:
+    """The card's name and power limit as nvidia-smi reads them (the note
+    every time taken on it stands beside), or "cpu" for the host."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0].strip()
+
+
+def device_trace_ms(run_once, chain: int):
+    """Device milliseconds per application of `run_once` (which runs
+    `chain` applications and synchronises), from one `torch.profiler`
+    trace: the durations of the device's kernel, memcpy and memset events
+    summed (the host's lanes are not), over `chain`.  None when the trace
+    holds no device event (no card, or a profiler that does not see it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_once()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    if dev_us <= 0:
+        return None
+    return dev_us / 1e3 / max(int(chain), 1)

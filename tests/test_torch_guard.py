@@ -89,7 +89,38 @@ SLICE_MODULES = [
     "torch_scatter_proto",  # scripts/
     "torch_profile",  # scripts/
     "torch_operator_demo",  # scripts/
+    "bench_torch",
+    "torch_flagship_cg",  # scripts/
+    "torch_quality_surface",  # scripts/
+    "torch_rank_fidelity_audit",  # scripts/
+    "torch_run_fusion_simulated",  # scripts/
+    "torch_correct_mrs_data",  # scripts/
+    "torch_filter_slices",  # scripts/
+    "torch_learn_templates",  # scripts/
+    "torch_convert_s3d",  # scripts/
 ]
+
+# The entry points run end to end on the CPU at a toy size in a process
+# where `import jax` and `import surfh_tpu` fail: what they import inside
+# `main` is held to the rule too.
+ENTRY_POINT_RUNS = {
+    "bench_torch.py": ([], {"SURFH_BENCH_CPU": "1", "SURFH_BENCH_PRESET": "small",
+                            "SURFH_BENCH_REPS": "1", "SURFH_BENCH_CHAIN": "1"}),
+    "scripts/torch_flagship_cg.py": (["--cpu", "--bands", "4c", "--npix", "31", "--pointings", "1",
+                                      "--niter", "1"], {}),
+    "scripts/torch_quality_surface.py": (["--cpu", "--bands", "4c", "--npix", "31", "--pointings",
+                                          "1", "--niter", "1", "--mus", "5e3", "--noise", "0",
+                                          "--scenes", "orion"], {}),
+    "scripts/torch_rank_fidelity_audit.py": (["--cpu", "--phase", "cg", "--bands", "4c", "--npix",
+                                              "31", "--pointings", "1", "--niter", "1",
+                                              "--out-dir", "{tmp}"], {}),
+    "scripts/torch_run_fusion_simulated.py": (["--quick", "--cpu", "--niter", "1", "--output-dir",
+                                               "{tmp}"], {}),
+    "scripts/torch_correct_mrs_data.py": (["--cpu", "--raw-dir", "{tmp}", "--out-dir", "{tmp}"], {}),
+    "scripts/torch_filter_slices.py": (["--in-dir", "{tmp}", "--out-dir", "{tmp}", "--match", "x"], {}),
+    "scripts/torch_learn_templates.py": (["--demo", "--method", "pca", "--cpu", "-o", "{tmp}"], {}),
+    "scripts/torch_convert_s3d.py": (["--s3d", "{tmp}/none.fits", "--out-dir", "{tmp}"], {}),
+}
 
 
 def _env():
@@ -113,6 +144,30 @@ def test_slice_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("script", sorted(ENTRY_POINT_RUNS))
+def test_entry_point_runs_without_jax(tmp_path, script):
+    """Each new entry point's `main`, run as a user runs it, never reaches
+    JAX or `surfh_tpu` (an import of either raises there)."""
+    args, extra = ENTRY_POINT_RUNS[script]
+    args = [a.replace("{tmp}", str(tmp_path)) for a in args]
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['surfh_tpu'] = None\n"
+        f"sys.argv = {[script] + args!r}\n"
+        f"runpy.run_path({script!r}, run_name='__main__')\n"
+    )
+    env = _env()
+    env.update(SURFH_TABLE_CACHE="0", TMPDIR=str(tmp_path), **extra)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    out = proc.stdout + proc.stderr
+    assert "ModuleNotFoundError" not in out and "import of jax halted" not in out, out[-3000:]
+    assert "import of surfh_tpu halted" not in out, out[-3000:]
+    # the host-only tools end non-zero on an empty directory or a missing file
+    assert proc.returncode == 0 or script.endswith(("filter_slices.py", "convert_s3d.py")), out[-3000:]
 
 
 def test_chip_smoke_fails_without_a_card():

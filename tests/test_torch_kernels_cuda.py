@@ -687,3 +687,32 @@ def test_lambda_sharded_forward_on_the_card():
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wblur_impl", ["dense", "banded"])
+def test_bench_chain_as_a_cuda_graph(wblur_impl):
+    """`bench_torch.py`'s loop mode: the forward → adjoint chain captured
+    once as a CUDA graph (the row gather, and the banded blur pair) replays
+    to the eager chain's `g` (≤1e-6: one f32 computation, the same kernels
+    in the same order), and a replay passes through no wrapper."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import bench_torch
+    from surfh_tpu_torch.simulation.synthetic import make_model
+
+    dev = _cuda()
+    model, setup = make_model(im_size=61, n_lambda=40, n_tpl=2, n_channels=2, n_pointings=2,
+                              n_slit=3, wblur_impl=wblur_impl, wblur_band_rtol=1e-3)
+    model.to(dev, torch.float32)
+    x0 = torch.as_tensor(setup["maps"], dtype=torch.float32, device=dev)
+    graph, g, total = bench_torch.capture_chain(model, x0, 3)
+    before = gr.launches
+    graph.replay()
+    torch.cuda.synchronize()
+    assert gr.launches == before
+    eager = bench_torch.apply_chain(model, x0, 3)
+    assert bench_torch.rel_gap(g, eager) <= 1e-6
+    assert float(total) == pytest.approx(float(eager.sum()), rel=1e-5)
