@@ -20,10 +20,15 @@ Prints ONE JSON line on stdout, its last; progress goes to stderr.
   in `baseline_config`, for a preset the file lacks).
 * flops_per_app: `bench.py`'s analytic count (the port has no cost model,
   `flops_note`); `tflops`; `mfu_est` against the card's FP32 peak
-  (`mfu_note`).
+  (`mfu_note`).  The count charges every band a full-grid FFT conv, so
+  `tflops` and `mfu_est` are null for a window-local model (large,
+  flagship), which runs none.  `mfu_est` is an estimate from that count,
+  not a device measurement.
 * device_ms_per_app, dispatch_ms_per_app, device_busy_frac: from one
   `torch.profiler` trace of one chain after the timed runs (null on the CPU
-  or under ``SURFH_BENCH_NO_TRACE=1``).
+  or under ``SURFH_BENCH_NO_TRACE=1``).  `device_busy_frac` is not
+  clamped: above 1 the traced chain's device time exceeds the timed
+  window, which `device_busy_note` then says.
 * compile_breakdown: `host_build_s` (with `table_cache`: hit, miss, or off
   where the model has no disk cache), `upload_mb` (the model's tables on
   the device), `tables_dispatch_s` (the upload, synchronised),
@@ -75,8 +80,10 @@ METRIC = "fwd+adjoint cube-op throughput ({})"
 FLOPS_NOTE = ("analytic count (bench.py's _analytic_flops, its fallback when the XLA cost "
               "model fails; the port has no cost model): it charges every band a full-grid FFT "
               "conv, which the window-local models do not run")
-MFU_NOTE = ("against the H100 SXM's FP32 peak outside the tensor cores (67 TFLOP/s, "
-            "the port runs FP32 with TF32 off); a gather- and host-bound pipeline")
+MFU_NOTE = ("estimate from the analytic count against the H100 SXM's FP32 peak outside the "
+            "tensor cores (67 TFLOP/s, the port runs FP32 with TF32 off); not a device metric")
+MFU_NOTE_WINDOW_LOCAL = ("null: the analytic count charges a full-grid FFT conv that this "
+                         "window-local model does not run")
 
 
 def _log(msg):
@@ -139,6 +146,36 @@ def _attach_baseline(result, preset, t_app):
         result["baseline_config"] = (
             f"no recorded baseline for preset {preset!r} in baseline_cpu.json"
         )
+
+
+def rate_fields(flops: float, t_app: float, window_local: bool) -> dict:
+    """`flops_per_app`, `tflops`, `mfu_est` and their notes; the rates are
+    null where the count describes work the model does not do."""
+    from surfh_tpu_torch.utils.profiling import FP32_FLOPS_PER_S
+
+    counted = not window_local
+    return {
+        "flops_per_app": flops,
+        "flops_note": FLOPS_NOTE,
+        "tflops": flops / t_app / 1e12 if counted else None,
+        "mfu_est": flops / t_app / FP32_FLOPS_PER_S if counted else None,
+        "mfu_note": MFU_NOTE if counted else MFU_NOTE_WINDOW_LOCAL,
+    }
+
+
+def busy_fields(t_app: float, device_ms) -> dict:
+    """`device_ms_per_app`, `dispatch_ms_per_app` (bench.py's formula) and
+    `device_busy_frac`, unclamped; above 1, a `device_busy_note`."""
+    out = {"device_ms_per_app": device_ms, "dispatch_ms_per_app": None, "device_busy_frac": None}
+    if device_ms is None:
+        return out
+    busy = device_ms / (t_app * 1e3)
+    out.update(dispatch_ms_per_app=max(t_app * 1e3 - device_ms, 0.0), device_busy_frac=busy)
+    if busy > 1.0:
+        out["device_busy_note"] = ("above 1: the traced chain's device time exceeds the timed "
+                                   "window; read device_ms_per_app against t_app_s")
+        _log(f"device busy share {busy:.4f} > 1: {out['device_busy_note']}")
+    return out
 
 
 def bench_device():
@@ -231,7 +268,7 @@ def measure(model, setup, preset: str, device, compile_breakdown: dict) -> dict:
     from surfh_tpu_torch.core import gather_rows as gr
     from surfh_tpu_torch.core import wblur_banded as wb
     from surfh_tpu_torch.parallel.fusion import tensor_bytes
-    from surfh_tpu_torch.utils.profiling import FP32_FLOPS_PER_S, card_name, device_trace_ms
+    from surfh_tpu_torch.utils.profiling import card_name, device_trace_ms
 
     reps = int(os.environ.get("SURFH_BENCH_REPS", "5"))
     chain = int(os.environ.get("SURFH_BENCH_CHAIN", "10"))
@@ -282,7 +319,6 @@ def measure(model, setup, preset: str, device, compile_breakdown: dict) -> dict:
         run()
         times.append(time.perf_counter() - t0)
     t_app = float(np.median(times)) / chain
-    flops = _analytic_flops(model)
     result = {
         "metric": METRIC.format(preset),
         "value": 2.0 * float(np.prod(model.cube_shape)) / t_app / 1e9,
@@ -294,11 +330,7 @@ def measure(model, setup, preset: str, device, compile_breakdown: dict) -> dict:
         "t_app_s": t_app,
         "t_compile_s": sum(v for k, v in cb.items() if k.endswith("_s")),
         "compile_breakdown": cb,
-        "flops_per_app": flops,
-        "flops_note": FLOPS_NOTE,
-        "tflops": flops / t_app / 1e12,
-        "mfu_est": flops / t_app / FP32_FLOPS_PER_S,
-        "mfu_note": MFU_NOTE,
+        **rate_fields(_analytic_flops(model), t_app, model.window_local),
         "cube_shape": list(model.cube_shape),
         "n_channels": len(model.channels),
         "n_pointings": len(model.pointings[0]),
@@ -308,11 +340,7 @@ def measure(model, setup, preset: str, device, compile_breakdown: dict) -> dict:
     if device.type == "cuda" and not os.environ.get("SURFH_BENCH_NO_TRACE"):
         _log(f"{preset}: device trace of one chain")
         device_ms = device_trace_ms(run, chain)
-    result["device_ms_per_app"] = device_ms
-    result["dispatch_ms_per_app"] = (None if device_ms is None
-                                     else max(t_app * 1e3 - device_ms, 0.0))
-    result["device_busy_frac"] = (None if device_ms is None
-                                  else min(device_ms / (t_app * 1e3), 1.0))
+    result.update(busy_fields(t_app, device_ms))
     # a replay of the captured graph launches the kernels without their wrappers
     _log(f"{preset}: kernel launches through the wrappers in this run: gather_rows {gr.launches}, "
          f"wblur_banded {wb.launches}, wblur_banded_t {wb.launches_t}")

@@ -152,11 +152,12 @@ the headline-measurement scripts and the user tools.
                  eager chain; the same chain of `bench_torch.py`'s medium
                  preset with the dense and the banded blur (#1, #2, #3)
                  against the plain versions; then `bench_torch.py` as a user
-                 runs it, three times: the flagship (dispatch mode, its
-                 tables from [host]'s cache), medium (loop mode: the CUDA
-                 graph) and medium with the banded blur: each result line's
-                 keys, its device time from the profiler trace, the
-                 wrappers' launches and the replay's gap read from its log;
+                 runs it, four times: the flagship in dispatch mode and in
+                 loop mode (its tables from [host]'s cache), medium (loop
+                 mode: the CUDA graph) and medium with the banded blur:
+                 each result line's keys, its device time from the
+                 profiler trace, the wrappers' launches and the replay's
+                 gap read from its log;
 26. flagship-cg — `scripts/torch_flagship_cg.py --niter 50` on all 12 bands
                  (the tables from [host]'s cache): the report, the
                  gradient's fall, #1's launches;
@@ -1971,6 +1972,7 @@ BENCH_KEYS = {
 }
 BENCH_RUNS = (  # (tag, environment, the mode it runs in)
     ("flagship", {"SURFH_BENCH_PRESET": "flagship"}, "dispatch"),
+    ("flagship-loop", {"SURFH_BENCH_PRESET": "flagship", "SURFH_BENCH_MODE": "loop"}, "loop"),
     ("medium", {"SURFH_BENCH_PRESET": "medium"}, "loop"),
     ("medium-banded", {"SURFH_BENCH_PRESET": "medium", "SURFH_WBLUR_IMPL": "banded"}, "loop"),
 )
@@ -1998,9 +2000,9 @@ def run_script(name: str, argv, tag: str) -> list:
 
 
 def run_bench_phase(dev, card: str, model, truth, cache_dir: str, normal_ms: float) -> dict:
-    """[bench]: `bench_torch.py` as a user runs it, three times (flagship in
-    dispatch mode, medium in loop mode: the CUDA graph, medium with the
-    banded blur), each result line checked and its wrappers' launches read
+    """[bench]: `bench_torch.py` as a user runs it, four times (flagship in
+    dispatch and in loop mode, medium in loop mode: the CUDA graph, medium
+    with the banded blur), each result line checked and its wrappers' launches read
     from its log; before them, in this process on [host]'s flagship model,
     the timed chain through the kernels against the plain versions and its
     CUDA-graph replay against the eager chain.  Returns the launches."""
@@ -2010,9 +2012,7 @@ def run_bench_phase(dev, card: str, model, truth, cache_dir: str, normal_ms: flo
     import bench_torch
     from surfh_tpu_torch.core import gather_rows as gr
 
-    def rel(a, b) -> float:
-        return float((a - b).abs().max() / b.abs().max())
-
+    rel = bench_torch.rel_gap
     n_pt = sum(c.oshape[0] for c in model.channels)
     gr.reset_launches()
     g_k = bench_torch.apply_chain(model, truth, BENCH_CHECK_CHAIN)
@@ -2089,14 +2089,14 @@ def run_bench_phase(dev, card: str, model, truth, cache_dir: str, normal_ms: flo
         cb = res["compile_breakdown"]
         log(f"[bench] {card}: {tag} ({mode}): {res['t_app_s'] * 1e3:.3f} ms/app, {res['value']:.3f} "
             f"GVox/s, device {res['device_ms_per_app']:.3f} ms/app (busy {res['device_busy_frac']:.3f}, "
-            f"host-paced {res['dispatch_ms_per_app']:.3f} ms), {res['tflops']:.3f} TFLOP/s analytic, "
+            f"host-paced {res['dispatch_ms_per_app']:.3f} ms), analytic TFLOP/s {res['tflops']}, "
             f"host build {cb['host_build_s']:.2f} s (table cache {cb['table_cache']}), upload "
             f"{cb['upload_mb']:.1f} MB in {cb['tables_dispatch_s']:.3f} s; launches gather_rows / "
             f"wblur_banded / wblur_banded_t {launches}; {time.perf_counter() - t0:.2f} s in all")
         out[tag] = {"result": res, "launches": launches}
-    log(f"[bench] {card}: flagship dispatch t_app {out['flagship']['result']['t_app_s'] * 1e3:.3f} "
-        f"ms (fwd then adjoint, host clock) beside [slice]'s eager fused normal {normal_ms:.3f} ms "
-        f"(CUDA events)")
+    log(f"[bench] {card}: flagship t_app dispatch {out['flagship']['result']['t_app_s'] * 1e3:.3f} ms, "
+        f"loop {out['flagship-loop']['result']['t_app_s'] * 1e3:.3f} ms (fwd then adjoint, host "
+        f"clock) beside [slice]'s eager fused normal {normal_ms:.3f} ms (CUDA events)")
     return out
 
 
@@ -2201,7 +2201,7 @@ def run_tools_phase(dev, card: str, stage2_dir: str) -> dict:
         corr, filt = os.path.join(work, "corrected"), os.path.join(work, "filtered")
         run_script("torch_correct_mrs_data", ["--raw-dir", os.path.join(stage2_dir, "raw"), "--out-dir", corr,
                                               "--npix", str(REHEARSE_NPIX), "--wavel-cube",
-                                              os.path.join(stage2_dir, "wavel_axis.npy"), "--wcs", "stage2"],
+                                              os.path.join(stage2_dir, "wavel_axis.npy")],
                    "tools")
         run_script("torch_filter_slices", ["--in-dir", corr, "--out-dir", filt], "tools")
         got = sorted(os.listdir(filt))

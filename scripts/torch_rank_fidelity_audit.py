@@ -25,6 +25,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,7 +57,9 @@ def main(argv=None) -> int:
     ap.add_argument("--niter", type=int, default=500)
     ap.add_argument("--mu", type=float, default=5e3)
     ap.add_argument("--rank-rtol", type=float, default=1e-7)
-    ap.add_argument("--out-dir", default="/tmp/surfh_torch_audit")
+    ap.add_argument("--out-dir", default=os.path.join(tempfile.gettempdir(), "surfh_torch_audit"),
+                    help="where the record and the solutions go (default: surfh_torch_audit "
+                         "in the temporary directory)")
     ap.add_argument("--cpu", action="store_true", help="run on the host CPU")
     args = ap.parse_args(argv)
 

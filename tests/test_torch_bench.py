@@ -104,6 +104,36 @@ def test_cpu_run_prints_bench_py_s_line(tmp_path):
     assert res["device_ms_per_app"] is None and res["device_busy_frac"] is None
 
 
+@pytest.mark.parametrize("window_local", [False, True])
+def test_rates_are_null_where_the_count_charges_a_conv_not_run(window_local):
+    """The analytic count charges a full-grid FFT conv per band: `tflops`
+    and `mfu_est` follow from it for the sotf models (small, medium) and
+    are null for the window-local ones (large, flagship)."""
+    got = bench_torch.rate_fields(6.7e12, 0.5, window_local)
+    assert got["flops_per_app"] == 6.7e12 and got["flops_note"] == bench_torch.FLOPS_NOTE
+    if window_local:
+        assert got["tflops"] is None and got["mfu_est"] is None
+        assert got["mfu_note"] == bench_torch.MFU_NOTE_WINDOW_LOCAL
+    else:
+        assert got["tflops"] == pytest.approx(13.4, rel=1e-12)
+        assert got["mfu_est"] == pytest.approx(0.2, rel=1e-12)
+        assert "not a device metric" in got["mfu_note"]
+
+
+def test_busy_share_is_not_clamped():
+    """bench.py's `dispatch_ms_per_app`; the busy share unclamped, and a
+    note where the traced device time exceeds the timed window."""
+    assert bench_torch.busy_fields(0.02, None) == {
+        "device_ms_per_app": None, "dispatch_ms_per_app": None, "device_busy_frac": None}
+    inside = bench_torch.busy_fields(0.02, 15.0)
+    assert inside["dispatch_ms_per_app"] == pytest.approx(5.0, rel=1e-12)
+    assert inside["device_busy_frac"] == pytest.approx(0.75, rel=1e-12)
+    assert "device_busy_note" not in inside
+    over = bench_torch.busy_fields(0.02, 21.0)
+    assert over["device_busy_frac"] == pytest.approx(1.05, rel=1e-12)
+    assert over["dispatch_ms_per_app"] == 0.0 and "above 1" in over["device_busy_note"]
+
+
 def test_preset_missing_from_the_baseline_file_gets_bench_py_s_note(tmp_path, monkeypatch):
     path = tmp_path / "baseline_cpu.json"
     path.write_text(json.dumps({"small": {"seconds": 1.0, "config": "c"}}))

@@ -40,16 +40,43 @@ ROOT = Path(__file__).resolve().parents[1]
 SMALL = ["--bands", "4c", "--npix", "41", "--pointings", "2"]
 
 
+# The JAX scripts write to fixed paths: the XLA compile cache
+# (`/tmp/surfh_jax_cache`) and the audit's record (`OUT`).  They run
+# unmodified through this wrapper, which sends both under the test's TMPDIR
+# before calling the script's `main`.
+_JAX_SCRIPT = """\
+import importlib.util, os, sys
+import jax
+tmp = os.environ["TMPDIR"]
+_update = jax.config.update
+def _update_under_tmp(name, value):
+    _update(name, os.path.join(tmp, "jax_cache") if name == "jax_compilation_cache_dir" else value)
+jax.config.update = _update_under_tmp
+sys.argv = sys.argv[1:]
+spec = importlib.util.spec_from_file_location("jax_script", sys.argv[0])
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+if hasattr(mod, "OUT"):
+    mod.OUT = os.path.join(tmp, "jax_out", os.path.basename(mod.OUT))
+mod.main()
+"""
+
+
 def _env(tmp_path):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XLA_FLAGS")}
     env.update(SURFH_TABLE_CACHE="0", SURFH_CACHE_DIR=str(tmp_path / "cache"), TMPDIR=str(tmp_path),
-               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+               HOME=str(tmp_path), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
     return env
 
 
 def _run(tmp_path, script, *args, rc=0):
-    proc = subprocess.run([sys.executable, f"scripts/{script}", *args], cwd=ROOT,
-                          env=_env(tmp_path), capture_output=True, text=True, timeout=600)
+    """Run `scripts/<script>`: a port script as a user runs it, a JAX script
+    through `_JAX_SCRIPT`."""
+    cmd = [sys.executable, f"scripts/{script}", *args]
+    if not script.startswith("torch_"):
+        cmd[1:1] = ["-c", _JAX_SCRIPT]
+    proc = subprocess.run(cmd, cwd=ROOT, env=_env(tmp_path), capture_output=True, text=True,
+                          timeout=600)
     assert proc.returncode == rc, (script, proc.stderr[-3000:])
     return [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
 
@@ -114,6 +141,7 @@ def test_rank_fidelity_audit_matches_the_jax_script(tmp_path):
     assert got["bound"] == max(10 * got["max_tail"], 2e-5)
     assert got["within_bound"]
     assert max(want["fwd_max_rel"], want["adj_max_rel"]) <= got["bound"]
+    assert json.loads((tmp_path / "jax_out" / "rank_audit.json").read_text())["ranks"] == want["ranks"]
     saved = json.loads((tmp_path / "audit" / "rank_audit.json").read_text())
     assert saved["ranks"] == got["ranks"]
 

@@ -54,7 +54,8 @@ def open(path):
 
 def _env(tmp_path, pythonpath=None):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "XLA_FLAGS")}
-    env.update(SURFH_TABLE_CACHE="0", TMPDIR=str(tmp_path), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+    env.update(SURFH_TABLE_CACHE="0", SURFH_CACHE_DIR=str(tmp_path / "cache"), TMPDIR=str(tmp_path),
+               HOME=str(tmp_path), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
     if pythonpath:
         env["PYTHONPATH"] = str(pythonpath)
     return env
@@ -151,7 +152,7 @@ def test_correct_and_filter_match_the_jax_scripts(tmp_path):
     _run(tmp_path, "correct_mrs_data.py", *common, "--out-dir", str(tmp_path / "cj"),
          pythonpath=stub.parent)
     _run(tmp_path, "torch_correct_mrs_data.py", *common, "--out-dir", str(tmp_path / "cp"),
-         "--wcs", "stage2", "--cpu")
+         "--cpu")
     names = sorted(os.listdir(tmp_path / "cj"))
     assert names == sorted(os.listdir(tmp_path / "cp")) and len(names) == 2
     for name in names:
@@ -197,6 +198,27 @@ def test_convert_s3d_matches_the_jax_script(tmp_path):
     for suffix in ("", "_mask", "_wavel"):
         name = f"ChannelCube_test_s3d{suffix}.npy"
         np.testing.assert_array_equal(np.load(tmp_path / "p" / name), np.load(tmp_path / "j" / name))
+
+
+def test_correct_reads_a_file_s_own_wcs_maps_else_the_jwst_datamodel(tmp_path):
+    """`torch_correct_mrs_data.py` picks the WCS source from the file: the
+    synthetic stage-2 frames' ALPHA / BETA / LAM maps, else (None)
+    `correct_file`'s jwst datamodel."""
+    import importlib.util
+
+    from surfh_tpu_torch.preprocessing.fits_io import fits_write
+    from surfh_tpu_torch.simulation.stage2 import stage2_wcs_loader
+
+    spec = importlib.util.spec_from_file_location("torch_correct_mrs_data",
+                                                  ROOT / "scripts" / "torch_correct_mrs_data.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    raw = _stage2_frames(tmp_path)
+    frames = sorted(raw.glob("*.fits"))
+    assert frames and all(script._wcs_loader(str(f)) is stage2_wcs_loader for f in frames)
+    plain = tmp_path / "plain_cal.fits"
+    fits_write(str(plain), np.zeros((4, 4), np.float32), header={"PA_V3": 0.0})
+    assert script._wcs_loader(str(plain)) is None
 
 
 @pytest.mark.parametrize("script", ["torch_run_fusion_simulated.py", "torch_learn_templates.py",
