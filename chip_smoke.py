@@ -111,6 +111,13 @@ the headline-measurement scripts and the user tools.
                  box-sum) and with the FFT box-sum: forward and adjoint
                  against the composed one, launches, times, #1 on the
                  staged plans;
+    channel-banded — band 2c's `Channel` built with the reference's
+                 arguments and `wblur_impl="banded"` (rtol 1e-4) on a full
+                 cube: the forward through #2 against its plain version and
+                 against the band built dense, the adjoint bit for bit the
+                 dense channel's, the dense pair's dot test, #2's launches
+                 per forward (one per pointing) and none of #3 per adjoint,
+                 ms per direction;
 18. deconv2d   — (after small) BASELINE config 1 through the port's CLI
                  (301², 4 pointings, 200 lcg iterations, µ = 500),
                  `--rectangle` and `--rotated`: the report, launches, the
@@ -1218,6 +1225,103 @@ def run_staged_phase(dev, card: str, cuda_ms, gen, bound, proto, chan) -> dict:
                                          f"staged {chan.instr.name} pointing-0 {d} at Q = W", 1e-5)
                      for d, k in (("forward", "gather_fwd"), ("transpose", "gather_t"))}
     del composed, staged, fftbox, outs, xw, y
+    torch.cuda.empty_cache()
+    return res
+
+
+CHANNEL_BANDED_BAND = "2c"  # [channel-banded]'s band: PERF.md's shape for #2 at BAND_RTOL
+
+
+def run_channel_banded_phase(dev, card: str, cuda_ms, gen, model) -> dict:
+    """`Channel(..., wblur_impl="banded", wblur_band_rtol=BAND_RTOL)` on cubes
+    at full width (band 2c of the flagship setup, its 4 pointings, the whole
+    λ axis, f32), built with the reference's constructor arguments: its
+    forward through #2 against its plain version, against the same band
+    built dense in this process, the adjoint bit for bit the dense
+    channel's, the dense pair's dot test, #2's launches per forward
+    and none of #3 per adjoint, ms per direction."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import wblur_banded as wb
+    from surfh_tpu_torch.instrument.geometry import CoordList
+    from surfh_tpu_torch.models.channel import Channel
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max())
+
+    c = next((i for i, ch in enumerate(model.channels)
+              if ch.instr.name.lower().startswith(CHANNEL_BANDED_BAND)), 0)
+    args = (model.instrs[c], model.alpha_axis, model.beta_axis, model.wavelength_axis, model.srfs[c],
+            CoordList(model.pointings[c]), model.step_degree, np.float32, "bilinear")
+    t0 = time.perf_counter()
+    chan = Channel(*args, "banded", BAND_RTOL)  # the reference's positional order
+    chan.to(dev, torch.float32)
+    sync()
+    t_host = time.perf_counter() - t0
+    dense = Channel(*args).to(dev, torch.float32)
+    P, S, K, A = chan.oshape
+    plan = chan.band_plan()
+    log(f"[channel-banded] band {chan.instr.name}: Channel(..., 'bilinear', 'banded', {BAND_RTOL:g}) "
+        f"built and uploaded in {t_host:.2f} s (wpsf, plans, band tables); #2 on "
+        f"[{S * A} x {plan.B * plan.W}] -> [{S * A} x {K}], LB = {plan.LB} of W = {plan.W}, "
+        f"{P} pointings; pointing_scan {chan.pointing_scan}, slit_unroll {chan.slit_unroll}")
+    cube = torch.rand(chan.ishape, generator=gen, device=dev)
+    y = torch.rand(chan.oshape, generator=gen, device=dev)
+
+    gr.reset_launches()
+    wb.reset_launches()
+    hx = chan.forward(cube)
+    sync()
+    launches = (gr.launches, wb.launches, wb.launches_t, wb.launches_sum)
+    log(f"[channel-banded] launches per forward: gather_rows {launches[0]}, wblur_banded "
+        f"{launches[1]}, wblur_banded_t {launches[2]} (expected {P}, {P}, 0); add-the-parts passes "
+        f"{launches[3]}")
+    check(launches[:3] == (P, P, 0), "channel-banded launches per forward")
+    check(tuple(hx.shape) == chan.oshape and bool(torch.isfinite(hx).all()),
+          "channel-banded forward finite, shape")
+    hx_p = chan.forward(cube, plain=True)
+    hx_d = dense.forward(cube)
+    e_plain, e_dense = rel(hx, hx_p), rel(hx, hx_d)
+    log(f"[channel-banded] forward through #2 vs plain=True: max rel {e_plain:.3e} (bound 1e-5); "
+        f"banded vs the band built dense: max rel {e_dense:.3e} (bound 5e-2, [wplane]'s: the "
+        f"truncated response mass)")
+    check(e_plain <= 1e-5, f"channel-banded forward vs plain: {e_plain:.3e}")
+    check(e_dense <= 5e-2, f"channel-banded vs dense forward: {e_dense:.3e}")
+
+    gr.reset_launches()
+    wb.reset_launches()
+    hty = chan.adjoint(y)
+    sync()
+    adj_launches = (gr.launches, wb.launches, wb.launches_t)
+    same = torch.equal(hty, dense.adjoint(y))
+    log(f"[channel-banded] adjoint: launches gather_rows / wblur_banded / wblur_banded_t "
+        f"{adj_launches} (expected ({P}, 0, 0): the dense transpose), bit for bit the dense "
+        f"channel's {same}")
+    check(adj_launches == (P, 0, 0), "channel-banded adjoint launches")
+    check(same, "channel-banded adjoint vs the dense channel's")
+
+    lhs = float(torch.dot(hx_d.reshape(-1).double(), y.reshape(-1).double()))
+    rhs = float(torch.dot(cube.reshape(-1).double(), hty.reshape(-1).double()))
+    d_rel = abs(lhs - rhs) / abs(lhs)
+    b_lhs = float(torch.dot(hx.reshape(-1).double(), y.reshape(-1).double()))
+    log(f"[channel-banded] dense pair dot test (f64 sums): <Hx,y>={lhs:.9e} <x,H'y>={rhs:.9e} "
+        f"rel {d_rel:.3e} (bound 1e-5); the banded forward against the dense adjoint "
+        f"(not a transpose pair at rtol > 0): rel {abs(b_lhs - rhs) / abs(b_lhs):.3e}")
+    check(d_rel <= 1e-5, "channel-banded dense pair dot test")
+
+    ms_f = cuda_ms(lambda: chan.forward(cube), REPS)
+    ms_fd = cuda_ms(lambda: dense.forward(cube), REPS)
+    ms_a = cuda_ms(lambda: chan.adjoint(y), REPS)
+    log(f"[channel-banded] {card}: band {chan.instr.name} forward {ms_f:.3f} ms (banded), "
+        f"{ms_fd:.3f} ms (dense), adjoint {ms_a:.3f} ms")
+    res = {"launches": launches, "ms_forward": ms_f, "ms_forward_dense": ms_fd, "ms_adjoint": ms_a,
+           "err_plain": e_plain, "err_dense": e_dense}
+    del chan, dense, cube, y, hx, hx_p, hx_d, hty
     torch.cuda.empty_cache()
     return res
 
@@ -2736,6 +2840,11 @@ def main(argv=None) -> int:
     staged = run_staged_phase(dev, card, cuda_ms, gen, bound, proto, c_st)
     log(f"[staged] phase in {time.perf_counter() - t0:.2f} s")
 
+    # [channel-banded]: band 2c's Channel with the banded blur on cubes
+    t0 = time.perf_counter()
+    cband = run_channel_banded_phase(dev, card, cuda_ms, gen, model)
+    log(f"[channel-banded] phase in {time.perf_counter() - t0:.2f} s")
+
     # [family], [mixing]: the operator family and the mixing path at band 1c's full width
     t0 = time.perf_counter()
     fam = run_family_phase(dev, card, cuda_ms, gen, bound, proto, model)
@@ -2816,7 +2925,8 @@ def main(argv=None) -> int:
                     "pipeline": pipe["launches"], "allband": allb["launches"],
                     "allband_wl": allb_wl["launches"], "deconv2d": deconv["deconv2d"]["launches"],
                     "deconv_cube": deconv["deconv-cube"]["launches"], "nn": nn["launches"],
-                    "staged": staged["launches"], "family": fam["launches"],
+                    "staged": staged["launches"], "channel_banded": cband["launches"][0],
+                    "family": fam["launches"],
                     "sharded": shard["launches"], "sharded_two_rank": shard["two_rank_launches"],
                     "sharded_wplane": shard["wplane_launches"][0], "lambda": shard["lambda_launches"],
                     "mesh2d": shard["mesh2d_launches"],
@@ -2842,20 +2952,22 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "surfh_tpu_torch/csrc/wblur_banded.cu",
         "replaces": replaces,
-        "launches": launches + shard_launches + bench_launches,
+        "launches": launches + shard_launches + bench_launches + cband_launches,
         "launches_by_path": {"wplane": launches, "sharded_wplane": shard_launches,
-                             "bench_medium-banded": bench_launches},
+                             "bench_medium-banded": bench_launches,
+                             "channel_banded": cband_launches},
         "max_abs_err": bkern[name]["err"],
         "ms": bkern[name]["ms"],
         "plain_ms": bkern[name]["plain_ms"],
         "bound_ms": bkern[name]["bound_ms"],
         "bound_by": bkern[name]["bound_by"],
         "library_ms": bkern[name]["library_ms"],
-    } for name, replaces, launches, shard_launches, bench_launches in (
+    } for name, replaces, launches, shard_launches, bench_launches, cband_launches in (
         ("wblur_banded", "surfh_tpu/core/wblur_pallas.py:102", wmain[1], shard["wplane_launches"][1],
-         bench["medium-banded"]["launches"][1]),
+         bench["medium-banded"]["launches"][1], cband["launches"][1]),
         ("wblur_banded_t", "surfh_tpu/core/wblur_pallas.py:227", wmain[2],
-         shard["wplane_launches"][2], bench["medium-banded"]["launches"][2]))] + [{
+         shard["wplane_launches"][2], bench["medium-banded"]["launches"][2],
+         cband["launches"][2]))] + [{
         "name": f"gather_fixed_{k.lower()}",
         "route": "cuda",
         "source": "surfh_tpu_torch/csrc/gather_fixed.cu",

@@ -25,9 +25,10 @@ The blind-2D models and a channel's gridding: `blind2d_tables` takes a
 returns its host tables (slit starts and weights, the box-sum OTF, the
 sotf or sotf stack, the bilinear plans or the crop windows);
 `channel_tables_from_reference` takes a JAX `Channel` (bilinear or
-nearest-neighbour, composed or staged) and returns its gridding tables
-under the port's `Channel` attribute names (plans, FOV bbox, box offset,
-composed stack, slit tables, wpsf).  Nothing here imports JAX: the inputs are NumPy arrays and plain
+nearest-neighbour, composed or staged, dense or banded) and returns its
+gridding tables under the port's `Channel` attribute names (plans, FOV
+bbox, box offset, composed stack, slit tables, wpsf, the spectral blur and
+a banded channel's band plans).  Nothing here imports JAX: the inputs are NumPy arrays and plain
 objects (a band plan is read through its attributes).
 """
 
@@ -97,15 +98,20 @@ def wplane_tables_from_reference(sotf, templates, channels, device, dtype=torch.
         fwd, adj = gather_plans_from_composed(stack, n_patch, S * A * sb)
         t = {"wpsf": np.asarray(wpsf), "slit_w": slit_w, "gather_fwd": fwd, "gather_t": adj}
         if plan is not None:
-            t["band_plan"] = BandPlan(np.asarray(plan.starts), int(plan.K), int(plan.W),
-                                      int(plan.B), int(plan.Bp), int(plan.LB), int(plan.TK))
-            t["band_plan_t"] = BandPlanT(np.asarray(plan_t.starts), int(plan_t.K), int(plan_t.W),
-                                         int(plan_t.B), int(plan_t.Bp), int(plan_t.TL),
-                                         int(plan_t.KB))
+            t["band_plan"], t["band_plan_t"] = band_plans_from_reference(plan, plan_t)
         chans.append(t)
     host = {"sotf": np.asarray(sotf), "templates": None if templates is None else np.asarray(templates),
             "chan": tuple(chans)}
     return device_tables(host, device, dtype)
+
+
+def band_plans_from_reference(plan, plan_t) -> tuple:
+    """The reference's `BandPlan` / `BandPlanT` → the port's (its blocked
+    f32 tables stay behind: the port's `banded_tables` lays out its own)."""
+    return (BandPlan(np.asarray(plan.starts), int(plan.K), int(plan.W), int(plan.B),
+                     int(plan.Bp), int(plan.LB), int(plan.TK)),
+            BandPlanT(np.asarray(plan_t.starts), int(plan_t.K), int(plan_t.W), int(plan_t.B),
+                      int(plan_t.Bp), int(plan_t.TL), int(plan_t.KB)))
 
 
 def blind2d_tables(model) -> dict:
@@ -127,8 +133,10 @@ def blind2d_tables(model) -> dict:
 
 def channel_tables_from_reference(chan) -> dict:
     """A JAX `Channel`'s gridding and slit tables under the port's
-    `models.channel.Channel` attribute names."""
-    return {
+    `models.channel.Channel` attribute names, with its spectral blur
+    (`wblur_impl`, `wblur_band_rtol`) and, for a banded channel, its band
+    plans as the port's `band_plan` / `band_plan_t` (`band_plans`)."""
+    out = {
         "gridding": chan.gridding,
         "plans_fwd": [(np.asarray(p.idx), np.asarray(p.w)) for p in chan.plans_fwd],
         "tbbox": tuple(int(v) for v in chan._tbbox),
@@ -139,4 +147,9 @@ def channel_tables_from_reference(chan) -> dict:
         "slit_b_starts": np.asarray(chan.slit_b_starts),
         "slit_weights_sub": np.asarray(chan.slit_weights_sub),
         "wpsf": np.asarray(chan.wpsf),
+        "wblur_impl": chan.wblur_impl,
+        "wblur_band_rtol": float(chan.wblur_band_rtol),
     }
+    if chan.wblur_impl == "banded":
+        out["band_plans"] = band_plans_from_reference(chan.band_plan(), chan.band_plan_t())
+    return out

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .precision import require_cuda
+from .precision import require_cuda, require_highest
 
 # ---------------------------------------------------------------------------
 # host tables (NumPy copies of surfh_tpu/core/fft.py:61-413)
@@ -318,12 +318,14 @@ def _dft_maps_t(z_re: torch.Tensor, z_im: torch.Tensor, m: dict) -> torch.Tensor
 # device side: the dense window-local conv (the OTF window on W λ-planes)
 
 
-def otf_from_stamps(psf: torch.Tensor, st: dict, chunk: int = 128):
+def otf_from_stamps(psf: torch.Tensor, st: dict, precision: str = "highest", chunk: int = 128):
     """(otf_re, otf_im) [W, Ka', Kb'] of a PSF stamp stack [W, sx, sy] on the
     bins of the stamp-DFT tables `st` (:func:`psf_stamp_tables`), as the
     reference's einsums compute it, `chunk` planes at a time.  Evaluated
     once per model (`models.spectro.device_tables`), so the forward and the
-    adjoint read one table and stay an exact pair."""
+    adjoint read one table and stay an exact pair.  `precision`, as in the
+    reference's conv functions below, is "highest" (full FP32) or raises."""
+    require_highest(precision)
     w = psf.shape[0]
     ka, kb = st["sa_re"].shape[0], st["sb_re"].shape[1]
     otf_re = torch.empty((w, ka, kb), dtype=psf.dtype, device=psf.device)
@@ -406,16 +408,16 @@ def conv_otf_matmul_rows_t(g, otf_re, otf_im, m: dict) -> torch.Tensor:
 # device side: the materialized-OTF FFT conv (the W-plane path)
 
 
-def dft(x: torch.Tensor) -> torch.Tensor:
+def dft(inarray: torch.Tensor) -> torch.Tensor:
     """Unitary real DFT over the last two axes (reference `fft.dft`)."""
-    return torch.fft.rfftn(x, dim=(-2, -1), norm="ortho")
+    return torch.fft.rfftn(inarray, dim=(-2, -1), norm="ortho")
 
 
-def idft(x: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
+def idft(inarray: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
     """Unitary inverse real DFT over the last two axes (reference `fft.idft`).
     `im_shape` is required: an odd last axis (501) is not recoverable from
     the half spectrum."""
-    return torch.fft.irfftn(x, s=tuple(im_shape), dim=(-2, -1), norm="ortho")
+    return torch.fft.irfftn(inarray, s=tuple(im_shape), dim=(-2, -1), norm="ortho")
 
 
 def dft_mult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -491,16 +493,20 @@ def otf_bins_last(otf: torch.Tensor) -> torch.Tensor:
     return otf.permute(1, 2, 0).contiguous()
 
 
-def lmm_conv_rank(maps, otf_re, otf_im, m: dict) -> torch.Tensor:
+def lmm_conv_rank(maps, otf_re, otf_im, m: dict, precision: str = "highest") -> torch.Tensor:
     """Reference-layout `fft.lmm_conv_rank`: maps [M, Na, Nb], otf [R, Ka', Kb']
-    → rank-basis bbox patch [M·R, ha, wb]."""
+    → rank-basis bbox patch [M·R, ha, wb].  Here and below `precision` is
+    "highest" (full FP32) or raises."""
+    require_highest(precision)
     rows = lmm_conv_rank_rows(maps, otf_bins_last(otf_re), otf_bins_last(otf_im), m)
     ha, wb = m["ifa_re"].shape[0], m["icb_re"].shape[0]
     return rows.view(ha, wb, -1).permute(2, 0, 1)
 
 
-def lmm_conv_rank_t(g, otf_re, otf_im, m: dict, n_maps: int) -> torch.Tensor:
+def lmm_conv_rank_t(g, otf_re, otf_im, m: dict, n_maps: int,
+                    precision: str = "highest") -> torch.Tensor:
     """Reference-layout `fft.lmm_conv_rank_t`: g [M·R, ha, wb] → [M, Na, Nb]."""
+    require_highest(precision)
     q, ha, wb = g.shape
     if q != n_maps * otf_re.shape[0]:
         raise ValueError(f"Q={q} is not n_maps·R = {n_maps}·{otf_re.shape[0]}")
@@ -518,21 +524,27 @@ def _planes_to_rows(g: torch.Tensor) -> torch.Tensor:
     return g.permute(1, 2, 0).reshape(ha * wb, w)
 
 
-def lmm_conv_otf_matmul(maps, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+def lmm_conv_otf_matmul(maps, tpl_w, otf_re, otf_im, m: dict,
+                        precision: str = "highest") -> torch.Tensor:
     """Reference-layout `fft.lmm_conv_otf_matmul`: → [W, ha, wb]."""
+    require_highest(precision)
     return _rows_to_planes(lmm_conv_otf_rows(maps, tpl_w, otf_re, otf_im, m), m)
 
 
-def lmm_conv_otf_matmul_t(g, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+def lmm_conv_otf_matmul_t(g, tpl_w, otf_re, otf_im, m: dict,
+                          precision: str = "highest") -> torch.Tensor:
     """Reference-layout `fft.lmm_conv_otf_matmul_t`: g [W, ha, wb] → [M, Na, Nb]."""
+    require_highest(precision)
     return lmm_conv_otf_rows_t(_planes_to_rows(g), tpl_w, otf_re, otf_im, m)
 
 
-def conv_otf_matmul(x, otf_re, otf_im, m: dict) -> torch.Tensor:
+def conv_otf_matmul(x, otf_re, otf_im, m: dict, precision: str = "highest") -> torch.Tensor:
     """Reference-layout `fft.conv_otf_matmul`: x [W, Na, Nb] → [W, ha, wb]."""
+    require_highest(precision)
     return _rows_to_planes(conv_otf_matmul_rows(x, otf_re, otf_im, m), m)
 
 
-def conv_otf_matmul_t(g, otf_re, otf_im, m: dict) -> torch.Tensor:
+def conv_otf_matmul_t(g, otf_re, otf_im, m: dict, precision: str = "highest") -> torch.Tensor:
     """Reference-layout `fft.conv_otf_matmul_t`: g [W, ha, wb] → [W, Na, Nb]."""
+    require_highest(precision)
     return conv_otf_matmul_rows_t(_planes_to_rows(g), otf_re, otf_im, m)

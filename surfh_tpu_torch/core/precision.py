@@ -28,3 +28,12 @@ def require_cuda() -> torch.device:
 def pick_device(device=None) -> torch.device:
     """`device` as a torch device; None means the card (raise without one)."""
     return require_cuda() if device is None else torch.device(device)
+
+
+def require_highest(precision: str, what: str = "precision") -> None:
+    """Raise unless `precision` is "highest", the full-FP32 contract above:
+    the reference's reduced-precision contractions are not ported."""
+    if precision != "highest":
+        raise NotImplementedError(
+            f"{what}={precision!r}: not ported (ROADMAP 'Do not port': "
+            "a reduced-precision conv is not safe under CG)")

@@ -23,8 +23,9 @@ and its exact transpose, pointings unrolled in Python; the gathers run the
 row-gather kernel (kernel #1) and the blur is the dense GEMM or the banded
 kernel pair (`core.wblur_banded`).  After `to(device, dtype)` the channel
 applies itself to cubes as the reference does: `forward(cube)` →
-``[P, S, λ_det, α_out]``, the exact transpose `adjoint` (the whole λ axis)
-and `adjoint_windowed` (its band's λ window), and `adjoint_interp`, the
+``[P, S, λ_det, α_out]`` (with ``wblur_impl="banded"`` through kernel #2),
+the exact transpose of the dense forward `adjoint` (the whole λ axis) and
+`adjoint_windowed` (its band's λ window), and `adjoint_interp`, the
 reference's approximate adjoint through the reverse plans `plans_rev`.
 
 Data side (float64, as in the reference): `sliceToCube` (host) and
@@ -50,9 +51,9 @@ from ..core.gather_rows import (build_row_gather_plan, gather_rows, gather_rows_
 from ..core.linop import complex_dtype
 from ..core.nearest import nearest_plan
 from ..core.wblur import rows_table, wblur_rows, wblur_rows_t
-from ..core.wblur_banded import (BandPlan, BandPlanT, build_band_plan, build_band_plan_t,
-                                 wblur_banded, wblur_banded_reference, wblur_banded_t,
-                                 wblur_banded_t_reference)
+from ..core.wblur_banded import (BandPlan, BandPlanT, banded_tables, build_band_plan,
+                                 build_band_plan_t, wblur_banded, wblur_banded_reference,
+                                 wblur_banded_t, wblur_banded_t_reference)
 from ..instrument.geometry import Coord, CoordList
 from ..instrument.ifu import IFU
 from .slicer import Slicer
@@ -88,8 +89,22 @@ def gather_device_tables(t: dict, device, dtype) -> dict:
 class Channel:
     """Forward model of one IFU band across its dither pointings.
 
-    `dtype` is the NumPy dtype of the host tables (float32 or float64);
-    `gridding` is "bilinear" or "nn" (the reference's `nearest_plan`)."""
+    The reference's parameters in its order.  `dtype` is the NumPy dtype of
+    the host tables (float32 or float64); `gridding` is "bilinear" or "nn"
+    (the reference's `nearest_plan`).  `wblur_impl` is the spectral blur of
+    :meth:`forward`: "dense" (the GEMM) or "banded" (kernel #2 on the band
+    plan at `wblur_band_rtol`).  The public adjoints stay the exact
+    transpose of the *dense* forward, as the reference's (a Pallas call has
+    no transpose rule there), so at ``wblur_band_rtol > 0`` a banded
+    channel's forward / adjoint pair is not an exact transpose pair; the
+    banded transpose (kernel #3) runs in `SpectroSigRLSCT`'s adjoint.
+
+    `slit_unroll` and `pointing_scan` shape the reference's XLA graph
+    (unrolled slit slices, a scan over pointings).  They are kept and
+    resolved as the reference resolves them (`pointing_scan=None`: the
+    ``SURFH_POINTING_SCAN`` 0 / 1, else more than 4 pointings, the count
+    the reference unrolls on its accelerator), but change nothing here:
+    slits and pointings are Python loops over eager kernels."""
 
     def __init__(
         self,
@@ -102,7 +117,16 @@ class Channel:
         step_degree: float,
         dtype=np.float32,
         gridding: str = "bilinear",
+        wblur_impl: str = "dense",
+        wblur_band_rtol: float = 0.0,
+        slit_unroll: bool = True,
+        pointing_scan: bool | None = None,
     ):
+        if wblur_impl not in ("dense", "banded"):
+            raise ValueError(f"unknown wblur_impl {wblur_impl!r}")
+        self.wblur_impl = wblur_impl
+        self.wblur_band_rtol = float(wblur_band_rtol)
+        self.slit_unroll = bool(slit_unroll)
         self.alpha_axis = np.asarray(alpha_axis, np.float64)
         self.beta_axis = np.asarray(beta_axis, np.float64)
         self.step_degree = float(step_degree)
@@ -111,6 +135,10 @@ class Channel:
         self.npdtype = np.dtype(dtype)
         self.instr = instr.pix(self.step_degree)
         self.pointings = pointings.pix(self.step_degree)
+        if pointing_scan is None:
+            env = os.environ.get("SURFH_POINTING_SCAN")
+            pointing_scan = env != "0" if env else len(self.pointings) > 4
+        self.pointing_scan = bool(pointing_scan)
 
         local_alpha_axis, local_beta_axis = self.instr.fov.local_coords(
             step_degree, alpha_margin=5 * step_degree, beta_margin=5 * step_degree
@@ -135,6 +163,9 @@ class Channel:
         self.local_im_shape = (len(local_alpha_axis), len(local_beta_axis))
         self.imshape = (len(self.alpha_axis), len(self.beta_axis))
         self.ishape = (len(self.global_wavelength_axis),) + self.imshape
+        self.instr_cube_shape = (self.n_wslice,) + self.imshape
+        self.local_cube_shape = (len(self.global_wavelength_axis),) + self.local_im_shape
+        self.slices_shape = (len(self.pointings), self.instr.n_slit, self.oshape[3])
         # SRF box-sum OTF and the half-SRF phase shift, on the local grid
         self._otf_sr = fft.box_otf_sr(self.srf, self.local_im_shape, np.complex128)
         self.decalf = fft.half_srf_shift_otf(self.srf, self.local_im_shape, np.complex128)
@@ -234,6 +265,10 @@ class Channel:
     def wslice(self) -> slice:
         """λ window of the global axis covered by this channel (0.1 μm margin)."""
         return self.instr.wslice(self.global_wavelength_axis, 0.1)
+
+    @property
+    def beta_step(self) -> float:
+        return self.beta_axis[1] - self.beta_axis[0]
 
     @property
     def n_wslice(self) -> int:
@@ -345,20 +380,21 @@ class Channel:
                 self._gather_plans = fwd, [f.t for f in fwd]
         return self._gather_plans
 
-    def band_plan(self, rtol: float) -> BandPlan:
-        """Forward banded plan of the wpsf at `rtol` (reference
-        `Channel.band_plan`, channel.py:752-760), built at first use."""
-        key = ("fwd", float(rtol))
+    def band_plan(self, rtol: float | None = None) -> BandPlan:
+        """Forward banded plan of the wpsf at `rtol` (None: the channel's
+        `wblur_band_rtol`, as the reference's `Channel.band_plan()`), built
+        at first use and kept per rtol."""
+        key = ("fwd", self.wblur_band_rtol if rtol is None else float(rtol))
         if key not in self._band_plans:
-            self._band_plans[key] = build_band_plan(self.wpsf, rel_eps=float(rtol))
+            self._band_plans[key] = build_band_plan(self.wpsf, rel_eps=key[1])
         return self._band_plans[key]
 
-    def band_plan_t(self, rtol: float) -> BandPlanT:
-        """Transpose banded plan of the wpsf at `rtol` (reference
-        `Channel.band_plan_t`, channel.py:762-770), built at first use."""
-        key = ("t", float(rtol))
+    def band_plan_t(self, rtol: float | None = None) -> BandPlanT:
+        """Transpose banded plan of the wpsf at `rtol` (None: the channel's
+        `wblur_band_rtol`), built at first use and kept per rtol."""
+        key = ("t", self.wblur_band_rtol if rtol is None else float(rtol))
         if key not in self._band_plans:
-            self._band_plans[key] = build_band_plan_t(self.wpsf, rel_eps=float(rtol))
+            self._band_plans[key] = build_band_plan_t(self.wpsf, rel_eps=key[1])
         return self._band_plans[key]
 
     def host_tables(self) -> dict:
@@ -579,12 +615,15 @@ class Channel:
     # `adjoint_windowed` / `adjoint_interp`), after `to`
     def to(self, device, dtype=torch.float32) -> "Channel":
         """Put the channel's own tables (gather plans, slit weights, the
-        dense wpsf table, staged: the box-sum OTF) on `device` in `dtype`."""
+        dense wpsf table, staged: the box-sum OTF; banded: the band tables
+        of both plans) on `device` in `dtype`."""
         self.device = torch.device(device)
         self.dtype = dtype
         t = self.host_tables()
         wpsf = torch.as_tensor(np.asarray(t["wpsf"])).to(device=self.device, dtype=dtype)
         self.tables = {**gather_device_tables(t, self.device, dtype), "wq": rows_table(wpsf)}
+        if self.wblur_impl == "banded":
+            self.tables["band"] = banded_tables(wpsf, self.band_plan(), self.band_plan_t())
         self._rev_dev = None
         return self
 
@@ -594,13 +633,16 @@ class Channel:
         return torch.as_tensor(a).to(device=self.device, dtype=self.dtype).reshape(shape)
 
     def forward(self, cube, plain: bool = False) -> torch.Tensor:
-        """cube [L, Na, Nb] → detector blocks [P, S, λ_det, α_out]."""
+        """cube [L, Na, Nb] → detector blocks [P, S, λ_det, α_out]; a banded
+        channel's blur is kernel #2 (`plain`: its masked-GEMM version)."""
         x = self._tensor(cube, self.ishape)
         ws = self.wslice
-        return self.forward_rows(self.bbox_rows(x[ws.start : ws.stop]), self.tables, plain)
+        return self.forward_rows(self.bbox_rows(x[ws.start : ws.stop]), self.tables, plain,
+                                 banded=self.wblur_impl == "banded")
 
     def adjoint_windowed(self, y, plain: bool = False) -> torch.Tensor:
-        """Exact transpose of :meth:`forward` restricted to the λ window:
+        """Exact transpose of the dense :meth:`forward` restricted to the λ
+        window (on a banded channel too, as the reference's):
         [P, S, λ_det, α_out] → [W, Na, Nb]."""
         rows = self.adjoint_rows(self._tensor(y, self.oshape), self.tables, plain)
         out = torch.zeros((self.n_wslice,) + self.imshape, device=self.device, dtype=self.dtype)
@@ -608,8 +650,8 @@ class Channel:
         return out
 
     def adjoint(self, y, plain: bool = False) -> torch.Tensor:
-        """Exact transpose of :meth:`forward`: → cube [L, Na, Nb], zero
-        outside the band's λ window."""
+        """Exact transpose of the dense :meth:`forward`: → cube [L, Na, Nb],
+        zero outside the band's λ window."""
         out = torch.zeros(self.ishape, device=self.device, dtype=self.dtype)
         ws = self.wslice
         out[ws.start : ws.stop] = self.adjoint_windowed(y, plain)

@@ -108,10 +108,13 @@ class SpectroT(_FamilyOp):
 class SpectroC(_FamilyOp):
     """y = C x — spatial convolution of a cube (reference C_Model.spectroC).
     `sotf` may be a tensor (e.g. the flagship OTF on the card): it is used
-    where it lies when it is already in the complex type."""
+    where it lies when it is already in the complex type.  The attribute
+    `sotf` is the OTF as given: a host array as the reference keeps it, or
+    that tensor (not copied to the host)."""
 
     def __init__(self, sotf, maps, templates, wavelength_axis, dtype=torch.float32, device=None):
         maps = np.asarray(maps)
+        self.sotf = sotf if isinstance(sotf, torch.Tensor) else np.asarray(sotf)
         shape = (len(wavelength_axis), maps.shape[1], maps.shape[2])
         super().__init__(shape, shape, dtype, device)
         self._sotf = self._complex(sotf)

@@ -153,6 +153,8 @@ class Slicer:
             slices[1].stop - slices[1].start,
         )
 
+    get_slit_shape_t = get_slit_shape
+
     # -- dense tables for the channel pipeline ---------------------------
     def slit_tables(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Stacked per-slit tables: α starts [S], β starts [S], weights [S, nα, nβ].

@@ -55,6 +55,7 @@ import torch
 
 from ..core import fft, lmm, numpy_ref
 from ..core.linop import complex_dtype
+from ..core.precision import require_highest
 from ..core.wblur import rows_table
 from ..core.wblur_banded import banded_tables
 from ..instrument.geometry import CoordList, get_srf
@@ -391,10 +392,7 @@ class SpectroSigRLSCT:
         if sotf is None and not (self.window_local and conv_impl == "matmul"):
             raise ValueError("psf_stack-only mode requires window_local=True and "
                              "conv_impl='matmul' (FFT paths need a materialized sotf)")
-        if conv_precision != "highest":
-            raise NotImplementedError(
-                f"conv_precision={conv_precision!r}: not ported (ROADMAP 'Do not port': "
-                "a reduced-precision conv is not safe under CG)")
+        require_highest(conv_precision, "conv_precision")
         if self.window_local and wblur_impl == "banded":
             warnings.warn(
                 "wblur_impl='banded' is not supported in window_local mode; "
@@ -437,7 +435,8 @@ class SpectroSigRLSCT:
             wslices.append(wsl)
             job = {
                 "chan_args": (instr, self.alpha_axis, self.beta_axis, self.wavelength_axis, srf,
-                              CoordList(pointings[it]), self.step_degree, self.npdtype, gridding),
+                              CoordList(pointings[it]), self.step_degree, self.npdtype, gridding,
+                              wblur_impl, self.wblur_band_rtol),
                 "n_w": wsl.stop - wsl.start,
                 "mode": "stamps" if self.stamps else "plain",
             }
@@ -470,6 +469,7 @@ class SpectroSigRLSCT:
                 _write_cache(cache, ([b[0] for b in built], tuple(b[1] for b in built),
                                      [b[2] for b in built]))
         self.channels = [b[0] for b in built]
+        self.list_wslice = [chan.wslice for chan in self.channels]
         host_chan = tuple(b[1] for b in built)
         supports = [b[2] for b in built]
         if self.window_local and not self.stamps:

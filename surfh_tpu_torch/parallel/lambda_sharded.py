@@ -89,14 +89,14 @@ class LambdaShardedChannel:
             block[: hi - lo] = cube[lo:hi].to(device=self.device, dtype=self.dtype)
         return block
 
-    def forward(self, cube_shard, plain: bool = False) -> torch.Tensor:
+    def forward(self, cube_sharded, plain: bool = False) -> torch.Tensor:
         """This rank's cube block [Lp, Na, Nb] → the detector block
         [P, S, K, A], the same on every rank (one all_reduce)."""
         chan = self.chan
         out = torch.zeros(chan.oshape, device=self.device, dtype=self.dtype)
         if self.span is not None:
             s0, n, _ = self.span
-            shard = torch.as_tensor(cube_shard).to(device=self.device, dtype=self.dtype)
+            shard = torch.as_tensor(cube_sharded).to(device=self.device, dtype=self.dtype)
             src = shard[s0 : s0 + n].reshape(n, -1).T.contiguous()  # [Na·Nb, n]
             gather = gather_rows_reference if plain else gather_rows
             _, S, K, A = chan.oshape

@@ -99,6 +99,7 @@ class QuadCriterion_MRS:
         self.gradient = gradient
         self.shape_of_output = tuple(model_spectro.ishape)
         dev, dt = model_spectro.device, model_spectro.dtype
+        self.dtype = dt
         self.mu_spectro = torch.as_tensor(mu_spectro, device=dev, dtype=dt)
         self.mu_reg = torch.as_tensor(mu_reg, device=dev, dtype=dt)
         self.y_spectro = torch.as_tensor(y_spectro).to(device=dev, dtype=dt).reshape(-1)

@@ -716,3 +716,33 @@ def test_bench_chain_as_a_cuda_graph(wblur_impl):
     eager = bench_torch.apply_chain(model, x0, 3)
     assert bench_torch.rel_gap(g, eager) <= 1e-6
     assert float(total) == pytest.approx(float(eager.sum()), rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_banded_channel_forward_runs_kernel_2():
+    """`Channel(..., wblur_impl="banded")` on a cube: its forward through the
+    banded kernel (#2) against `plain=True` (≤1e-5: f32 sums in another
+    order), one #2 launch per pointing; its adjoint is the dense transpose
+    (no #3 launch)."""
+    from surfh_tpu_torch.core import wblur_banded as wb
+    from surfh_tpu_torch.instrument.geometry import get_srf
+    from surfh_tpu_torch.models.channel import Channel
+    from surfh_tpu_torch.simulation.synthetic import make_setup
+
+    dev = _cuda()
+    s = make_setup(im_size=31, n_lambda=96, n_channels=1, n_pointings=2, n_slit=3)
+    instr = s["instrs"][0]
+    srf = get_srf([instr.det_pix_size], s["step_degree"] * 3600)[0]
+    chan = Channel(instr, s["alpha_axis"], s["beta_axis"], s["wavelength_axis"], srf, s["pointings"][0],
+                   s["step_degree"], np.float32, "bilinear", "banded", 1e-3).to(dev, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cube = torch.rand(chan.ishape, generator=gen, device=dev)
+    wb.reset_launches()
+    got = chan.forward(cube)
+    torch.cuda.synchronize()
+    assert wb.launches == chan.oshape[0] and wb.launches_t == 0
+    want = chan.forward(cube, plain=True)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    chan.adjoint(torch.rand(chan.oshape, generator=gen, device=dev))
+    torch.cuda.synchronize()
+    assert wb.launches == chan.oshape[0] and wb.launches_t == 0
