@@ -38,6 +38,12 @@ the configuration and are cached on disk (`table_cache_path`).
 
 Gridding is bilinear or nearest-neighbour (``gridding="nn"``) in every
 mode, composed or staged as each channel is (`models.channel`).
+
+Under `torch.profiler` the operator records host-lane spans
+(`utils.profiling.span`): ``surfh.op.normal`` around each `normal`, and
+``surfh.op.band.<band>`` (the channel's instrument name, else its index)
+around each channel's part of the forward, the adjoint and the
+window-local normal.
 """
 
 from __future__ import annotations
@@ -60,9 +66,11 @@ from ..core.wblur import rows_table
 from ..core.wblur_banded import banded_tables
 from ..instrument.geometry import CoordList, get_srf
 from ..instrument.ifu import IFU
+from ..utils.profiling import span
 from .channel import Channel, gather_device_tables
 
 TABLE_CACHE_VERSION = 1
+SPAN_NORMAL, SPAN_BAND = "surfh.op.normal", "surfh.op.band."
 # the modules whose code builds the cached tables: their bytes are part of the key
 _TABLE_SOURCES = ("models/spectro.py", "models/channel.py", "models/slicer.py", "core/fft.py",
                   "core/bilinear.py", "core/gather_rows.py", "instrument/geometry.py",
@@ -470,6 +478,7 @@ class SpectroSigRLSCT:
                                      [b[2] for b in built]))
         self.channels = [b[0] for b in built]
         self.list_wslice = [chan.wslice for chan in self.channels]
+        self._band_spans = [_band_span(instr, c) for c, instr in enumerate(self.instrs)]
         host_chan = tuple(b[1] for b in built)
         supports = [b[2] for b in built]
         if self.window_local and not self.stamps:
@@ -769,13 +778,15 @@ class SpectroSigRLSCT:
         outs = []
         if self.window_local:
             for c, chan in enumerate(self.channels):
-                outs.append(chan.forward_rows(self._conv(x, c), self.tables["chan"][c],
-                                              plain).reshape(-1))
+                with span(self._band_spans[c]):
+                    outs.append(chan.forward_rows(self._conv(x, c), self.tables["chan"][c],
+                                                  plain).reshape(-1))
         else:
             cube = self.blurred_cube(x)
             for c, chan in enumerate(self.channels):
-                outs.append(chan.forward_rows(self.patch_rows(cube, c), self.tables["chan"][c],
-                                              plain, banded).reshape(-1))
+                with span(self._band_spans[c]):
+                    outs.append(chan.forward_rows(self.patch_rows(cube, c), self.tables["chan"][c],
+                                                  plain, banded).reshape(-1))
         return torch.cat(outs)
 
     def adjoint_auto(self, y) -> torch.Tensor:
@@ -799,30 +810,42 @@ class SpectroSigRLSCT:
         if self.window_local:
             acc = torch.zeros(self.ishape, device=self.device, dtype=self.dtype)
             for c, chan in enumerate(self.channels):
-                yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
-                self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, self.tables["chan"][c],
-                                                                       plain), c), c)
+                with span(self._band_spans[c]):
+                    yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
+                    self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, self.tables["chan"][c],
+                                                                           plain), c), c)
             return acc
         banded = self.banded
         cube = torch.zeros(self.cube_shape, device=self.device, dtype=self.dtype)
         for c, chan in enumerate(self.channels):
-            yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
-            self.add_patch_rows_(cube, chan.adjoint_rows(yc, self.tables["chan"][c], plain, banded), c)
+            with span(self._band_spans[c]):
+                yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
+                self.add_patch_rows_(cube, chan.adjoint_rows(yc, self.tables["chan"][c], plain, banded),
+                                     c)
         fft.conv_otf_(cube, self.tables["sotf"], conj=True)
         return lmm.lmm_cube2maps(cube, self.tables["templates"]) if self.lmm else cube
 
     def normal(self, x, plain: bool = False) -> torch.Tensor:
         """HᵗH x.  Window-local mode fuses fwd∘adj per channel without
         materializing the flat y; W-plane mode is adjoint∘forward."""
-        x = self._x(x)
-        if not self.window_local:
-            return self.adjoint(self.forward(x, plain), plain)
-        acc = torch.zeros_like(x)
-        for c, chan in enumerate(self.channels):
-            t = self.tables["chan"][c]
-            yc = chan.forward_rows(self._conv(x, c), t, plain)
-            self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, t, plain), c), c)
-        return acc
+        with span(SPAN_NORMAL):
+            x = self._x(x)
+            if not self.window_local:
+                return self.adjoint(self.forward(x, plain), plain)
+            acc = torch.zeros_like(x)
+            for c, chan in enumerate(self.channels):
+                with span(self._band_spans[c]):
+                    t = self.tables["chan"][c]
+                    yc = chan.forward_rows(self._conv(x, c), t, plain)
+                    self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, t, plain), c), c)
+            return acc
+
+
+def _band_span(instr: IFU, c: int) -> str:
+    """The span of channel c's part of an application: its instrument's
+    name (the IFU's default ``_`` counts as none), else its index."""
+    name = str(getattr(instr, "name", "") or "")
+    return SPAN_BAND + (name if name not in ("", "_") else str(c))
 
 
 def _read_cache(path: Optional[str]):

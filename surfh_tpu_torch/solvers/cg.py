@@ -7,16 +7,25 @@ the loop is plain Python over device tensors.  Same parameters, update
 formulas, stopping rules and (for `lcg`) `(x, r, z, p, rz)` state as the
 reference, so a caller written for it gets its iterates, and an `lcg` run
 resumes exactly where it stopped.
+
+Under `torch.profiler` each solve records host-lane spans
+(`utils.profiling.span`): ``surfh.solver.solve`` around the whole call,
+``surfh.solver.iter`` around each step with its norm, and
+``surfh.solver.host_read`` around each read of a device value on the host.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
+SPAN_SOLVE, SPAN_ITER, SPAN_READ = "surfh.solver.solve", "surfh.solver.iter", "surfh.solver.host_read"
 CHECK_EVERY = 25  # dispatch mode: iterations between two reads of ‖r‖ (the reference's check_every)
 
 
@@ -40,6 +49,28 @@ def _norm(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(a.reshape(-1))
 
 
+def _read(a: torch.Tensor) -> float:
+    """`a` (one element) on the host: the host waits for the device."""
+    with span(SPAN_READ):
+        return float(a)
+
+
+def _read_history(hist: list) -> np.ndarray:
+    """The norm history kept on the device, on the host in float64."""
+    with span(SPAN_READ):
+        return torch.stack(hist).cpu().numpy().astype(np.float64)
+
+
+def _solve_span(solver: Callable) -> Callable:
+    """`solver` with its whole call inside a ``surfh.solver.solve`` span."""
+    @functools.wraps(solver)
+    def spanned(*args, **kwargs):
+        with span(SPAN_SOLVE):
+            return solver(*args, **kwargs)
+    return spanned
+
+
+@_solve_span
 def lcg(
     normal_op: Callable,
     b: torch.Tensor,
@@ -96,30 +127,32 @@ def lcg(
         return x, r, z, p, rz_new
 
     if loop == "graph":
-        limit = float(tol * _norm(b))  # in the working dtype, as the reference compares
-        norms = [float(_norm(r))]
+        limit = _read(tol * _norm(b))  # in the working dtype, as the reference compares
+        norms = [_read(_norm(r))]
         it = 0
         while it < max_iter and norms[-1] > limit:
-            x, r, z, p, rz = step(x, r, z, p, rz)
-            norms.append(float(_norm(r)))
+            with span(SPAN_ITER):
+                x, r, z, p, rz = step(x, r, z, p, rz)
+                norms.append(_read(_norm(r)))
             it += 1
         converged = it < max_iter
         grad_norm = np.asarray(norms, np.float64)
     else:
-        limit = tol * float(_norm(b).float())
+        limit = tol * _read(_norm(b).float())
         hist = [_norm(r).float()]
         k_chain = max(1, min(int(chain_steps), max_iter))
         it, next_check = 0, CHECK_EVERY
         while it < max_iter:
             for _ in range(min(k_chain, max_iter - it)):
-                x, r, z, p, rz = step(x, r, z, p, rz)
-                hist.append(_norm(r).float())
+                with span(SPAN_ITER):
+                    x, r, z, p, rz = step(x, r, z, p, rz)
+                    hist.append(_norm(r).float())
                 it += 1
             if it >= next_check or it >= max_iter:
                 next_check = it + CHECK_EVERY
-                if float(hist[-1]) <= limit:
+                if _read(hist[-1]) <= limit:
                     break
-        grad_norm = torch.stack(hist).cpu().numpy().astype(np.float64)
+        grad_norm = _read_history(hist)
         converged = bool(grad_norm[-1] <= limit)
     res = SolverResult(x=x, grad_norm=grad_norm, n_iter=it, converged=converged,
                        state=(x, r, z, p, rz) if return_state else None)
@@ -150,6 +183,17 @@ def _mmmg_body(normal_op, x, g, d_prev, q_prev, *op_args):
     return x, g, step, q_new
 
 
+def _mmmg_first(normal_op, x0, g0, *op_args):
+    """The first MM iteration, a steepest-descent step from x0 (no memory
+    direction yet); the state `_mmmg_body` continues from."""
+    q0 = normal_op(-g0, *op_args)
+    alpha = _dot(g0, g0) / _dot(-g0, q0)
+    x = x0 + alpha * (-g0)
+    g = g0 + alpha * q0
+    return x, g, alpha * (-g0), alpha * q0
+
+
+@_solve_span
 def mmmg(
     normal_op: Callable,
     b: torch.Tensor,
@@ -175,31 +219,34 @@ def mmmg(
     if loop not in ("graph", "dispatch"):
         raise ValueError(f"unknown loop {loop!r}")
     g0 = normal_op(x0, *op_args) - b
-    q0 = normal_op(-g0, *op_args)
-    alpha = _dot(g0, g0) / _dot(-g0, q0)
-    x = x0 + alpha * (-g0)
-    g = g0 + alpha * q0
-    d, q = alpha * (-g0), alpha * q0
     it = 1
     if loop == "graph":
-        limit = float(tol * _norm(b))
-        norms = [float(_norm(g0)), float(_norm(g))]
+        limit = _read(tol * _norm(b))
+        norms = [_read(_norm(g0))]
+        with span(SPAN_ITER):
+            x, g, d, q = _mmmg_first(normal_op, x0, g0, *op_args)
+            norms.append(_read(_norm(g)))
         while it < max_iter and norms[-1] > limit:
-            x, g, d, q = _mmmg_body(normal_op, x, g, d, q, *op_args)
-            norms.append(float(_norm(g)))
+            with span(SPAN_ITER):
+                x, g, d, q = _mmmg_body(normal_op, x, g, d, q, *op_args)
+                norms.append(_read(_norm(g)))
             it += 1
         grad_norm = np.asarray(norms, np.float64)
         converged = it < max_iter
     else:
-        limit = tol * float(_norm(b).float())
-        hist = [_norm(g0).float(), _norm(g).float()]
-        while it < max_iter:
-            x, g, d, q = _mmmg_body(normal_op, x, g, d, q, *op_args)
+        limit = tol * _read(_norm(b).float())
+        hist = [_norm(g0).float()]
+        with span(SPAN_ITER):
+            x, g, d, q = _mmmg_first(normal_op, x0, g0, *op_args)
             hist.append(_norm(g).float())
+        while it < max_iter:
+            with span(SPAN_ITER):
+                x, g, d, q = _mmmg_body(normal_op, x, g, d, q, *op_args)
+                hist.append(_norm(g).float())
             it += 1
-            if (it % CHECK_EVERY == 0 or it == max_iter) and float(hist[-1]) <= limit:
+            if (it % CHECK_EVERY == 0 or it == max_iter) and _read(hist[-1]) <= limit:
                 break
-        grad_norm = torch.stack(hist).cpu().numpy().astype(np.float64)
+        grad_norm = _read_history(hist)
         converged = bool(grad_norm[-1] <= limit)
     res = SolverResult(x=x, grad_norm=grad_norm, n_iter=it, converged=converged)
     if callback is not None:

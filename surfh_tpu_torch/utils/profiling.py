@@ -2,10 +2,11 @@
 `surfh_tpu/utils/profiling.py`.
 
 Named phase timers with a summary table, `torch.profiler` trace capture,
-a chained timer (N dependent applications per measurement, timed between
-CUDA events on the card, the host clock on the CPU), the device time of a
-run as the profiler reads it, and the card's published peaks, the
-denominators of every bound and utilization the port reports.
+the program's own spans in such a trace (`span`), a chained timer (N
+dependent applications per measurement, timed between CUDA events on the
+card, the host clock on the CPU), the device time of a run as the profiler
+reads it, and the card's published peaks, the denominators of every bound
+and utilization the port reports.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 # NVIDIA H100 SXM, NVIDIA's data sheet (dense rates, at the 700 W limit)
 FP32_FLOPS_PER_S = 67e12  # FP32 outside the tensor cores: the port runs FP32, TF32 off
@@ -74,6 +76,26 @@ def trace(log_dir: str = "surfh_trace"):
     prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host-lane range `name` in a running `torch.profiler` trace, to be
+    entered with ``with``: a CPU event of ``prof.events()`` and of the
+    Chrome trace, on the profiler's clock, with nothing mirrored on the
+    card's lane (a function-scope range; `record_function` opens a
+    user-scope one, which the profiler copies onto the CUDA lane as an
+    annotation over the kernels it launched).  With no profiler running it
+    is one shared no-op context, and its cost is one attribute read.
+
+    The program's names start with ``surfh.``: ``surfh.solver.solve``,
+    ``.iter`` and ``.host_read`` in `solvers/cg.py`, ``surfh.op.normal``
+    and ``surfh.op.band.<band>`` in `models/spectro.py`."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 def chained_time(fn, x: torch.Tensor, chain: int = 10, reps: int = 3) -> float:
     """Median seconds per application of `fn`, over `chain` dependent
     applications per measurement: each input is ``x + 1e-30 · acc``, where
@@ -116,18 +138,31 @@ def card_name(device) -> str:
     ).stdout.strip().splitlines()[0].strip()
 
 
+def device_busy_us(events) -> float:
+    """Microseconds the card was busy in a `torch.profiler` trace's
+    `events`: the union of its kernel, memcpy and memset intervals, so
+    overlapping ones count once.  The host's events do not count, nor the
+    annotations that mirror user-scope ranges on the card's lane."""
+    busy, end = 0.0, float("-inf")
+    for s, t in sorted((ev.time_range.start, ev.time_range.end) for ev in events
+                       if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return busy
+
+
 def device_trace_ms(run_once, chain: int):
     """Device milliseconds per application of `run_once` (which runs
     `chain` applications and synchronises), from one `torch.profiler`
-    trace: the durations of the device's kernel, memcpy and memset events
-    summed (the host's lanes are not), over `chain`.  None when the trace
-    holds no device event (no card, or a profiler that does not see it)."""
+    trace: the time the card was busy (`device_busy_us`), over `chain`.
+    None when the trace holds no device event (no card, or a profiler that
+    does not see it)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_once()
-    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    dev_us = device_busy_us(prof.events())
     if dev_us <= 0:
         return None
     return dev_us / 1e3 / max(int(chain), 1)
