@@ -6,8 +6,10 @@ copies of the reference's (same arithmetic, so both packages build
 bit-identical tables); the device side is the λ-rank fused T·C conv
 `lmm_conv_rank` and its exact transpose as chains of plain GEMMs, and, for
 the W-plane path, the unitary `dft` / `idft` pair (cuFFT on the card, as
-the reference leaves it to `jnp.fft`), the chunked in-place OTF conv and a
-device `ir2fr` that builds the materialized OTF from the PSF stamps.
+the reference leaves it to `jnp.fft`), the chunked in-place OTF conv of
+cube mode, the same conv with the templates mixed in the frequency domain
+(`lmm_conv_otf` / `_t`, template mode) and a device `ir2fr` that builds the
+materialized OTF from the PSF stamps.
 
 Layout.  The reference keeps the rank-basis patch as ``[Q, ha, wb]``; the
 row-gather kernel downstream wants one contiguous ``Q``-wide row per patch
@@ -27,11 +29,13 @@ rows, and the transpose's first GEMM reads them the same way.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+from . import lmm
 from .precision import require_cuda, require_highest
 
 # ---------------------------------------------------------------------------
@@ -438,7 +442,8 @@ def convolve_freq(cube: torch.Tensor, otf: torch.Tensor, im_shape: Tuple[int, in
     return idft(dft(cube) * otf, im_shape)
 
 
-CONV_OTF_CHUNK = 256  # λ-planes per cuFFT call of `conv_otf_`
+CONV_OTF_CHUNK = 256  # λ-planes per cuFFT call of `conv_otf_` and `lmm_conv_otf` / `_t`
+SPAN_CONV_MAPS = "surfh.op.conv.maps"  # around each call of `lmm_conv_otf` / `_t`
 
 
 def conv_otf_(cube: torch.Tensor, otf: torch.Tensor, conj: bool = False,
@@ -446,7 +451,11 @@ def conv_otf_(cube: torch.Tensor, otf: torch.Tensor, conj: bool = False,
     """``idft(dft(cube) · otf)`` (or · conj(otf)) per λ-plane, IN PLACE on
     `cube` [L, Na, Nb], `chunk` planes at a time, so no whole-cube spectrum
     and no whole-cube FFT workspace are ever held; returns `cube`.  The
-    callers own `cube` (a temporary of the operator), hence in place."""
+    callers own `cube` (a temporary of the operator), hence in place.
+
+    The route of cube mode (no templates).  With templates the operator
+    convolves through :func:`lmm_conv_otf` / :func:`lmm_conv_otf_t`, which
+    mix the templates in the frequency domain instead."""
     im_shape = tuple(cube.shape[-2:])
     for i in range(0, cube.shape[0], chunk):
         o = otf[i : i + chunk]
@@ -464,6 +473,74 @@ def conv_otf(cube: torch.Tensor, otf: torch.Tensor) -> torch.Tensor:
     if cube.requires_grad and torch.is_grad_enabled():
         return convolve_freq(cube, otf, tuple(cube.shape[-2:]))
     return conv_otf_(cube, otf)
+
+
+def lmm_conv_otf(maps: torch.Tensor, tpl: torch.Tensor, otf: torch.Tensor,
+                 chunk: int = CONV_OTF_CHUNK) -> List[torch.Tensor]:
+    """C T: template maps [M, Na, Nb] → the blurred cube [L, Na, Nb],
+    ``idft(dft(T maps) · otf)`` with T the templates `tpl` [M, L] and `otf`
+    [L, Na, Nb//2+1], held as its consecutive chunks of `chunk` λ-planes
+    (:func:`cube_planes` cuts a λ-range out of them).
+
+    The DFT is linear and the templates are real, so
+    ``rfft2(Σ_m tpl[m, λ]·maps[m]) = Σ_m tpl[m, λ]·rfft2(maps[m])``: the M maps
+    are transformed once, and each chunk is mixed in the frequency domain
+    (one real GEMM over the interleaved real and imaginary parts),
+    multiplied by its OTF and transformed back.  The chunks are the inverse
+    transforms' own outputs: no plane is copied (cuFFT's ``out=`` would
+    add a pass).  The unitary pair's two 1/√(Na·Nb) are the mixing GEMM's
+    `alpha` around unscaled transforms: no scaling pass.  Where autograd
+    tracks `maps` the route is the out-of-place T then
+    :func:`convolve_freq`, one chunk."""
+    m, na, nb = maps.shape
+    if maps.requires_grad and torch.is_grad_enabled():
+        return [convolve_freq(lmm.lmm_maps2cube(maps, tpl), otf, (na, nb))]
+    with span(SPAN_CONV_MAPS):
+        spec_maps = torch.view_as_real(torch.fft.rfft2(maps)).reshape(m, -1)
+        chunks = []
+        for i in range(0, tpl.shape[1], chunk):
+            n = min(chunk, tpl.shape[1] - i)
+            spec = torch.empty((n, na, nb // 2 + 1, 2), device=maps.device, dtype=maps.dtype)
+            spec.view(n, -1).addmm_(tpl[:, i : i + n].T, spec_maps, beta=0, alpha=1.0 / (na * nb))
+            spec = torch.view_as_complex(spec).mul_(otf[i : i + n])
+            chunks.append(torch.fft.irfft2(spec, s=(na, nb), norm="forward"))
+    return chunks
+
+
+def cube_planes(chunks: List[torch.Tensor], start: int, stop: int) -> List[torch.Tensor]:
+    """λ-planes start..stop of a cube held as consecutive chunks
+    (:func:`lmm_conv_otf`): views of the chunks they lie in, in order."""
+    out, lo = [], 0
+    for c in chunks:
+        hi = lo + c.shape[0]
+        if lo < stop and start < hi:
+            out.append(c[max(start - lo, 0) : min(stop, hi) - lo])
+        lo = hi
+    return out
+
+
+def lmm_conv_otf_t(cube: torch.Tensor, tpl: torch.Tensor, otf: torch.Tensor,
+                   chunk: int = CONV_OTF_CHUNK) -> torch.Tensor:
+    """Tᵗ Cᴴ, the exact transpose of :func:`lmm_conv_otf`: cube [L, Na, Nb]
+    → maps [M, Na, Nb] (`cube` is read, not written).
+
+    The inverse real DFT is real-linear, so
+    ``Σ_λ tpl[m, λ]·irfft2(s_λ) = irfft2(Σ_λ tpl[m, λ]·s_λ)``: each chunk of
+    `chunk` λ-planes is transformed, multiplied by conj(otf) and mixed into
+    an [M, Na, Nb//2+1] spectrum (one real GEMM over the interleaved real
+    and imaginary parts, accumulating), and only the M maps are transformed
+    back.  The unitary pair's scale is the GEMMs' `alpha`, as in the
+    forward."""
+    n_lambda, na, nb = cube.shape
+    m = tpl.shape[0]
+    with span(SPAN_CONV_MAPS):
+        acc = torch.empty((m, na, nb // 2 + 1, 2), device=cube.device, dtype=cube.dtype)
+        for i in range(0, n_lambda, chunk):
+            n = min(chunk, n_lambda - i)
+            spec = torch.fft.rfft2(cube[i : i + n]).mul_(otf[i : i + n].conj())
+            acc.view(m, -1).addmm_(tpl[:, i : i + n], torch.view_as_real(spec).reshape(n, -1),
+                                   beta=0 if i == 0 else 1, alpha=1.0 / (na * nb))
+        return torch.fft.irfft2(torch.view_as_complex(acc), s=(na, nb), norm="forward")
 
 
 def ir2fr_device(imp_resp, shape: Tuple[int, int], device=None,

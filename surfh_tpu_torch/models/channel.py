@@ -512,10 +512,15 @@ class Channel:
     # blur is the dense GEMM against t["wq"] [K, sb·Q], or with `banded`
     # the banded kernel pair on t["band"] (W-plane mode only).  `plain=True`
     # runs every kernel's plain version instead (the comparison on the card).
-    def bbox_rows(self, planes: torch.Tensor) -> torch.Tensor:
-        """The FOV-bbox patch of λ-planes [W, Na, Nb], laid out pixel-major
-        for the gather: [ha·wb, W] (a copy)."""
+    def bbox_rows(self, planes) -> torch.Tensor:
+        """The FOV-bbox patch of λ-planes [W, Na, Nb], or of a list of
+        consecutive pieces of them (a cube held in chunks,
+        `fft.cube_planes`), laid out pixel-major for the gather: [ha·wb, W]
+        (a copy)."""
         a0, b0, ha, wb = self.tbbox
+        if not isinstance(planes, torch.Tensor):
+            return torch.cat([p[:, a0 : a0 + ha, b0 : b0 + wb].permute(1, 2, 0) for p in planes],
+                             dim=2).view(ha * wb, -1)
         patch = planes[:, a0 : a0 + ha, b0 : b0 + wb]
         # a bbox of whole planes would reshape to a strided view: force the copy
         return patch.permute(1, 2, 0).reshape(ha * wb, -1).contiguous()

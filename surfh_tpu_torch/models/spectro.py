@@ -20,15 +20,19 @@ Counterpart of `surfh_tpu/models/spectro.py::SpectroSigRLSCT`:
     it where `conv_freq_rtol` cuts nothing) — and `fft.lmm_conv_otf_rows`
     on Q = W planes;
   - window FFT (`conv_impl="fft"`, a materialized `sotf`): the window's
-    cube through `fft.conv_otf_`, its FOV bbox laid out as rows.
+    cube through `fft.lmm_conv_otf` / `_t` (templates) or `fft.conv_otf_`
+    (cube mode), its FOV bbox laid out as rows.
   Rank and dense channels mix in one model, as in the reference.
 * non-window-local with a materialized OTF `sotf` (reference `_forward_fn`
   / `_adjoint_fn_const`, the path of the CLI and the real-data pipeline):
-  T (`lmm`), the full-cube ``idft(dft(cube)·sotf)`` conv, then per channel
-  the λ-window's FOV-bbox patch laid out as ``[ha·wb, W]`` rows and the
-  same per-pointing chain on W λ-planes, with the spectral blur dense or
-  banded (`core.wblur_banded`); the adjoint scatter-adds the windows into
-  the cube, convolves with conj(sotf) and applies Tᵗ.
+  T (`lmm`) and the full-cube ``idft(dft(cube)·sotf)`` conv, then per
+  channel the λ-window's FOV-bbox patch laid out as ``[ha·wb, W]`` rows and
+  the same per-pointing chain on W λ-planes, with the spectral blur dense
+  or banded (`core.wblur_banded`); the adjoint scatter-adds the windows
+  into the cube, convolves with conj(sotf) and applies Tᵗ.  With templates
+  T is mixed into the conv in the frequency domain (`fft.lmm_conv_otf` /
+  `_t`: the M maps are transformed once, and each λ-plane once a
+  direction); cube mode convolves the cube in place (`fft.conv_otf_`).
 * cube mode (``templates=None``) in both: the input is the cube itself
   (window-local: each channel reads and adds into its λ-window).
 
@@ -43,7 +47,8 @@ Under `torch.profiler` the operator records host-lane spans
 (`utils.profiling.span`): ``surfh.op.normal`` around each `normal`, and
 ``surfh.op.band.<band>`` (the channel's instrument name, else its index)
 around each channel's part of the forward, the adjoint and the
-window-local normal.
+window-local normal; `fft.lmm_conv_otf` / `_t` record
+``surfh.op.conv.maps`` around each call.
 """
 
 from __future__ import annotations
@@ -594,9 +599,10 @@ class SpectroSigRLSCT:
             if self.lmm:
                 return fft.lmm_conv_otf_rows(x, self._tpl_w(c)[:, lo:hi], o_re, o_im, t["dftm"])
             return fft.conv_otf_matmul_rows(x[ws.start + lo : ws.start + hi], o_re, o_im, t["dftm"])
-        cube_w = (lmm.lmm_maps2cube(x, self._tpl_w(c)[:, lo:hi]) if self.lmm
-                  else x[ws.start + lo : ws.start + hi].clone())
-        return self.channels[c].bbox_rows(fft.conv_otf(cube_w, self._sotf_w(c, lo, hi)))
+        otf_w = self._sotf_w(c, lo, hi)
+        if self.lmm:
+            return self.channels[c].bbox_rows(fft.lmm_conv_otf(x, self._tpl_w(c)[:, lo:hi], otf_w))
+        return self.channels[c].bbox_rows(fft.conv_otf(x[ws.start + lo : ws.start + hi].clone(), otf_w))
 
     def _conv_t(self, rows, c, cols=None):
         """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the
@@ -613,8 +619,10 @@ class SpectroSigRLSCT:
         chan = self.channels[c]
         cube_w = torch.zeros((hi - lo,) + self.imshape, device=self.device, dtype=self.dtype)
         chan.add_bbox_rows_(cube_w, rows)
-        fft.conv_otf_(cube_w, self._sotf_w(c, lo, hi), conj=True)
-        return lmm.lmm_cube2maps(cube_w, self._tpl_w(c)[:, lo:hi]) if self.lmm else cube_w
+        otf_w = self._sotf_w(c, lo, hi)
+        if self.lmm:
+            return fft.lmm_conv_otf_t(cube_w, self._tpl_w(c)[:, lo:hi], otf_w)
+        return fft.conv_otf_(cube_w, otf_w, conj=True)
 
     def _sotf_w(self, c: int, lo: int, hi: int) -> torch.Tensor:
         """Planes lo..hi of channel c's λ-window OTF: its own table
@@ -751,23 +759,29 @@ class SpectroSigRLSCT:
             masks.append(global_img > threshold)
         return masks
 
-    def patch_rows(self, cube: torch.Tensor, c: int) -> torch.Tensor:
-        """Channel c's λ-window of the FOV-bbox patch of `cube`, laid out
-        pixel-major for the gather: [W, ha, wb] → [ha·wb, W] (a copy)."""
+    def patch_rows(self, cube, c: int) -> torch.Tensor:
+        """Channel c's λ-window of the FOV-bbox patch of `cube` (a tensor, or
+        the chunks of :meth:`blurred_cube`), laid out pixel-major for the
+        gather: [W, ha, wb] → [ha·wb, W] (a copy)."""
         ws = self.channels[c].wslice
-        return self.channels[c].bbox_rows(cube[ws.start : ws.stop])
+        if isinstance(cube, torch.Tensor):
+            return self.channels[c].bbox_rows(cube[ws.start : ws.stop])
+        return self.channels[c].bbox_rows(fft.cube_planes(cube, ws.start, ws.stop))
 
     def add_patch_rows_(self, cube: torch.Tensor, rows: torch.Tensor, c: int) -> None:
         """Transpose of :meth:`patch_rows`: add rows [ha·wb, W] into `cube`."""
         ws = self.channels[c].wslice
         self.channels[c].add_bbox_rows_(cube[ws.start : ws.stop], rows)
 
-    def blurred_cube(self, x) -> torch.Tensor:
-        """C T x: the templates' cube (the cube itself in cube mode)
-        convolved with the OTF (W-plane mode)."""
+    def blurred_cube(self, x) -> torch.Tensor | List[torch.Tensor]:
+        """C T x: the templates' cube convolved with the OTF (W-plane mode),
+        the templates mixed in the frequency domain and the cube held as its
+        λ-chunks (`fft.lmm_conv_otf`); in cube mode the cube itself
+        convolved, one tensor (`fft.conv_otf`)."""
         x = self._x(x)
-        cube = lmm.lmm_maps2cube(x, self.tables["templates"]) if self.lmm else x.clone()
-        return fft.conv_otf(cube, self.tables["sotf"])
+        if self.lmm:
+            return fft.lmm_conv_otf(x, self.tables["templates"], self.tables["sotf"])
+        return fft.conv_otf(x.clone(), self.tables["sotf"])
 
     def forward(self, x, plain: bool = False) -> torch.Tensor:
         """Template maps [M, Na, Nb] (the cube in cube mode) → flat data
@@ -822,8 +836,9 @@ class SpectroSigRLSCT:
                 yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
                 self.add_patch_rows_(cube, chan.adjoint_rows(yc, self.tables["chan"][c], plain, banded),
                                      c)
-        fft.conv_otf_(cube, self.tables["sotf"], conj=True)
-        return lmm.lmm_cube2maps(cube, self.tables["templates"]) if self.lmm else cube
+        if self.lmm:
+            return fft.lmm_conv_otf_t(cube, self.tables["templates"], self.tables["sotf"])
+        return fft.conv_otf_(cube, self.tables["sotf"], conj=True)
 
     def normal(self, x, plain: bool = False) -> torch.Tensor:
         """HᵗH x.  Window-local mode fuses fwd∘adj per channel without

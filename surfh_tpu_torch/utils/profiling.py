@@ -90,7 +90,8 @@ def span(name: str):
 
     The program's names start with ``surfh.``: ``surfh.solver.solve``,
     ``.iter`` and ``.host_read`` in `solvers/cg.py`, ``surfh.op.normal``
-    and ``surfh.op.band.<band>`` in `models/spectro.py`."""
+    and ``surfh.op.band.<band>`` in `models/spectro.py`,
+    ``surfh.op.conv.maps`` in `core/fft.py`."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch._C._profiler._RecordFunctionFast(name)

@@ -9,6 +9,9 @@ none (``python -m pytest --noconftest tests/test_torch_spans.py -m cuda``).
   the exact count of every span, their nesting, and the same iterates as
   without the profiler.
 * Without a profiler `span` is one shared no-op and makes no range.
+* ``surfh.op.conv.maps`` (the templates mixed into the FFT conv) twice a
+  normal on the W-plane model with templates, never in cube mode nor on
+  the window-local λ-rank model.
 * No span name falls in a class of the benchmark's device kernels.
 * `profiling.trace()` writes the spans into its Chrome trace.
 * `device_busy_us` counts overlapping device intervals once and skips the
@@ -26,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from benchmark.bench.yardstick import kernel_class
 from surfh_tpu_torch.models.spectro import _band_span
-from surfh_tpu_torch.simulation.synthetic import make_model
+from surfh_tpu_torch.simulation.synthetic import make_model, make_setup
 from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
 from surfh_tpu_torch.utils import profiling
 
@@ -35,7 +38,7 @@ N_ITER = 3
 MODES = {"wplane": dict(window_local=False), "wlocal": dict(window_local=True, conv_impl="matmul")}
 CASES = [(m, s, loop) for m in MODES for s in ("lcg", "mmmg") for loop in ("graph", "dispatch")]
 SOLVE, ITER, READ = "surfh.solver.solve", "surfh.solver.iter", "surfh.solver.host_read"
-NORMAL, BAND = "surfh.op.normal", "surfh.op.band."
+NORMAL, BAND, CONV = "surfh.op.normal", "surfh.op.band.", "surfh.op.conv.maps"
 
 
 @pytest.fixture(scope="module")
@@ -80,12 +83,16 @@ def test_spans_count_and_nest(crits, mode, method, loop):
     per_normal = 2 if mode == "wplane" else 1
     want = {SOLVE: 1, ITER: N_ITER, READ: reads, NORMAL: normals}
     want.update({name: normals * per_normal for name in crit.model._band_spans})
+    if mode == "wplane":  # the templates' conv: once in the forward, once in the adjoint
+        want[CONV] = 2 * normals
     assert len(crit.model._band_spans) == n_bands
     assert Counter(n for n, _, _ in spans) == want
     by = {k: [h for h in spans if h[0] == k] for k in (SOLVE, ITER, READ, NORMAL)}
     solve = by[SOLVE]
     assert all(_inside(h, solve) for h in spans if h[0] != SOLVE)
-    assert all(_inside(h, by[NORMAL]) for h in spans if h[0].startswith(BAND))
+    assert all(_inside(h, by[NORMAL]) for h in spans if h[0].startswith(BAND) or h[0] == CONV)
+    bands = [h for h in spans if h[0].startswith(BAND)]
+    assert not any(_inside(h, bands) for h in spans if h[0] == CONV)
     # a step's normal inside its iteration; the first normal before the first iteration
     assert sum(_inside(h, by[ITER]) for h in by[NORMAL]) == N_ITER
     # host-lane ranges: none is a user annotation (which the profiler mirrors on the card's lane)
@@ -118,8 +125,30 @@ def test_span_without_a_profiler_is_one_shared_noop(crits, monkeypatch):
             profiling.span(ITER)
 
 
+def _normal_spans(model, n=2):
+    x = torch.ones(model.ishape, dtype=torch.float64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            model.normal(x)
+    return Counter(e.name for e in prof.events() if e.name.startswith("surfh."))
+
+
+def test_conv_maps_span_twice_a_normal_with_templates_only(crits):
+    assert _normal_spans(crits["wplane"].model)[CONV] == 4
+    cube = make_model(setup=dict(make_setup(**KW), templates=None), dtype=np.float64,
+                      window_local=False)[0].to("cpu", torch.float64)
+    assert not cube.lmm
+    rank = make_model(**dict(KW, n_lambda=120, n_tpl=2), dtype=np.float64, window_local=True,
+                      psf_stamps=True, conv_impl="matmul", conv_freq_rtol=1e-6,
+                      conv_rank_rtol=1e-7)[0].to("cpu", torch.float64)
+    assert all(rank._rank_band(c) for c in range(len(rank.channels)))
+    for model in (cube, rank):
+        counts = _normal_spans(model)
+        assert counts[NORMAL] == 2 and CONV not in counts
+
+
 def test_span_names_fall_in_no_kernel_class(crits):
-    names = {SOLVE, ITER, READ, NORMAL}
+    names = {SOLVE, ITER, READ, NORMAL, CONV}
     for crit in crits.values():
         names.update(crit.model._band_spans)
     for name in names:
