@@ -1,6 +1,7 @@
 """The comparison that decides `correct`: the answers the window kept
 against the plain reference (`reference.operator`), worked out again from
-the configuration and the run's seed, on the device in float64.
+the configuration and the run's seed, on the device in float64, as the
+traffic's kind answers (``kinds/<kind>.py``).
 
 A cell compares the numbers its limits file names, each the worst over
 the answers kept: the relative L2 gap ‖a − r‖ / ‖r‖ (``*_rel_l2``) and the
@@ -12,19 +13,14 @@ from __future__ import annotations
 
 import torch
 
-from ..reference.operator import Reference, cg_solve
+from .spec import BENCH, kind
 
-def reference_answer(config: dict, traffic: dict, maps, device):
-    """What every kept answer of this cell should be, from the float64 reference."""
-    ref = Reference(config, device, torch.float64)
-    x = torch.as_tensor(maps).to(device, torch.float64)
-    if traffic["kind"] == "cg_solve":
-        crit = config["criterion"]
-        return cg_solve(ref, ref.forward(x), crit["mu_spectro"], crit["mu_reg"], traffic["value_init"],
-                        int(traffic["maximum_iterations"]))
-    if traffic["kind"] == "normal_chain":
-        return ref.normal(x)
-    raise ValueError(f"unknown traffic kind {traffic['kind']!r}")
+
+def reference_answer(config: dict, traffic: dict, x, device, bench_dir=BENCH):
+    """What every kept answer of this cell should be, from the float64
+    reference: the `reference` of the traffic's kind (``kinds/<kind>.py``)
+    on the run's unknown `x`."""
+    return kind(traffic["kind"], bench_dir).reference(config, traffic, torch.as_tensor(x), device)
 
 
 def gaps(answer, ref) -> dict:

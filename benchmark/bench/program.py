@@ -5,7 +5,11 @@ blocks, on the device, with its host tables from the table cache.
 The program's own set-up (`simulation.flagship.make_flagship_setup`)
 draws the operator's fixed inputs; they are held against the benchmark's
 own (`reference.instrument.problem_inputs`) and must agree exactly, so
-both sides run the same problem.  The sky maps come from the run's seed.
+both sides run the same problem.  The `problem` block's ``unknown`` says
+what the model takes: "maps" (the default), the template maps, or "cube",
+the hyperspectral cube itself (the flagship model built from the same
+set-up with no templates, as a user builds the cube-mode flagship).  The
+unknown comes from the run's seed.
 """
 
 from __future__ import annotations
@@ -40,10 +44,13 @@ class Stages:
 
 
 def _check_inputs(setup: dict, problem: dict) -> None:
-    """The program's inputs are the configuration's: raise where they differ."""
+    """The program's inputs are the configuration's: raise where they differ
+    (the templates only where the unknown is the maps)."""
     ours = instrument.problem_inputs(problem)
-    pairs = [("templates", "templates"), ("psf_stack", "stamps"), ("wavelength_axis", "wavel"),
-             ("alpha_axis", "alpha"), ("beta_axis", "beta")]
+    pairs = [("psf_stack", "stamps"), ("wavelength_axis", "wavel"), ("alpha_axis", "alpha"),
+             ("beta_axis", "beta")]
+    if ours["unknown"] == "maps":
+        pairs.insert(0, ("templates", "templates"))
     for theirs, mine in pairs:
         a, b = np.asarray(setup[theirs]), ours[mine]
         if a.shape != b.shape or not np.array_equal(a, b):
@@ -62,6 +69,10 @@ def build(config: dict, device, stages: Stages):
 
     prob, mdl = config["problem"], dict(config["model"])
     window_local = bool(mdl.pop("window_local"))
+    cube = instrument.unknown(prob) == "cube"
+    if cube and window_local:
+        raise ValueError("a cube-unknown window-local configuration: the benchmark builds the cube "
+                         "unknown on the W-plane model only")
 
     def setup():
         s = make_flagship_setup(npix=prob["npix"], bands=list(prob["bands"]),
@@ -74,25 +85,27 @@ def build(config: dict, device, stages: Stages):
     s = stages("problem set-up" + ("" if window_local else " and OTF on the device"), setup)
     channels = None
     if "channels_from" in config:
-        # the band geometry, response and gather plans of the cached model of `channels_from`
+        # the band geometry, response and gather plans of the cached model of `channels_from`,
+        # built with the templates whatever the unknown: its table cache is the maps models'
         src, _ = stages("channels from the table cache", make_flagship_model, s, dtype=np.float32,
                         workers=WORKERS, **config["channels_from"])
         stages.log(f"set-up channels: table cache {'hit' if src.table_cache_hit else 'miss'}")
         channels = src.channels
-    model, _ = stages("host tables", make_flagship_model, s, dtype=np.float32,
-                      window_local=window_local, workers=WORKERS, channels=channels, **mdl)
+    model, _ = stages("host tables", make_flagship_model, dict(s, templates=None) if cube else s,
+                      dtype=np.float32, window_local=window_local, workers=WORKERS, channels=channels,
+                      **mdl)
     stages.log(f"set-up host tables: table cache "
                f"{'off' if model.table_cache_path() is None else ('hit' if model.table_cache_hit else 'miss')}")
     stages("upload", model.to, device, torch.float32)
     return model
 
 
-def seed_maps(config: dict, seed: int, device):
-    """The sky maps [M, N, N] of a run, uniform in [0, 1), from `seed`."""
+def seed_unknown(config: dict, seed: int, device):
+    """The unknown of a run, uniform in [0, 1), from `seed`: the sky maps
+    [M, N, N], or the cube [L, N, N] where the problem's unknown is "cube"."""
     import torch
 
-    prob = config["problem"]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    return torch.rand((prob["n_tpl"], prob["npix"], prob["npix"]), generator=gen, device=device,
+    return torch.rand(instrument.x_shape(config["problem"]), generator=gen, device=device,
                       dtype=torch.float32)

@@ -2,8 +2,22 @@
 
 A configuration is ``configs/<name>.json`` (the path `BENCHMARK.json`
 gives), a traffic mix ``traffic/<name>.json``, the limits of a cell's
-comparison ``limits/<workload>.json``, and a per-layer metric's reader
-``metrics/<name>.py`` (a module with ``read(trace) -> float | None``).
+comparison ``limits/<workload>.json``, a per-layer metric's reader
+``metrics/<name>.py`` (a module with ``read(trace) -> float | None``), and
+the traffic kind that a mix's ``"kind"`` names ``kinds/<kind>.py``, a
+module with
+
+* ``WORK(model, x, config, traffic, stages, seed)``: the units the window
+  runs (``unit(index)``, ``units()``, ``sample``, ``free()``,
+  ``unit_name``), from the program's model and the run's unknown `x`;
+* ``ANSWER``: the letter of its answer in the limits' names (``x_rel_l2``);
+* ``answer(op, x, config, traffic)``: what a kept answer should be, with
+  the operator `op` (the plain reference, or a control in its place);
+* ``reference(config, traffic, x, device)``: the answer of the float64
+  plain reference;
+* ``start(x, traffic)``: the unit's input state (the control's fault of a
+  unit that returns its state unchanged).
+
 Adding one is adding its file and its entry: nothing here changes.
 """
 
@@ -55,10 +69,21 @@ def cell(workload: str, bench: dict = None, root: Path = ROOT, bench_dir: Path =
     }
 
 
-def metric_reader(name: str, bench_dir: Path = BENCH):
-    """The `read` function of ``metrics/<name>.py``."""
-    path = bench_dir / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", path)
+def _load(path: Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str, bench_dir: Path = BENCH):
+    """The `read` function of ``metrics/<name>.py``."""
+    return _load(bench_dir / "metrics" / f"{name}.py", f"bench_metric_{name.replace('.', '_')}").read
+
+
+def kind(name: str, bench_dir: Path = BENCH):
+    """The module ``kinds/<name>.py`` of a traffic kind; raises where there is none."""
+    path = bench_dir / "kinds" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no traffic kind {name!r}: {path} does not exist")
+    return _load(path, f"bench_kind_{name.replace('.', '_')}")

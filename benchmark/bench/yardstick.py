@@ -85,7 +85,7 @@ def work_counts(config: dict) -> dict:
     pointing): ``gather_bytes``, the bytes the row gathers need (each output
     row written once, each source row of the band's footprint read once, Q
     columns of 4 bytes, Q the planes the configuration convolves: M·R for a
-    λ-rank band, else its λ window W), and, for a banded blur,
+    λ-rank band of a maps unknown, else its λ window W), and, for a banded blur,
     ``blur_seconds``, the least time of its products (per product the
     larger of 2 × the response's support at ``wblur_band_rtol`` × β × rows
     over the FP32 rate, and its windows, rows and support over the memory
@@ -94,7 +94,7 @@ def work_counts(config: dict) -> dict:
 
     model = config["model"]
     inp = instrument.problem_inputs(config["problem"])
-    n_tpl = inp["templates"].shape[0]
+    n_tpl = inp["x_shape"][0] if inp["unknown"] == "maps" else None  # a cube has no rank gate
     beta_step = inp["beta"][1] - inp["beta"][0]
     rank_rtol = float(model.get("conv_rank_rtol", 0.0)) if model.get("window_local") else 0.0
     banded = model.get("wblur_impl", "dense") == "banded"
@@ -102,7 +102,7 @@ def work_counts(config: dict) -> dict:
     for name in inp["bands"]:
         g = instrument.band_geometry(name, inp)
         q = g.n_w
-        if rank_rtol > 0:
+        if rank_rtol > 0 and n_tpl is not None:
             r = instrument.stamp_rank(inp["stamps"][g.wslice], rank_rtol)[0]
             if n_tpl * r < g.n_w // 2:
                 q = n_tpl * r

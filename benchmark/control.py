@@ -37,7 +37,7 @@ class HalfBands:
 
     def __init__(self, ref):
         self.ref = ref
-        self.maps_shape, self.dtype, self.device = ref.maps_shape, ref.dtype, ref.device
+        self.x_shape, self.dtype, self.device = ref.x_shape, ref.dtype, ref.device
 
     def forward(self, x):
         return [2 * y if c % 2 == 0 else 0 * y for c, y in enumerate(self.ref.forward(x))]
@@ -53,12 +53,13 @@ def readings(cell: dict, seed: int, device) -> list:
     import torch
 
     from benchmark.bench import check, program
-    from benchmark.reference.operator import Reference, cg_solve
+    from benchmark.bench.spec import kind as load_kind
+    from benchmark.reference.operator import Reference
 
     config, traffic = cell["config"], cell["traffic"]
-    maps = program.seed_maps(config, seed, device).to(torch.float64)
-    kind = traffic["kind"]
-    prefix = "x" if kind == "cg_solve" else "g"
+    x = program.seed_unknown(config, seed, device).to(torch.float64)
+    kind = load_kind(traffic["kind"], cell["bench_dir"])
+    prefix = kind.ANSWER
     out = []
 
     def add(name, answer, ref, t0):
@@ -67,11 +68,7 @@ def readings(cell: dict, seed: int, device) -> list:
                     f"{prefix}_max_abs": g["max_abs"], "seconds": time.perf_counter() - t0})
 
     def solve(op):
-        if kind == "cg_solve":
-            crit = config["criterion"]
-            return cg_solve(op, op.forward(maps), crit["mu_spectro"], crit["mu_reg"],
-                            traffic["value_init"], int(traffic["maximum_iterations"]))
-        return op.normal(maps)
+        return kind.answer(op, x, config, traffic)
 
     t0 = time.perf_counter()
     ref64 = Reference(config, device, torch.float64)
@@ -81,8 +78,7 @@ def readings(cell: dict, seed: int, device) -> list:
     add("half_bands", solve(HalfBands(ref64)), ref, t0)
     del ref64
     t0 = time.perf_counter()
-    start = torch.full_like(ref, float(traffic["value_init"])) if kind == "cg_solve" else maps
-    add("unchanged", start, ref, t0)
+    add("unchanged", kind.start(x, traffic), ref, t0)
     altered = ref.clone().reshape(-1)
     altered[random.Random(seed).randrange(altered.numel())] += ref.abs().max()
     add("altered", altered.view_as(ref), ref, t0)

@@ -73,17 +73,40 @@ def gaussian_stamps(wavel: np.ndarray, step_arcsec: float, size: int = 40) -> np
     return out / out.sum(axis=(1, 2), keepdims=True)
 
 
+def unknown(problem: dict) -> str:
+    """The configuration's unknown: "maps" (the default: the M template
+    maps, the cube their mix) or "cube" (the cube itself; the templates are
+    drawn all the same, as the set-up's seed stream has them)."""
+    u = problem.get("unknown", "maps")
+    if u not in ("maps", "cube"):
+        raise ValueError(f"unknown {u!r}: the unknown is \"maps\" or \"cube\"")
+    return u
+
+
+def wavelength_axis(problem: dict) -> np.ndarray:
+    """The global λ axis: the bands' detector tables united and sorted,
+    every `lambda_subsample`-th sample."""
+    wavel = np.sort(np.concatenate([detector_axis(b) for b in problem["bands"]]))
+    return wavel[:: int(problem["lambda_subsample"])].copy()
+
+
+def x_shape(problem: dict) -> tuple:
+    """The unknown's shape: [M, N, N] maps or the [L, N, N] cube."""
+    n = int(problem["npix"])
+    return (int(problem["n_tpl"]) if unknown(problem) == "maps" else len(wavelength_axis(problem)), n, n)
+
+
 def problem_inputs(problem: dict) -> dict:
     """The operator's fixed inputs from the configuration's `problem` block:
     the global λ axis, templates [M, L], PSF stamps [L, s, s] (float32), the
-    sky axes (degrees), the step and the pointings (degrees, on the grid)."""
+    sky axes (degrees), the step, the pointings (degrees, on the grid), and
+    the unknown (:func:`unknown`) and its shape (:func:`x_shape`)."""
     bands = list(problem["bands"])
     npix = int(problem["npix"])
     step_arcsec = float(problem["step_arcsec"])
     step = step_arcsec / 3600.0
     rng = np.random.default_rng(int(problem["setup_seed"]))
-    wavel = np.sort(np.concatenate([detector_axis(b) for b in bands]))
-    wavel = wavel[:: int(problem["lambda_subsample"])].copy()
+    wavel = wavelength_axis(problem)
     lam01 = (wavel - wavel[0]) / (wavel[-1] - wavel[0])
     n_tpl = int(problem["n_tpl"])
     templates = np.empty((n_tpl, len(wavel)))
@@ -98,7 +121,8 @@ def problem_inputs(problem: dict) -> dict:
     dither = tables()["dither"][: int(problem["n_pointings"])] / 3600.0
     pointings = np.round(dither / step) * step
     return dict(wavel=wavel, templates=templates, stamps=stamps, alpha=axis, beta=axis.copy(),
-                step=step, pointings=pointings, bands=bands)
+                step=step, pointings=pointings, bands=bands, unknown=unknown(problem),
+                x_shape=x_shape(problem))
 
 
 def _local_axis(width: float, margin: float, s: float) -> np.ndarray:

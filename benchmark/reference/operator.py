@@ -2,12 +2,14 @@
 its transpose, and the regularised CG solve, in plain PyTorch.
 
 Per band c and pointing p: the templates mix the maps into the band's λ
-window (T), each plane is circularly convolved with its PSF stamp over the
-whole sky grid (C, the OTF taken from the stamp as an FFT of the stamp
-centred at the origin; where a window-local configuration truncates the
-conv, the band's stamps are first cut to their λ rank at
-``conv_rank_rtol`` and the OTF to its frequency support at
-``conv_freq_rtol``, as the configuration states), the convolved planes are interpolated bilinearly
+window (T; where the configuration's unknown is the cube, T is the
+identity and the band reads its λ window of the cube), each plane is
+circularly convolved with its PSF stamp over the whole sky grid (C, the
+OTF taken from the stamp as an FFT of the stamp centred at the origin;
+where a window-local configuration truncates the conv, the band's stamps
+are first cut to their λ rank at ``conv_rank_rtol`` and the OTF to its
+frequency support at ``conv_freq_rtol``, as the configuration states),
+the convolved planes are interpolated bilinearly
 at the rotated local-grid samples of the slit windows (L), each window
 sums `srf` oversampled α rows and weights its β columns (S), and the
 spectral response contracts (λ, β) into detector λ' (R, dense, or masked
@@ -58,9 +60,10 @@ class Reference:
         inp = instrument.problem_inputs(config["problem"])
         self.inputs = inp
         self.n = len(inp["alpha"])
-        n = self.n
-        self.tpl = self._t(inp["templates"])
-        self.maps_shape = (inp["templates"].shape[0], n, n)
+        self.x_shape = inp["x_shape"]
+        if inp["unknown"] == "cube" and config["model"].get("window_local"):
+            raise ValueError("the reference's cube unknown is of the W-plane model only")
+        self.tpl = self._t(inp["templates"]) if inp["unknown"] == "maps" else None  # None: T = I
         banded = config["model"].get("wblur_impl", "dense") == "banded"
         rtol = float(config["model"].get("wblur_band_rtol", 0.0))
         beta_step = inp["beta"][1] - inp["beta"][0]
@@ -121,7 +124,7 @@ class Reference:
         approx = st
         if rank_rtol > 0:
             r, us, vt = instrument.stamp_rank(st, rank_rtol)
-            if self.maps_shape[0] * r < len(st) // 2:
+            if self.x_shape[0] * r < len(st) // 2:
                 approx = (us[:, :r] @ vt[:r]).reshape(st.shape)
         otf = self._otf(approx)
         if freq_rtol > 0:
@@ -142,13 +145,21 @@ class Reference:
 
     # ------------------------------------------------------------------
     def forward(self, x: torch.Tensor) -> list:
-        """Maps [M, N, N] → per band the detector blocks [P, S, K, A]."""
+        """Maps [M, N, N] (the cube [L, N, N]) → per band the detector
+        blocks [P, S, K, A]."""
         x = x.to(self.device, self.dtype)
-        xs, tpl = self._mm(x, self.tpl)
-        xhat = torch.fft.rfft2(xs, norm="ortho")
-        return [self._forward_band(xhat, tpl, b, b["wpsf"]) for b in self.bands]
+        if self.tpl is None:  # each block of λ planes transformed as it is read
+            def spectrum(l0, l1):
+                return torch.fft.rfft2(x[l0:l1], norm="ortho")
+        else:
+            xs, tpl = self._mm(x, self.tpl)
+            xhat = torch.fft.rfft2(xs, norm="ortho")
 
-    def _forward_band(self, xhat, tpl, b, wpsf) -> torch.Tensor:
+            def spectrum(l0, l1):
+                return torch.einsum("ml,mab->lab", tpl[:, l0:l1].to(self.cdtype), xhat)
+        return [self._forward_band(spectrum, b, b["wpsf"]) for b in self.bands]
+
+    def _forward_band(self, spectrum, b, wpsf) -> torch.Tensor:
         g = b["geom"]
         n = self.n
         P = b["idx"].shape[0]
@@ -157,7 +168,7 @@ class Reference:
         for l0 in range(b["w0"], b["w1"], PLANES):
             l1 = min(l0 + PLANES, b["w1"])
             o = b["otf"][l0 - b["w0"] : l1 - b["w0"]]
-            spec = torch.einsum("ml,mab->lab", tpl[:, l0:l1].to(self.cdtype), xhat) * o
+            spec = spectrum(l0, l1) * o
             planes = torch.fft.irfft2(spec, s=(n, n), norm="ortho").reshape(l1 - l0, n * n)
             vals = planes[:, b["idx"].reshape(-1)].view(l1 - l0, P, 4, -1)
             loc = (vals * b["wts"]).sum(2).view(l1 - l0, P, S, A, srf, sb)
@@ -168,16 +179,27 @@ class Reference:
         return y
 
     def adjoint(self, ys: list, wpsf_key: str = "wpsf_t") -> torch.Tensor:
-        """Per band detector blocks → maps [M, N, N] (the transpose of
-        :meth:`forward`, the transpose's mask where the blur is banded)."""
+        """Per band detector blocks → maps [M, N, N] (the cube [L, N, N];
+        the transpose of :meth:`forward`, the transpose's mask where the
+        blur is banded)."""
         n = self.n
-        (tpl,) = self._mm(self.tpl)
-        acc = torch.zeros(self.maps_shape[:1] + (n, n // 2 + 1), dtype=self.cdtype, device=self.device)
-        for b, y in zip(self.bands, ys):
-            self._adjoint_band(acc, tpl, b, y.to(self.device, self.dtype), b[wpsf_key])
-        return torch.fft.irfft2(acc, s=(n, n), norm="ortho")
+        if self.tpl is None:  # each block's planes added into the cube: the bands' windows overlap
+            acc = torch.zeros(self.x_shape, dtype=self.dtype, device=self.device)
 
-    def _adjoint_band(self, acc, tpl, b, y, wpsf) -> None:
+            def add(l0, l1, spec):
+                acc[l0:l1] += torch.fft.irfft2(spec, s=(n, n), norm="ortho")
+        else:
+            (tpl,) = self._mm(self.tpl)
+            acc = torch.zeros(self.x_shape[:1] + (n, n // 2 + 1), dtype=self.cdtype, device=self.device)
+
+            def add(l0, l1, spec):
+                t, spec = self._mm(tpl[:, l0:l1].to(self.cdtype), spec)
+                acc.add_(torch.einsum("ml,lab->mab", t, spec))
+        for b, y in zip(self.bands, ys):
+            self._adjoint_band(add, b, y.to(self.device, self.dtype), b[wpsf_key])
+        return acc if self.tpl is None else torch.fft.irfft2(acc, s=(n, n), norm="ortho")
+
+    def _adjoint_band(self, add, b, y, wpsf) -> None:
         g = b["geom"]
         n = self.n
         P = b["idx"].shape[0]
@@ -191,9 +213,7 @@ class Reference:
             planes = torch.zeros((l1 - l0, n * n), dtype=self.dtype, device=self.device)
             planes.index_add_(1, b["idx"].reshape(-1), vals)
             o = b["otf"][l0 - b["w0"] : l1 - b["w0"]]
-            spec = torch.fft.rfft2(planes.view(l1 - l0, n, n), norm="ortho") * o.conj()
-            t, spec = self._mm(tpl[:, l0:l1].to(self.cdtype), spec)
-            acc += torch.einsum("ml,lab->mab", t, spec)
+            add(l0, l1, torch.fft.rfft2(planes.view(l1 - l0, n, n), norm="ortho") * o.conj())
 
     def normal(self, x: torch.Tensor) -> torch.Tensor:
         return self.adjoint(self.forward(x))
@@ -201,27 +221,41 @@ class Reference:
 
 def dtd(x: torch.Tensor) -> torch.Tensor:
     """The circular 2-D Laplacian of each map: (D_rᵀD_r + D_cᵀD_c) x."""
-    return (4 * x - torch.roll(x, 1, 1) - torch.roll(x, -1, 1)
-            - torch.roll(x, 1, 2) - torch.roll(x, -1, 2))
+    out = 4 * x
+    for shift, dim in ((1, 1), (-1, 1), (1, 2), (-1, 2)):
+        out -= torch.roll(x, shift, dim)
+    return out
 
 
 def cg_solve(ref: Reference, y: list, mu_s: float, mu_r: float, x0: float, n_iter: int) -> torch.Tensor:
     """`n_iter` plain CG iterations on (µ_s HᵗH + µ_r DᵀD) x = µ_s Hᵗy from
-    the constant `x0`: the iterate after the last."""
+    the constant `x0`: the iterate after the last.  The vectors are updated
+    in place, each operation as written out (x ← x + αp, r ← r − αq,
+    p ← r + βp), so that few of the unknown's size are held at once and the
+    12-band cube's solve in float64 fits one 80 GB card beside the stored
+    OTFs."""
     def q(v):
-        return mu_s * ref.normal(v) + mu_r * dtd(v)
+        out = ref.normal(v)
+        out *= mu_s
+        d = dtd(v)
+        d *= mu_r
+        out += d
+        return out
 
-    b = mu_s * ref.adjoint(y)
-    x = torch.full(ref.maps_shape, float(x0), dtype=ref.dtype, device=ref.device)
-    r = b - q(x)
-    p = r
+    r = ref.adjoint(y)
+    r *= mu_s  # b = µ_s Hᵗy
+    x = torch.full(ref.x_shape, float(x0), dtype=ref.dtype, device=ref.device)
+    r -= q(x)
+    p = r.clone()
     rr = torch.sum(r * r)
     for _ in range(n_iter):
         qp = q(p)
         alpha = rr / torch.sum(p * qp)
-        x = x + alpha * p
-        r = r - alpha * qp
+        x += alpha * p
+        r -= alpha * qp
+        del qp
         rr_new = torch.sum(r * r)
-        p = r + (rr_new / rr) * p
+        p *= rr_new / rr
+        p += r
         rr = rr_new
     return x

@@ -106,9 +106,9 @@ def run_cell(args, device, cell: dict, capture=None, clock=process_age_s) -> dic
     config, traffic = cell["config"], cell["traffic"]
     stages = program.Stages(log)
     model = program.build(config, device, stages)
-    maps = program.seed_maps(config, args.seed, device)
-    kw = {"capture": capture} if capture is not None and traffic["kind"] == "normal_chain" else {}
-    work = traffic_mod.make(model, maps, config, traffic, stages, args.seed, **kw)
+    x = program.seed_unknown(config, args.seed, device)
+    kw = {"capture": capture} if capture is not None else {}
+    work = traffic_mod.make(model, x, config, traffic, stages, args.seed, cell["bench_dir"], **kw)
     setup_s = clock()
     log(f"set-up {setup_s:.3f} s; window of {args.seconds} s ({traffic['kind']})")
 
@@ -152,14 +152,14 @@ def run_cell(args, device, cell: dict, capture=None, clock=process_age_s) -> dic
             result_metrics[m["name"]] = {"value": end_to_end(m["name"], run), "unit": m["unit"]}
 
     answers = work.sample.answers()
-    maps_host = maps.detach().to("cpu", copy=True)
+    x_host = x.detach().to("cpu", copy=True)
     work.free()
-    del work, model, maps
+    del work, model, x
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = check.reference_answer(config, traffic, maps_host, device)
+    ref = check.reference_answer(config, traffic, x_host, device, cell["bench_dir"])
     numbers = check.compare(answers, ref, cell["limits"])
     log(f"reference: {time.perf_counter() - t_ref:.3f} s, {len(answers)} answers "
         f"(units {[i for i, _ in answers]})")

@@ -1,5 +1,6 @@
 """BENCHMARK.json against the contract's form, and the harness's discovery
-of configurations, traffic mixes, limits and metric readers by name."""
+of configurations, traffic mixes, traffic kinds, limits and metric readers
+by name."""
 
 import json
 import re
@@ -8,7 +9,9 @@ from pathlib import Path
 
 import pytest
 
-from benchmark.bench import spec
+import torch
+
+from benchmark.bench import check, spec, traffic
 
 ROOT = Path(__file__).resolve().parents[2]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -65,7 +68,7 @@ def test_every_cell_is_whole(bench):
         for m in cell["per_layer"]:
             assert m["moves"] in e2e and m["moves"] in reported, (w["name"], m["name"])
             assert callable(spec.metric_reader(m["name"]))
-        prefix = "x" if cell["traffic"]["kind"] == "cg_solve" else "g"
+        prefix = spec.kind(cell["traffic"]["kind"]).ANSWER
         assert cell["limits"] and set(cell["limits"]) <= {f"{prefix}_rel_l2", f"{prefix}_max_abs"}
 
 
@@ -92,3 +95,33 @@ def test_added_files_are_found_without_an_edit(tmp_path, bench):
     assert cell["traffic"]["maximum_iterations"] == 7
     assert [m["name"] for m in cell["per_layer"]][-1] == "new.metric"
     assert spec.metric_reader("new.metric", bd)(None) == 42.0
+
+
+KIND = """ANSWER = "z"
+
+
+class Work:
+    def __init__(self, model, x, config, traffic, stages, seed):
+        self.args = (model, x, config, traffic, stages, seed)
+
+
+WORK = Work
+
+
+def reference(config, traffic, x, device):
+    return 2 * x
+"""
+
+
+def test_a_kind_is_found_by_its_name(tmp_path):
+    (tmp_path / "kinds").mkdir()
+    (tmp_path / "kinds" / "new_kind.py").write_text(KIND)
+    assert spec.kind("new_kind", tmp_path).ANSWER == "z"
+    mix = {"kind": "new_kind"}
+    work = traffic.make("model", "x", {}, mix, None, 7, tmp_path, capture=print)  # a kwarg it does not take
+    assert work.args == ("model", "x", {}, mix, None, 7)
+    assert torch.equal(check.reference_answer({}, mix, torch.ones(2), "cpu", tmp_path), torch.full((2,), 2.0))
+    with pytest.raises(FileNotFoundError, match=re.escape(str(tmp_path / "kinds" / "no_such_kind.py"))):
+        spec.kind("no_such_kind", tmp_path)
+    with pytest.raises(FileNotFoundError, match="no_such_kind"):
+        traffic.make(None, None, {}, {"kind": "no_such_kind"}, None, 7, tmp_path)
