@@ -48,7 +48,9 @@ Under `torch.profiler` the operator records host-lane spans
 ``surfh.op.band.<band>`` (the channel's instrument name, else its index)
 around each channel's part of the forward, the adjoint and the
 window-local normal; `fft.lmm_conv_otf` / `_t` record
-``surfh.op.conv.maps`` around each call.
+``surfh.op.conv.maps`` around each call, and cube mode records
+``surfh.op.conv.cube`` around each call of its conv (`fft.conv_otf` /
+`conv_otf_`: twice a W-plane normal, per band on the window-FFT route).
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ from .channel import Channel, gather_device_tables
 
 TABLE_CACHE_VERSION = 1
 SPAN_NORMAL, SPAN_BAND = "surfh.op.normal", "surfh.op.band."
+SPAN_CONV_CUBE = "surfh.op.conv.cube"  # around each cube-mode call of `fft.conv_otf_` / `conv_otf`
 # the modules whose code builds the cached tables: their bytes are part of the key
 _TABLE_SOURCES = ("models/spectro.py", "models/channel.py", "models/slicer.py", "core/fft.py",
                   "core/bilinear.py", "core/gather_rows.py", "instrument/geometry.py",
@@ -602,7 +605,9 @@ class SpectroSigRLSCT:
         otf_w = self._sotf_w(c, lo, hi)
         if self.lmm:
             return self.channels[c].bbox_rows(fft.lmm_conv_otf(x, self._tpl_w(c)[:, lo:hi], otf_w))
-        return self.channels[c].bbox_rows(fft.conv_otf(x[ws.start + lo : ws.start + hi].clone(), otf_w))
+        with span(SPAN_CONV_CUBE):
+            cube_w = fft.conv_otf(x[ws.start + lo : ws.start + hi].clone(), otf_w)
+        return self.channels[c].bbox_rows(cube_w)
 
     def _conv_t(self, rows, c, cols=None):
         """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the
@@ -622,7 +627,8 @@ class SpectroSigRLSCT:
         otf_w = self._sotf_w(c, lo, hi)
         if self.lmm:
             return fft.lmm_conv_otf_t(cube_w, self._tpl_w(c)[:, lo:hi], otf_w)
-        return fft.conv_otf_(cube_w, otf_w, conj=True)
+        with span(SPAN_CONV_CUBE):
+            return fft.conv_otf_(cube_w, otf_w, conj=True)
 
     def _sotf_w(self, c: int, lo: int, hi: int) -> torch.Tensor:
         """Planes lo..hi of channel c's λ-window OTF: its own table
@@ -781,7 +787,8 @@ class SpectroSigRLSCT:
         x = self._x(x)
         if self.lmm:
             return fft.lmm_conv_otf(x, self.tables["templates"], self.tables["sotf"])
-        return fft.conv_otf(x.clone(), self.tables["sotf"])
+        with span(SPAN_CONV_CUBE):
+            return fft.conv_otf(x.clone(), self.tables["sotf"])
 
     def forward(self, x, plain: bool = False) -> torch.Tensor:
         """Template maps [M, Na, Nb] (the cube in cube mode) → flat data
@@ -838,7 +845,8 @@ class SpectroSigRLSCT:
                                      c)
         if self.lmm:
             return fft.lmm_conv_otf_t(cube, self.tables["templates"], self.tables["sotf"])
-        return fft.conv_otf_(cube, self.tables["sotf"], conj=True)
+        with span(SPAN_CONV_CUBE):
+            return fft.conv_otf_(cube, self.tables["sotf"], conj=True)
 
     def normal(self, x, plain: bool = False) -> torch.Tensor:
         """HᵗH x.  Window-local mode fuses fwd∘adj per channel without

@@ -89,9 +89,10 @@ def span(name: str):
     is one shared no-op context, and its cost is one attribute read.
 
     The program's names start with ``surfh.``: ``surfh.solver.solve``,
-    ``.iter`` and ``.host_read`` in `solvers/cg.py`, ``surfh.op.normal``
-    and ``surfh.op.band.<band>`` in `models/spectro.py`,
-    ``surfh.op.conv.maps`` in `core/fft.py`."""
+    ``.iter`` and ``.host_read`` in `solvers/cg.py` and `solvers/huber.py`,
+    ``surfh.solver.prior`` in `solvers/huber.py`, ``surfh.op.normal``,
+    ``surfh.op.band.<band>`` and ``surfh.op.conv.cube`` in
+    `models/spectro.py`, ``surfh.op.conv.maps`` in `core/fft.py`."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch._C._profiler._RecordFunctionFast(name)

@@ -13,6 +13,8 @@ a NumPy seed.
   rtol 1e-5) and x̂ against the JAX solve's;
 * `mmmg_huber` / `lmm_reconstruction`: 20 iterations' iterate ≤1e-9 of the
   JAX package's; the gradient's fall (the reference's bar); both loops;
+* `vox_reconstruction` on a cube-mode W-plane `SpectroSigRLSCT`: 10
+  iterations' iterate and history ≤1e-9 of the JAX package's;
 * `QuadCriterion_MRS(use_fwadj=True)`: 20 lcg iterations against 20 through
   adjoint∘forward and against the JAX criterion's.
 """
@@ -34,7 +36,8 @@ from surfh_tpu_torch.models.mixing import MixingST, Model_WCT
 from surfh_tpu_torch.solvers.criterion import (DifferenceOperatorJoint, QuadCriterion_MRS,
                                                dtd_separated)
 from surfh_tpu_torch.solvers.expsol import QuadCriterion3
-from surfh_tpu_torch.solvers.huber import diff_axis, diff_axis_t, lmm_reconstruction, mmmg_huber
+from surfh_tpu_torch.solvers.huber import (diff_axis, diff_axis_t, lmm_reconstruction, mmmg_huber,
+                                           vox_reconstruction)
 from surfh_tpu_torch.utils.psf import gaussian_psf
 
 torch.set_num_threads(2)
@@ -205,6 +208,29 @@ def test_mmmg_huber_matches_jax_on_a_dense_system(loop):
     assert torch.equal(a.x, graph.x) and len(a.grad_norm) == 39
     assert rel(a.x.numpy(), j.x) <= 1e-10
     assert rel(a.grad_norm, j.grad_norm) <= (1e-6 if loop == "dispatch" else 1e-10)
+
+
+def test_vox_reconstruction_matches_jax_on_a_cube_model(monkeypatch):
+    """`vox_reconstruction` (the Huber MM on the cube) on the same cube-mode
+    W-plane `SpectroSigRLSCT` (``templates=None``) in both packages: 10
+    iterations' iterate ≤1e-9 of the JAX package's, and its history."""
+    from surfh_tpu.simulation.synthetic import make_model as jax_make_model
+    from surfh_tpu.simulation.synthetic import make_setup as jax_make_setup
+    from surfh_tpu_torch.simulation.synthetic import make_model, make_setup
+
+    monkeypatch.setenv("SURFH_TABLE_CACHE", "0")
+    kw = dict(im_size=31, n_lambda=16, n_tpl=3, n_channels=2, n_pointings=1, n_slit=3)
+    jmodel, _ = jax_make_model(setup=dict(jax_make_setup(**kw), templates=None), dtype=jnp.float64,
+                               window_local=False)
+    model, _ = make_model(setup=dict(make_setup(**kw), templates=None), dtype=np.float64, window_local=False)
+    model.to("cpu", torch.float64)
+    x = np.random.default_rng(8).random(model.ishape)
+    y = model.forward(torch.as_tensor(x))
+    prm = dict(spat_reg=0.5, spat_th=0.1, spec_reg=0.5, spec_th=0.1, max_iter=10)
+    a = vox_reconstruction(y, model, **prm)
+    b = jhuber.vox_reconstruction(y.numpy(), jmodel, **prm)
+    assert rel(a.x.numpy(), b.x) <= 1e-9
+    assert rel(a.grad_norm, b.grad_norm) <= 1e-9
 
 
 def test_criterion_use_fwadj(wct):
