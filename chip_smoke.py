@@ -22,8 +22,12 @@ for two processes on the one card) and BASELINE config 4 through
 the headline-measurement scripts and the user tools.
 
 1. device      — the card's name and power limit (nvidia-smi);
-2. build       — nvcc builds the three kernel sources from csrc/ into
+2. build       — nvcc builds the four kernel sources from csrc/ into
                  build/, one nvcc each, in parallel;
+   normal-prior — the criterion's fused normal (`core.normal_prior`) on
+                 the voxel cube's shape [3879, 501, 501] against the eager
+                 twelve-kernel chain it replaces: bit for bit, kernel and
+                 plain ms, the byte bound of three volumes, its share;
 3. host        — the flagship rank-mode host tables (NumPy, channels in
                  parallel), cold into a fresh disk-cache directory, then
                  again as a cache hit, bit for bit;
@@ -929,6 +933,66 @@ def gather_row_stats(dev, proto, cuda_ms, gen, bound, plan, q: int, what: str, t
             "library_ms": ms_l, "bound_ms": b_ms}
 
 
+CUBE_SHAPE = (3879, 501, 501)  # the voxel cube: 12 bands' λ grid x the 501² sky
+
+
+def run_normal_prior_phase(dev, card: str, cuda_ms, bound, shape=CUBE_SHAPE) -> dict:
+    """The criterion's fused normal µ_s·h + µ_r·DᵀD x (`core.normal_prior`)
+    on `shape` against the eager chain `QuadCriterion_MRS.normal_op` spelled
+    before it (four rolls, eight elementwise passes): bit for bit, kernel
+    and plain ms, the byte bound (x and h read, out written once); logs one
+    `[kernel]` line."""
+    import torch
+
+    from surfh_tpu_torch.core import normal_prior as fused
+    from surfh_tpu_torch.solvers.criterion import dtd_separated
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x, h = torch.rand(shape, generator=gen, device=dev), torch.rand(shape, generator=gen, device=dev)
+    mu_s, mu_r = torch.tensor(1.0, device=dev), torch.tensor(5e3, device=dev)  # the cube cell's µ's
+
+    def plain():
+        return mu_s * h + mu_r * dtd_separated(x)
+
+    fused.reset_launches()
+    same = torch.equal(fused.normal_prior_cuda(x, h, mu_s, mu_r), plain())
+    check(same and fused.launches == 1, f"normal_prior kernel vs the eager chain on {list(shape)}: "
+          f"bit for bit {same}, launches {fused.launches}")
+    ms_k = cuda_ms(lambda: fused.normal_prior_cuda(x, h, mu_s, mu_r), 50)
+    ms_p = cuda_ms(plain, 10)
+    nbytes = 3 * x.numel() * x.element_size()
+    b_ms, by = bound(nbytes)
+    rows = fused.launch_rows(*shape[1:])
+    log(f"[kernel] {card}: normal_prior {list(shape)} ({rows} rows a block): bit for bit the eager "
+        f"chain; kernel {ms_k:.4f} ms, plain (12 kernels) {ms_p:.4f} ms, bound {b_ms:.4f} ms "
+        f"({by}: {nbytes / 1e9:.3f} GB) ({100 * b_ms / ms_k:.1f} %)")
+    del x, h
+    torch.cuda.empty_cache()
+    return {"ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms, "rows": rows}
+
+
+def check_prior_route(crit, x, tag: str) -> None:
+    """`crit.normal_op(x)` on the card against its eager spelling
+    µ_s·h + µ_r·DᵀD x at this path's shape, h = HᵗH x computed once for
+    both: bit for bit, one launch of the fused normal; logs one line."""
+    import torch
+
+    from surfh_tpu_torch.core import normal_prior as fused
+
+    h = crit._hess(x)
+    hess, crit._hess = crit._hess, lambda _: h
+    try:
+        fused.reset_launches()
+        got = crit.normal_op(x, crit.mu_spectro, crit.mu_reg)
+        n = fused.launches
+    finally:
+        crit._hess = hess
+    same = torch.equal(got, crit.mu_spectro * h + crit.mu_reg * crit._dtd(x))
+    log(f"{tag} criterion normal_op on {list(x.shape)}: the fused normal bit for bit the eager "
+        f"chain {same}, launches {n}")
+    check(same and n == 1, f"{tag} fused normal vs the eager chain: bit for bit {same}, launches {n}")
+
+
 DECONV_ARGV = {  # BASELINE configs 1 and 2 at the reference's full size
     "deconv2d": ["deconv2d", "-np", "301", "-ni", "200", "-hp", "500"],
     "deconv-cube": ["deconv-cube", "-np", "301", "-nl", "100", "--pointings", "2", "-ni", "100",
@@ -959,6 +1023,7 @@ def run_deconv_phase(dev, card: str, cuda_ms, gen, bound, proto, name: str) -> d
 
     from surfh_tpu_torch import cli as tcli
     from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import normal_prior as fused
     from surfh_tpu_torch.models import blind2d
     from surfh_tpu_torch.solvers import criterion
 
@@ -979,7 +1044,7 @@ def run_deconv_phase(dev, card: str, cuda_ms, gen, bound, proto, name: str) -> d
             super().__init__(*a, **k)
             seen["crit"] = self
 
-    res = {"launches": 0, "kernel": {}}
+    res = {"launches": 0, "prior_launches": 0, "kernel": {}}
     for geometry in ("--rectangle", "--rotated"):
         rotated = geometry == "--rotated"
         argv = DECONV_ARGV[name] + [geometry]
@@ -988,12 +1053,13 @@ def run_deconv_phase(dev, card: str, cuda_ms, gen, bound, proto, name: str) -> d
         try:
             out = io.StringIO()
             gr.reset_launches()
+            fused.reset_launches()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 rc = tcli.main(argv + ["-o", work])
             sync()
             wall = time.perf_counter() - t0
-            launches = gr.launches
+            launches, prior_launches = gr.launches, fused.launches
             lines = out.getvalue().strip().splitlines()
             check(rc == 0 and bool(lines), f"{name} {geometry}: exit code {rc}")
             rep = json.loads(lines[-1])
@@ -1009,12 +1075,14 @@ def run_deconv_phase(dev, card: str, cuda_ms, gen, bound, proto, name: str) -> d
         # (forward and its transpose) per lcg application
         expect = 3 * n_pt + 2 * n_pt * (n_it + 1) if rotated else 0
         res["launches"] += launches
+        res["prior_launches"] += prior_launches
         log(f"{tag} {' '.join(argv)}: {lines[-1]} ({wall:.2f} s with the model's build); "
             f"{n_it / rep['seconds']:.2f} iterations/s; {card}; gather_rows launches {launches} "
-            f"(expected {expect})")
+            f"(expected {expect}); fused normal launches {prior_launches} (expected {n_it + 1})")
         check(list(rep) == DECONV_KEYS[name] and n_it > 0 and np.isfinite(rep["psnr"]),
               f"{name} {geometry} report {rep}")
         check(launches == expect, f"{name} {geometry} launches {launches} != {expect}")
+        check(prior_launches == n_it + 1, f"{name} {geometry} fused normal launches {prior_launches}")
         check(x_hat.shape == model.ishape and bool(np.isfinite(x_hat).all()), f"{name} x finite, shape")
         j0 = crit.get_crit_val(np.full(model.ishape, 0.5, np.float32))
         j1 = crit.get_crit_val(x_hat)
@@ -1036,6 +1104,7 @@ def run_deconv_phase(dev, card: str, cuda_ms, gen, bound, proto, name: str) -> d
         dot = abs(lhs - rhs) / abs(lhs)
         n_k, n_p = model.normal(xr), model.normal(xr, plain=True)
         e_n = rel(n_k, n_p)
+        check_prior_route(crit, xr, f"{tag} {geometry}:")
         log(f"{tag} {geometry}: card f32 vs card f64: forward {e_f:.3e}, adjoint {e_a:.3e} (bound "
             f"1e-5); f64 dot test <Hx,y>={lhs:.12e} <x,H'y>={rhs:.12e} rel {dot:.3e} (bound 1e-10); "
             f"normal, kernels vs plain gathers {e_n:.3e} (bound 1e-5)")
@@ -2359,6 +2428,7 @@ def main(argv=None) -> int:
     from surfh_tpu_torch.core import _build, fft
     from surfh_tpu_torch.core import gather_fixed as gf
     from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import normal_prior as fused
     from surfh_tpu_torch.core import wblur_banded as wb
     from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
     from surfh_tpu_torch.simulation.synthetic import make_model
@@ -2389,13 +2459,13 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:  # one nvcc per source, all at once
+    with ThreadPoolExecutor(4) as ex:  # one nvcc per source, all at once
         for f in [ex.submit(gr.load_kernel), ex.submit(wb.load_kernels),
-                  ex.submit(gf.load_kernels)]:
+                  ex.submit(gf.load_kernels), ex.submit(fused.load_kernel)]:
             f.result()
-    log(f"[build] gather_rows.cu, wblur_banded.cu, gather_fixed.cu -> {_build.BUILD_DIR} in "
-        f"{time.perf_counter() - t0:.2f} s")
-    for name in ("gather_rows", "wblur_banded"):
+    log(f"[build] gather_rows.cu, wblur_banded.cu, gather_fixed.cu, normal_prior.cu -> "
+        f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
+    for name in ("gather_rows", "wblur_banded", "normal_prior"):
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] ptxas {name}: {line.strip()}")
@@ -2411,6 +2481,9 @@ def main(argv=None) -> int:
         elif name and "registers" in line:
             used = re.search(r"Used \d+ registers", line).group(0)
             log(f"[build] ptxas gather_fixed: {name}: {used}; {spill}")
+
+    # the criterion's fused normal on the voxel cube's shape, before anything else holds the card
+    prior = run_normal_prior_phase(dev, card, cuda_ms, bound)
 
     # 3. host tables: cold into a fresh cache directory, then a cache hit --
     bands = args.bands.split(",") if args.bands else None
@@ -2597,6 +2670,7 @@ def main(argv=None) -> int:
     # the main path, counted: y, b = µ·Hᵗy, 10 CG iterations
     mu_reg = 5e3
     gr.reset_launches()
+    fused.reset_launches()
     t0 = time.perf_counter()
     y = model.forward(truth)
     crit = QuadCriterion_MRS(1.0, y, model, mu_reg)
@@ -2604,12 +2678,15 @@ def main(argv=None) -> int:
     res = crit.run_method("lcg", maximum_iterations=10, return_state=True)
     sync()
     t_main = time.perf_counter() - t0
-    main_launches = gr.launches
+    main_launches, prior_paths = gr.launches, {"rank": fused.launches}
     expect = 2 * n_pt + 2 * n_pt * (res.n_iter + 1)
     gn = res.grad_norm
     log(f"[slice] main path (y, b, {res.n_iter} lcg it, mu_reg={mu_reg:g}) in {t_main:.3f} s; "
-        f"gather_rows launches {main_launches} (expected {expect}); grad norms {gn.tolist()}")
+        f"gather_rows launches {main_launches} (expected {expect}); fused normal launches "
+        f"{prior_paths['rank']} (expected {res.n_iter + 1}); grad norms {gn.tolist()}")
     check(main_launches == expect and main_launches > 0, "main-path launches")
+    check(prior_paths["rank"] == res.n_iter + 1, "main-path fused normal launches")
+    check_prior_route(crit, truth, "[slice]")
     check(bool(torch.isfinite(b).all()) and bool(torch.isfinite(res.x).all()), "b, x finite")
     check(res.n_iter == 10 and bool(np.isfinite(gn).all()) and gn[-1] < gn[0], "grad norms finite, falling")
     # the reference's dispatch loop: ‖r‖ read at the end only, the same iterates
@@ -2782,6 +2859,7 @@ def main(argv=None) -> int:
     # the W-plane main path, counted: y, b = µ·Hᵗy, 10 CG iterations
     gr.reset_launches()
     wb.reset_launches()
+    fused.reset_launches()
     t0 = time.perf_counter()
     y_w = wmodel.forward(truth)
     wcrit = QuadCriterion_MRS(1.0, y_w, wmodel, mu_reg)
@@ -2789,14 +2867,17 @@ def main(argv=None) -> int:
     sync()
     t_wmain = time.perf_counter() - t0
     wmain = (gr.launches, wb.launches, wb.launches_t)
+    prior_paths["wplane"] = fused.launches
     n_app = wres.n_iter + 1
     expect_w = (2 * n_pt + 2 * n_pt * n_app, n_pt * (1 + n_app), n_pt * (1 + n_app))
     wgn = wres.grad_norm
     log(f"[wplane] main path (y, b, {wres.n_iter} lcg it, mu_reg={mu_reg:g}) in {t_wmain:.3f} s; "
         f"launches gather_rows / wblur_banded / wblur_banded_t {wmain} (expected {expect_w}; "
-        f"add-the-parts passes {wb.launches_sum}); "
-        f"grad norms {wgn.tolist()}")
+        f"add-the-parts passes {wb.launches_sum}); fused normal launches {prior_paths['wplane']} "
+        f"(expected {n_app}); grad norms {wgn.tolist()}")
     check(wmain == expect_w and min(wmain) > 0, "W-plane main-path launches")
+    check(prior_paths["wplane"] == n_app, "W-plane main-path fused normal launches")
+    check_prior_route(wcrit, truth, "[wplane]")
     check(bool(torch.isfinite(wcrit.b).all()) and bool(torch.isfinite(wres.x).all()), "W-plane b, x finite")
     check(wres.n_iter == 10 and bool(np.isfinite(wgn).all()) and wgn[-1] < wgn[0],
           "W-plane grad norms finite, falling")
@@ -2933,6 +3014,8 @@ def main(argv=None) -> int:
                     **{f"bench_{tag}": b["launches"][0] for tag, b in bench.items()},
                     **scripts, **tools}
     check(all(gather_paths.values()), f"a path launched no row gather: {gather_paths}")
+    prior_paths.update(deconv2d=deconv["deconv2d"]["prior_launches"],
+                       deconv_cube=deconv["deconv-cube"]["prior_launches"])
 
     log(json.dumps({"kernels": [{
         "name": "gather_rows",
@@ -2982,7 +3065,19 @@ def main(argv=None) -> int:
     } for k, replaces, launches in (
         ("K1", "scripts/scatter_pallas_proto.py:113", proto_launches[0]),
         ("K2", "scripts/scatter_pallas_proto.py:143", proto_launches[1]),
-        ("K3", "scripts/scatter_pallas_proto.py:185", proto_launches[2]))]}))
+        ("K3", "scripts/scatter_pallas_proto.py:185", proto_launches[2]))] + [{
+        "name": "normal_prior",
+        "route": "cuda",
+        "source": "surfh_tpu_torch/csrc/normal_prior.cu",
+        "replaces": None,  # the eager chain of QuadCriterion_MRS.normal_op; XLA fuses it on the TPU
+        "launches": sum(prior_paths.values()),
+        "launches_by_path": prior_paths,
+        "max_abs_err": 0.0,
+        "ms": prior["ms"],
+        "plain_ms": prior["plain_ms"],
+        "bound_ms": prior["bound_ms"],
+        "bound_by": "bytes",
+    }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

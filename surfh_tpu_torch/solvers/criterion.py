@@ -6,7 +6,10 @@ the two spatial axes of each map (``gradient="separated"``) or the joint
 Fourier Laplacian (``"joint"``).  `QuadCriterion_MRS_2D` is the same over
 one [Nx, Ny] image (the differences on axes 0 and 1).  The normal operator Q = µ_s·HᵗH + µ_r·DᵀD
 uses the model's fused `normal`; the µ's ride as tensors in `op_args`, so
-one `normal_op` serves every µ.  Nothing is cached per model: eager
+one `normal_op` serves every µ.  With the separated prior on a float32
+CUDA x, µ_s·h + µ_r·DᵀD x is one kernel (`core.normal_prior`), bit for bit
+the plain spelling that the CPU, float64 (the port's kernels are float32
+only) and the joint prior keep.  Nothing is cached per model: eager
 PyTorch has no compiled program to reuse.
 """
 
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core import fft
+from ..core import normal_prior as fused
 from ..core.linop import complex_dtype
 from ..core.precision import pick_device
 from .cg import SolverResult, lcg, mmmg
@@ -112,7 +116,14 @@ class QuadCriterion_MRS:
         return dtd_separated(x) if self._joint is None else self._joint.DtD(x)
 
     def normal_op(self, x, mu_s, mu_r):
-        return mu_s * self._hess(x) + mu_r * self._dtd(x)
+        h = self._hess(x)
+        if self._joint is None and x.is_cuda and x.dtype == torch.float32:
+            planes = x.shape if x.dim() == 3 else (1,) + tuple(x.shape)  # the 2-D image: one plane
+            mu_s, mu_r = (torch.as_tensor(m, dtype=x.dtype, device=x.device) for m in (mu_s, mu_r))
+            out = fused.normal_prior_cuda(x.contiguous().view(planes), h.contiguous().view(planes),
+                                          mu_s, mu_r)
+            return out.view(x.shape)
+        return mu_s * h + mu_r * self._dtd(x)
 
     @property
     def b(self) -> torch.Tensor:

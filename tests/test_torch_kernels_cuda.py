@@ -746,3 +746,138 @@ def test_banded_channel_forward_runs_kernel_2():
     chan.adjoint(torch.rand(chan.oshape, generator=gen, device=dev))
     torch.cuda.synchronize()
     assert wb.launches == chan.oshape[0] and wb.launches_t == 0
+
+
+def _eager_normal(x, h, mu_s, mu_r):
+    from surfh_tpu_torch.solvers.criterion import dtd_separated
+
+    return mu_s * h + mu_r * dtd_separated(x)
+
+
+def _prior_operands(dev, shape, seed, offset=(0, 0)):
+    """x and h of `shape`, each `offset` floats into its storage, and the
+    µ's as 0-d tensors on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = int(np.prod(shape))
+    x, h = (torch.randn(n + o, generator=gen, device=dev)[o:].view(shape) for o in offset)
+    return x, h, torch.tensor(5e3, device=dev), torch.tensor(0.37, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 501, 501), (3, 37, 41), (2, 64, 512), (2, 20, 1024),
+                                   (1, 10, 2048), (3, 1, 7), (3, 2, 7), (3, 3, 7), (3, 7, 1),
+                                   (3, 7, 2), (3, 7, 3), (5, 1, 1), (2, 2, 2), (2, 3, 3),
+                                   (1, 9, 3972)])
+def test_normal_prior_kernel_equals_the_eager_chain(shape):
+    """The fused normal against `mu_s * h + mu_r * dtd_separated(x)` bit
+    for bit: the maps' and strips' shapes (strips of 16, 15, 7 and 3 rows
+    at most, the 1024- and 2048-wide planes split unevenly: 6/7/7 and
+    2/3/2/3 rows), planes of 1, 2 and 3 rows or columns where the wrap
+    folds onto itself, the widest row a block takes."""
+    from surfh_tpu_torch.core import normal_prior as fused
+
+    dev = _cuda()
+    x, h, mu_s, mu_r = _prior_operands(dev, shape, seed=sum(shape))
+    before = fused.launches
+    got = fused.normal_prior_cuda(x, h, mu_s, mu_r)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    assert torch.equal(got, _eager_normal(x, h, mu_s, mu_r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [(1, 0), (0, 1), (3, 2), (2, 2)])
+@pytest.mark.parametrize("shape", [(3, 37, 41), (2, 64, 512), (2, 20, 1024)])
+def test_normal_prior_kernel_off_16_byte_alignment(shape, offset):
+    """x and h from storage offsets that break 16-byte alignment (h's takes
+    the scalar instance, x's the window's scalar head)."""
+    from surfh_tpu_torch.core import normal_prior as fused
+
+    dev = _cuda()
+    x, h, mu_s, mu_r = _prior_operands(dev, shape, seed=7, offset=offset)
+    assert (x.data_ptr() % 16, h.data_ptr() % 16) == (4 * offset[0], 4 * offset[1])
+    before = fused.launches
+    assert torch.equal(fused.normal_prior_cuda(x, h, mu_s, mu_r), _eager_normal(x, h, mu_s, mu_r))
+    assert fused.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_d", [False, True])
+def test_criterion_normal_op_launches_the_kernel_once(two_d):
+    """`normal_op` on an f32 CUDA x: one launch, bit for bit the eager
+    spelling (the criterion's µ's are 0-d tensors on the card; µ's given
+    as numbers are made so); a strided x is made contiguous and launches
+    too, the 2-D criterion's image as one plane."""
+    from surfh_tpu_torch.core import normal_prior as fused
+    from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS, QuadCriterion_MRS_2D
+
+    dev = _cuda()
+    shape = (61, 53) if two_d else (4, 61, 53)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d = torch.rand(shape, generator=gen, device=dev) + 0.5
+    model = type("Diag", (), dict(ishape=shape, dtype=torch.float32, device=dev,
+                                  forward=lambda self, x: (d * x).reshape(-1),
+                                  adjoint=lambda self, y: d * y.reshape(shape),
+                                  normal=lambda self, x: d * d * x))()
+    cls = QuadCriterion_MRS_2D if two_d else QuadCriterion_MRS
+    crit = cls(2.0, torch.zeros(d.numel(), device=dev), model, 0.3)
+    x = torch.randn(shape, generator=gen, device=dev)
+    before = fused.launches
+    got = crit.normal_op(x, crit.mu_spectro, crit.mu_reg)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 1
+    want = _eager_normal(x[None] if two_d else x, (d * d * x)[None] if two_d else d * d * x,
+                         crit.mu_spectro, crit.mu_reg)
+    assert torch.equal(got, want[0] if two_d else want)
+    strided = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not strided.is_contiguous()
+    assert torch.equal(crit.normal_op(strided, 2.0, 0.3), got)
+    torch.cuda.synchronize()
+    assert fused.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lcg", "mmmg"])
+def test_criterion_solves_launch_the_kernel_once_a_normal(method):
+    """`lcg` and `mmmg` through the criterion on the card: one launch of the
+    fused normal for the initial residual and one a step."""
+    from surfh_tpu_torch.core import normal_prior as fused
+    from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
+
+    dev = _cuda()
+    shape = (3, 40, 33)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    d = torch.rand(shape, generator=gen, device=dev) + 0.5
+    model = type("Diag", (), dict(ishape=shape, dtype=torch.float32, device=dev,
+                                  forward=lambda self, x: (d * x).reshape(-1),
+                                  adjoint=lambda self, y: d * y.reshape(shape),
+                                  normal=lambda self, x: d * d * x))()
+    crit = QuadCriterion_MRS(1.0, torch.rand(d.numel(), generator=gen, device=dev), model, 0.3)
+    fused.reset_launches()
+    res = crit.run_method(method, maximum_iterations=4, tolerance=0.0)
+    torch.cuda.synchronize()
+    assert fused.launches == res.n_iter + 1 == 5
+    assert bool(torch.isfinite(res.x).all())
+
+
+@pytest.mark.cuda
+def test_normal_prior_kernel_rejects_what_it_does_not_take():
+    from surfh_tpu_torch.core import normal_prior as fused
+
+    dev = _cuda()
+    x, h, mu_s, mu_r = _prior_operands(dev, (2, 9, 11), seed=1)
+    with pytest.raises(TypeError):
+        fused.normal_prior_cuda(x.double(), h, mu_s, mu_r)
+    with pytest.raises(TypeError):
+        fused.normal_prior_cuda(x, h, mu_s.double(), mu_r)
+    with pytest.raises(ValueError):
+        fused.normal_prior_cuda(x.cpu(), h, mu_s, mu_r)
+    with pytest.raises(ValueError):
+        fused.normal_prior_cuda(x, h, mu_s.cpu(), mu_r)
+    with pytest.raises(ValueError):
+        fused.normal_prior_cuda(x.transpose(1, 2), h.transpose(1, 2), mu_s, mu_r)
+    with pytest.raises(ValueError):
+        fused.normal_prior_cuda(x, h, mu_s.reshape(1), mu_r)
+    wide = torch.zeros((1, 2, 3973), device=dev)
+    with pytest.raises(ValueError):
+        fused.normal_prior_cuda(wide, wide, mu_s, mu_r)
