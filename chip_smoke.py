@@ -2786,16 +2786,17 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     cube = wmodel.mapsToCube(truth)
     t_lmm = cuda_ms(lambda: wmodel.mapsToCube(truth), 5)
-    t_fft = cuda_ms(lambda: fft.conv_otf_(cube, sotf), 5)
+    chunks = fft.conv_otf_chunks(cube, sotf)
+    t_fft = cuda_ms(lambda: fft.conv_otf_chunks(cube, sotf), 5)
     n_c = len(wmodel.channels)
-    rows = [wmodel.patch_rows(cube, c) for c in range(n_c)]
-    t_rel = cuda_ms(lambda: [wmodel.patch_rows(cube, c) for c in range(n_c)], 5)
+    rows = [wmodel.patch_rows(chunks, c) for c in range(n_c)]
+    t_rel = cuda_ms(lambda: [wmodel.patch_rows(chunks, c) for c in range(n_c)], 5)
     t_rel_t = cuda_ms(lambda: [wmodel.add_patch_rows_(cube, rows[c], c) for c in range(n_c)], 5)
     log(f"[wplane] {card}: T (maps -> cube {tuple(cube.shape)}) {t_lmm:.3f} ms; FFT stage "
-        f"(rfft2 * sotf, irfft2, {fft.CONV_OTF_CHUNK}-plane chunks, in place) {t_fft:.3f} ms per "
+        f"(rfft2 * sotf, irfft2, {fft.CONV_OTF_CHUNK}-plane chunks out, the cube read) {t_fft:.3f} ms per "
         f"direction; bbox relayout [W, ha, wb] -> [ha*wb, W] {t_rel:.3f} ms, back (add into "
         f"the cube) {t_rel_t:.3f} ms, all {n_c} bands; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    del cube, rows
+    del cube, chunks, rows
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()

@@ -6,9 +6,9 @@ copies of the reference's (same arithmetic, so both packages build
 bit-identical tables); the device side is the λ-rank fused T·C conv
 `lmm_conv_rank` and its exact transpose as chains of plain GEMMs, and, for
 the W-plane path, the unitary `dft` / `idft` pair (cuFFT on the card, as
-the reference leaves it to `jnp.fft`), the chunked in-place OTF conv of
-cube mode, the same conv with the templates mixed in the frequency domain
-(`lmm_conv_otf` / `_t`, template mode) and a device `ir2fr` that builds the
+the reference leaves it to `jnp.fft`), the chunked OTF conv pair
+`conv_otf_chunks` / `_t` (the templates mixed in the frequency domain, or
+in cube mode the cube's own planes) and a device `ir2fr` that builds the
 materialized OTF from the PSF stamps.
 
 Layout.  The reference keeps the rank-basis patch as ``[Q, ha, wb]``; the
@@ -442,74 +442,53 @@ def convolve_freq(cube: torch.Tensor, otf: torch.Tensor, im_shape: Tuple[int, in
     return idft(dft(cube) * otf, im_shape)
 
 
-CONV_OTF_CHUNK = 256  # λ-planes per cuFFT call of `conv_otf_` and `lmm_conv_otf` / `_t`
-SPAN_CONV_MAPS = "surfh.op.conv.maps"  # around each call of `lmm_conv_otf` / `_t`
+CONV_OTF_CHUNK = 256  # λ-planes per cuFFT call of `conv_otf_chunks` / `_t`
+SPAN_CONV_MAPS = "surfh.op.conv.maps"  # around each call of `conv_otf_chunks` / `_t` with templates
+SPAN_CONV_CUBE = "surfh.op.conv.cube"  # around each call without (cube mode)
 
 
-def conv_otf_(cube: torch.Tensor, otf: torch.Tensor, conj: bool = False,
-              chunk: int = CONV_OTF_CHUNK) -> torch.Tensor:
-    """``idft(dft(cube) · otf)`` (or · conj(otf)) per λ-plane, IN PLACE on
-    `cube` [L, Na, Nb], `chunk` planes at a time, so no whole-cube spectrum
-    and no whole-cube FFT workspace are ever held; returns `cube`.  The
-    callers own `cube` (a temporary of the operator), hence in place.
+def conv_otf_chunks(x: torch.Tensor, otf: torch.Tensor, tpl: Optional[torch.Tensor] = None,
+                    chunk: int = CONV_OTF_CHUNK) -> List[torch.Tensor]:
+    """C T x: the blurred cube [L, Na, Nb], ``idft(dft(T x) · otf)`` with
+    `otf` [L, Na, Nb//2+1], held as its consecutive chunks of `chunk`
+    λ-planes (:func:`cube_planes` cuts a λ-range out of them).  `x` is the
+    template maps [M, Na, Nb] with `tpl` the templates [M, L], or in cube
+    mode (`tpl` None) the cube [L, Na, Nb] itself, read and not written.
 
-    The route of cube mode (no templates).  With templates the operator
-    convolves through :func:`lmm_conv_otf` / :func:`lmm_conv_otf_t`, which
-    mix the templates in the frequency domain instead."""
-    im_shape = tuple(cube.shape[-2:])
-    for i in range(0, cube.shape[0], chunk):
-        o = otf[i : i + chunk]
-        spec = dft(cube[i : i + chunk])
-        spec.mul_(o.conj() if conj else o)
-        cube[i : i + chunk] = idft(spec, im_shape)
-    return cube
-
-
-def conv_otf(cube: torch.Tensor, otf: torch.Tensor) -> torch.Tensor:
-    """``idft(dft(cube) · otf)`` of a temporary `cube`: in place
-    (:func:`conv_otf_`), or out of place where autograd tracks `cube` (a
-    derived transpose: the in-place chunks would overwrite what the
-    backward reads)."""
-    if cube.requires_grad and torch.is_grad_enabled():
-        return convolve_freq(cube, otf, tuple(cube.shape[-2:]))
-    return conv_otf_(cube, otf)
-
-
-def lmm_conv_otf(maps: torch.Tensor, tpl: torch.Tensor, otf: torch.Tensor,
-                 chunk: int = CONV_OTF_CHUNK) -> List[torch.Tensor]:
-    """C T: template maps [M, Na, Nb] → the blurred cube [L, Na, Nb],
-    ``idft(dft(T maps) · otf)`` with T the templates `tpl` [M, L] and `otf`
-    [L, Na, Nb//2+1], held as its consecutive chunks of `chunk` λ-planes
-    (:func:`cube_planes` cuts a λ-range out of them).
-
-    The DFT is linear and the templates are real, so
-    ``rfft2(Σ_m tpl[m, λ]·maps[m]) = Σ_m tpl[m, λ]·rfft2(maps[m])``: the M maps
-    are transformed once, and each chunk is mixed in the frequency domain
-    (one real GEMM over the interleaved real and imaginary parts),
-    multiplied by its OTF and transformed back.  The chunks are the inverse
-    transforms' own outputs: no plane is copied (cuFFT's ``out=`` would
-    add a pass).  The unitary pair's two 1/√(Na·Nb) are the mixing GEMM's
-    `alpha` around unscaled transforms: no scaling pass.  Where autograd
-    tracks `maps` the route is the out-of-place T then
-    :func:`convolve_freq`, one chunk."""
-    m, na, nb = maps.shape
-    if maps.requires_grad and torch.is_grad_enabled():
-        return [convolve_freq(lmm.lmm_maps2cube(maps, tpl), otf, (na, nb))]
-    with span(SPAN_CONV_MAPS):
-        spec_maps = torch.view_as_real(torch.fft.rfft2(maps)).reshape(m, -1)
+    With templates, the DFT is linear and the templates are real, so
+    ``rfft2(Σ_m tpl[m, λ]·maps[m]) = Σ_m tpl[m, λ]·rfft2(maps[m])``: the M
+    maps are transformed once, each chunk's spectrum is mixed in the
+    frequency domain (one real GEMM over the interleaved real and imaginary
+    parts), and the unitary pair's two 1/√(Na·Nb) are the GEMM's `alpha`
+    around unscaled transforms.  In cube mode each chunk is the unitary
+    pair's ``idft(dft(chunk) · otf)``.  Either way the chunks are the
+    inverse transforms' own outputs: no plane is copied (cuFFT's ``out=``
+    would add a pass), and no whole-cube spectrum or FFT workspace is held.
+    Where autograd tracks `x` the route is the out-of-place T then
+    :func:`convolve_freq`, one chunk (a derived transpose)."""
+    na, nb = x.shape[-2:]
+    with span(SPAN_CONV_CUBE if tpl is None else SPAN_CONV_MAPS):
+        if x.requires_grad and torch.is_grad_enabled():
+            return [convolve_freq(x if tpl is None else lmm.lmm_maps2cube(x, tpl), otf, (na, nb))]
+        if tpl is not None:
+            spec_maps = torch.view_as_real(torch.fft.rfft2(x)).reshape(x.shape[0], -1)
         chunks = []
-        for i in range(0, tpl.shape[1], chunk):
-            n = min(chunk, tpl.shape[1] - i)
-            spec = torch.empty((n, na, nb // 2 + 1, 2), device=maps.device, dtype=maps.dtype)
-            spec.view(n, -1).addmm_(tpl[:, i : i + n].T, spec_maps, beta=0, alpha=1.0 / (na * nb))
-            spec = torch.view_as_complex(spec).mul_(otf[i : i + n])
-            chunks.append(torch.fft.irfft2(spec, s=(na, nb), norm="forward"))
+        for i in range(0, otf.shape[0], chunk):
+            o = otf[i : i + chunk]
+            if tpl is None:
+                chunks.append(idft(dft(x[i : i + chunk]).mul_(o), (na, nb)))
+            else:
+                spec = torch.empty(o.shape + (2,), device=x.device, dtype=x.dtype)
+                spec.view(o.shape[0], -1).addmm_(tpl[:, i : i + chunk].T, spec_maps, beta=0,
+                                                 alpha=1.0 / (na * nb))
+                chunks.append(torch.fft.irfft2(torch.view_as_complex(spec).mul_(o), s=(na, nb),
+                                               norm="forward"))
     return chunks
 
 
 def cube_planes(chunks: List[torch.Tensor], start: int, stop: int) -> List[torch.Tensor]:
     """λ-planes start..stop of a cube held as consecutive chunks
-    (:func:`lmm_conv_otf`): views of the chunks they lie in, in order."""
+    (:func:`conv_otf_chunks`): views of the chunks they lie in, in order."""
     out, lo = [], 0
     for c in chunks:
         hi = lo + c.shape[0]
@@ -519,21 +498,29 @@ def cube_planes(chunks: List[torch.Tensor], start: int, stop: int) -> List[torch
     return out
 
 
-def lmm_conv_otf_t(cube: torch.Tensor, tpl: torch.Tensor, otf: torch.Tensor,
-                   chunk: int = CONV_OTF_CHUNK) -> torch.Tensor:
-    """Tᵗ Cᴴ, the exact transpose of :func:`lmm_conv_otf`: cube [L, Na, Nb]
-    → maps [M, Na, Nb] (`cube` is read, not written).
+def conv_otf_chunks_t(cube: torch.Tensor, otf: torch.Tensor, tpl: Optional[torch.Tensor] = None,
+                      chunk: int = CONV_OTF_CHUNK) -> torch.Tensor:
+    """Tᵗ Cᴴ, the exact transpose of :func:`conv_otf_chunks`: cube
+    [L, Na, Nb] → the maps [M, Na, Nb], or in cube mode (`tpl` None) the
+    cube.  `cube` is the caller's temporary: cube mode overwrites it with
+    the result, chunk by chunk, and returns it (a second output cube would
+    add one to the peak); with templates it is read, not written.
 
-    The inverse real DFT is real-linear, so
-    ``Σ_λ tpl[m, λ]·irfft2(s_λ) = irfft2(Σ_λ tpl[m, λ]·s_λ)``: each chunk of
-    `chunk` λ-planes is transformed, multiplied by conj(otf) and mixed into
-    an [M, Na, Nb//2+1] spectrum (one real GEMM over the interleaved real
-    and imaginary parts, accumulating), and only the M maps are transformed
-    back.  The unitary pair's scale is the GEMMs' `alpha`, as in the
-    forward."""
+    Each chunk of `chunk` λ-planes is transformed and multiplied by
+    conj(otf).  With templates, the inverse real DFT is real-linear, so
+    ``Σ_λ tpl[m, λ]·irfft2(s_λ) = irfft2(Σ_λ tpl[m, λ]·s_λ)``: the chunk
+    is mixed into an [M, Na, Nb//2+1] spectrum (one real GEMM over the
+    interleaved real and imaginary parts, accumulating, the unitary scale
+    its `alpha`), and only the M maps are transformed back.  In cube mode
+    each chunk is the unitary pair's ``idft(dft(chunk) · conj(otf))``."""
     n_lambda, na, nb = cube.shape
-    m = tpl.shape[0]
-    with span(SPAN_CONV_MAPS):
+    with span(SPAN_CONV_CUBE if tpl is None else SPAN_CONV_MAPS):
+        if tpl is None:
+            for i in range(0, n_lambda, chunk):
+                cube[i : i + chunk] = idft(dft(cube[i : i + chunk]).mul_(otf[i : i + chunk].conj()),
+                                           (na, nb))
+            return cube
+        m = tpl.shape[0]
         acc = torch.empty((m, na, nb // 2 + 1, 2), device=cube.device, dtype=cube.dtype)
         for i in range(0, n_lambda, chunk):
             n = min(chunk, n_lambda - i)

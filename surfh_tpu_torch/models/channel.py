@@ -514,9 +514,9 @@ class Channel:
     # runs every kernel's plain version instead (the comparison on the card).
     def bbox_rows(self, planes) -> torch.Tensor:
         """The FOV-bbox patch of λ-planes [W, Na, Nb], or of a list of
-        consecutive pieces of them (a cube held in chunks,
-        `fft.cube_planes`), laid out pixel-major for the gather: [ha·wb, W]
-        (a copy)."""
+        consecutive pieces of them (the λ-chunks of
+        `fft.conv_otf_chunks`, cut by `fft.cube_planes`), laid out
+        pixel-major for the gather: [ha·wb, W] (a copy)."""
         a0, b0, ha, wb = self.tbbox
         if not isinstance(planes, torch.Tensor):
             return torch.cat([p[:, a0 : a0 + ha, b0 : b0 + wb].permute(1, 2, 0) for p in planes],

@@ -20,8 +20,8 @@ Counterpart of `surfh_tpu/models/spectro.py::SpectroSigRLSCT`:
     it where `conv_freq_rtol` cuts nothing) — and `fft.lmm_conv_otf_rows`
     on Q = W planes;
   - window FFT (`conv_impl="fft"`, a materialized `sotf`): the window's
-    cube through `fft.lmm_conv_otf` / `_t` (templates) or `fft.conv_otf_`
-    (cube mode), its FOV bbox laid out as rows.
+    cube through `fft.conv_otf_chunks` / `_t`, its FOV bbox laid out as
+    rows.
   Rank and dense channels mix in one model, as in the reference.
 * non-window-local with a materialized OTF `sotf` (reference `_forward_fn`
   / `_adjoint_fn_const`, the path of the CLI and the real-data pipeline):
@@ -29,10 +29,13 @@ Counterpart of `surfh_tpu/models/spectro.py::SpectroSigRLSCT`:
   channel the λ-window's FOV-bbox patch laid out as ``[ha·wb, W]`` rows and
   the same per-pointing chain on W λ-planes, with the spectral blur dense
   or banded (`core.wblur_banded`); the adjoint scatter-adds the windows
-  into the cube, convolves with conj(sotf) and applies Tᵗ.  With templates
-  T is mixed into the conv in the frequency domain (`fft.lmm_conv_otf` /
-  `_t`: the M maps are transformed once, and each λ-plane once a
-  direction); cube mode convolves the cube in place (`fft.conv_otf_`).
+  into the cube, convolves with conj(sotf) and applies Tᵗ, both through
+  `fft.conv_otf_chunks` / `_t`: with templates T is mixed into the conv in
+  the frequency domain (the M maps are transformed once, and each λ-plane
+  once a direction); in cube mode the conv reads the cube's own planes.
+  The forward holds the blurred cube as its λ-chunks; the adjoint's
+  scatter-added cube is the operator's temporary, which cube mode's
+  transpose overwrites.
 * cube mode (``templates=None``) in both: the input is the cube itself
   (window-local: each channel reads and adds into its λ-window).
 
@@ -47,10 +50,10 @@ Under `torch.profiler` the operator records host-lane spans
 (`utils.profiling.span`): ``surfh.op.normal`` around each `normal`, and
 ``surfh.op.band.<band>`` (the channel's instrument name, else its index)
 around each channel's part of the forward, the adjoint and the
-window-local normal; `fft.lmm_conv_otf` / `_t` record
-``surfh.op.conv.maps`` around each call, and cube mode records
-``surfh.op.conv.cube`` around each call of its conv (`fft.conv_otf` /
-`conv_otf_`: twice a W-plane normal, per band on the window-FFT route).
+window-local normal; `fft.conv_otf_chunks` / `_t` record
+``surfh.op.conv.maps`` around each call with templates and
+``surfh.op.conv.cube`` around each call in cube mode (twice a W-plane
+normal, per band on the window-FFT route).
 """
 
 from __future__ import annotations
@@ -78,7 +81,6 @@ from .channel import Channel, gather_device_tables
 
 TABLE_CACHE_VERSION = 1
 SPAN_NORMAL, SPAN_BAND = "surfh.op.normal", "surfh.op.band."
-SPAN_CONV_CUBE = "surfh.op.conv.cube"  # around each cube-mode call of `fft.conv_otf_` / `conv_otf`
 # the modules whose code builds the cached tables: their bytes are part of the key
 _TABLE_SOURCES = ("models/spectro.py", "models/channel.py", "models/slicer.py", "core/fft.py",
                   "core/bilinear.py", "core/gather_rows.py", "instrument/geometry.py",
@@ -573,9 +575,13 @@ class SpectroSigRLSCT:
             raise RuntimeError("call .to(device, dtype) before applying the model")
         return torch.as_tensor(y).to(device=self.device, dtype=self.dtype).reshape(-1)
 
-    def _tpl_w(self, c: int) -> torch.Tensor:
+    def _tpl_w(self, c: int, lo: int, hi: int) -> Optional[torch.Tensor]:
+        """Columns lo..hi of channel c's λ-window of the templates [M, hi - lo];
+        None in cube mode."""
+        if not self.lmm:
+            return None
         ws = self.channels[c].wslice
-        return self._templates()[:, ws.start : ws.stop]
+        return self._templates()[:, ws.start + lo : ws.start + hi]
 
     def _rank_band(self, c: int) -> bool:
         """Channel c convolves through its λ-rank basis (window-local)."""
@@ -596,18 +602,15 @@ class SpectroSigRLSCT:
         lo, hi = (0, self._n_cols(c)) if cols is None else cols
         if self._rank_band(c):
             return fft.lmm_conv_rank_rows(x[lo:hi], t["otf_re"], t["otf_im"], t["dftm"])
-        ws = self.channels[c].wslice
+        tpl, ws = self._tpl_w(c, lo, hi), self.channels[c].wslice
+        if tpl is None:
+            x = x[ws.start + lo : ws.start + hi]
         if self.window_local and "otf" in t:
             o_re, o_im = t["otf"][0][lo:hi], t["otf"][1][lo:hi]
-            if self.lmm:
-                return fft.lmm_conv_otf_rows(x, self._tpl_w(c)[:, lo:hi], o_re, o_im, t["dftm"])
-            return fft.conv_otf_matmul_rows(x[ws.start + lo : ws.start + hi], o_re, o_im, t["dftm"])
-        otf_w = self._sotf_w(c, lo, hi)
-        if self.lmm:
-            return self.channels[c].bbox_rows(fft.lmm_conv_otf(x, self._tpl_w(c)[:, lo:hi], otf_w))
-        with span(SPAN_CONV_CUBE):
-            cube_w = fft.conv_otf(x[ws.start + lo : ws.start + hi].clone(), otf_w)
-        return self.channels[c].bbox_rows(cube_w)
+            if tpl is None:
+                return fft.conv_otf_matmul_rows(x, o_re, o_im, t["dftm"])
+            return fft.lmm_conv_otf_rows(x, tpl, o_re, o_im, t["dftm"])
+        return self.channels[c].bbox_rows(fft.conv_otf_chunks(x, self._sotf_w(c, lo, hi), tpl))
 
     def _conv_t(self, rows, c, cols=None):
         """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the
@@ -616,19 +619,15 @@ class SpectroSigRLSCT:
         lo, hi = (0, self._n_cols(c)) if cols is None else cols
         if self._rank_band(c):
             return fft.lmm_conv_rank_rows_t(rows, t["otf_re"], t["otf_im"], t["dftm"])
+        tpl = self._tpl_w(c, lo, hi)
         if self.window_local and "otf" in t:
             o_re, o_im = t["otf"][0][lo:hi], t["otf"][1][lo:hi]
-            if self.lmm:
-                return fft.lmm_conv_otf_rows_t(rows, self._tpl_w(c)[:, lo:hi], o_re, o_im, t["dftm"])
-            return fft.conv_otf_matmul_rows_t(rows, o_re, o_im, t["dftm"])
-        chan = self.channels[c]
+            if tpl is None:
+                return fft.conv_otf_matmul_rows_t(rows, o_re, o_im, t["dftm"])
+            return fft.lmm_conv_otf_rows_t(rows, tpl, o_re, o_im, t["dftm"])
         cube_w = torch.zeros((hi - lo,) + self.imshape, device=self.device, dtype=self.dtype)
-        chan.add_bbox_rows_(cube_w, rows)
-        otf_w = self._sotf_w(c, lo, hi)
-        if self.lmm:
-            return fft.lmm_conv_otf_t(cube_w, self._tpl_w(c)[:, lo:hi], otf_w)
-        with span(SPAN_CONV_CUBE):
-            return fft.conv_otf_(cube_w, otf_w, conj=True)
+        self.channels[c].add_bbox_rows_(cube_w, rows)
+        return fft.conv_otf_chunks_t(cube_w, self._sotf_w(c, lo, hi), tpl)
 
     def _sotf_w(self, c: int, lo: int, hi: int) -> torch.Tensor:
         """Planes lo..hi of channel c's λ-window OTF: its own table
@@ -765,30 +764,23 @@ class SpectroSigRLSCT:
             masks.append(global_img > threshold)
         return masks
 
-    def patch_rows(self, cube, c: int) -> torch.Tensor:
-        """Channel c's λ-window of the FOV-bbox patch of `cube` (a tensor, or
-        the chunks of :meth:`blurred_cube`), laid out pixel-major for the
+    def patch_rows(self, chunks: List[torch.Tensor], c: int) -> torch.Tensor:
+        """Channel c's λ-window of the FOV-bbox patch of a cube held as its
+        λ-chunks (:meth:`blurred_cube`), laid out pixel-major for the
         gather: [W, ha, wb] → [ha·wb, W] (a copy)."""
         ws = self.channels[c].wslice
-        if isinstance(cube, torch.Tensor):
-            return self.channels[c].bbox_rows(cube[ws.start : ws.stop])
-        return self.channels[c].bbox_rows(fft.cube_planes(cube, ws.start, ws.stop))
+        return self.channels[c].bbox_rows(fft.cube_planes(chunks, ws.start, ws.stop))
 
     def add_patch_rows_(self, cube: torch.Tensor, rows: torch.Tensor, c: int) -> None:
         """Transpose of :meth:`patch_rows`: add rows [ha·wb, W] into `cube`."""
         ws = self.channels[c].wslice
         self.channels[c].add_bbox_rows_(cube[ws.start : ws.stop], rows)
 
-    def blurred_cube(self, x) -> torch.Tensor | List[torch.Tensor]:
-        """C T x: the templates' cube convolved with the OTF (W-plane mode),
-        the templates mixed in the frequency domain and the cube held as its
-        λ-chunks (`fft.lmm_conv_otf`); in cube mode the cube itself
-        convolved, one tensor (`fft.conv_otf`)."""
-        x = self._x(x)
-        if self.lmm:
-            return fft.lmm_conv_otf(x, self.tables["templates"], self.tables["sotf"])
-        with span(SPAN_CONV_CUBE):
-            return fft.conv_otf(x.clone(), self.tables["sotf"])
+    def blurred_cube(self, x) -> List[torch.Tensor]:
+        """C T x (W-plane mode): the templates' cube, or in cube mode the cube
+        itself, convolved with the OTF and held as its λ-chunks
+        (`fft.conv_otf_chunks`)."""
+        return fft.conv_otf_chunks(self._x(x), self.tables["sotf"], self.tables["templates"])
 
     def forward(self, x, plain: bool = False) -> torch.Tensor:
         """Template maps [M, Na, Nb] (the cube in cube mode) → flat data
@@ -843,10 +835,7 @@ class SpectroSigRLSCT:
                 yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
                 self.add_patch_rows_(cube, chan.adjoint_rows(yc, self.tables["chan"][c], plain, banded),
                                      c)
-        if self.lmm:
-            return fft.lmm_conv_otf_t(cube, self.tables["templates"], self.tables["sotf"])
-        with span(SPAN_CONV_CUBE):
-            return fft.conv_otf_(cube, self.tables["sotf"], conj=True)
+        return fft.conv_otf_chunks_t(cube, self.tables["sotf"], self.tables["templates"])
 
     def normal(self, x, plain: bool = False) -> torch.Tensor:
         """HᵗH x.  Window-local mode fuses fwd∘adj per channel without

@@ -91,8 +91,9 @@ def span(name: str):
     The program's names start with ``surfh.``: ``surfh.solver.solve``,
     ``.iter`` and ``.host_read`` in `solvers/cg.py` and `solvers/huber.py`,
     ``surfh.solver.prior`` in `solvers/huber.py`, ``surfh.op.normal``,
-    ``surfh.op.band.<band>`` and ``surfh.op.conv.cube`` in
-    `models/spectro.py`, ``surfh.op.conv.maps`` in `core/fft.py`."""
+    ``surfh.op.band.<band>`` in `models/spectro.py`, ``surfh.op.conv.maps``
+    and ``surfh.op.conv.cube`` in `core/fft.py` (the FFT conv pair with
+    templates and in cube mode)."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch._C._profiler._RecordFunctionFast(name)
