@@ -22,12 +22,18 @@ for two processes on the one card) and BASELINE config 4 through
 the headline-measurement scripts and the user tools.
 
 1. device      — the card's name and power limit (nvidia-smi);
-2. build       — nvcc builds the four kernel sources from csrc/ into
+2. build       — nvcc builds the five kernel sources from csrc/ into
                  build/, one nvcc each, in parallel;
    normal-prior — the criterion's fused normal (`core.normal_prior`) on
                  the voxel cube's shape [3879, 501, 501] against the eager
                  twelve-kernel chain it replaces: bit for bit, kernel and
                  plain ms, the byte bound of three volumes, its share;
+   fft-conv    — kernel #8's three passes (`core.fft_conv`), the column
+                 pass in each mode the pair runs (maps mode also on a
+                 4-map spectrum) and a whole cube-mode conv direction on a
+                 256-plane chunk of 501² planes: errors against the plain
+                 versions and float64, kernel, plain and cuFFT ms, the
+                 bound (bytes, or 5 N log2 N operations a transform);
 3. host        — the flagship rank-mode host tables (NumPy, channels in
                  parallel), cold into a fresh disk-cache directory, then
                  again as a cache hit, bit for bit;
@@ -60,7 +66,8 @@ the headline-measurement scripts and the user tools.
                  dense pair's dot test, the banded pair's mismatch, banded
                  against dense, kernels against plain versions, launches per
                  normal application, times for both blurs, the main path
-                 (y, b, 10 lcg iterations);
+                 (y, b, 10 lcg iterations; the launches of #1, #2/#3, #7
+                 and #8 counted and checked);
 10. wlocal     — the dense window-local flagship (stamps, conv_freq_rtol
                  1e-6, conv_rank_rtol 0) over the rank model's channels:
                  the OTF windows evaluated on the card, the GEMM count of
@@ -969,6 +976,111 @@ def run_normal_prior_phase(dev, card: str, cuda_ms, bound, shape=CUBE_SHAPE) -> 
     del x, h
     torch.cuda.empty_cache()
     return {"ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms, "rows": rows}
+
+
+def run_fft_conv_phase(dev, card: str, cuda_ms, bound, planes: int = 256, n: int = 501,
+                       maps: int = 4) -> dict:
+    """Kernel #8 (`core.fft_conv`) on one λ-chunk of the flagship's planes
+    [planes, n, n] (the conv pair's chunk): each pass, the column pass in
+    each mode the pair runs (cube mode fwd·OTF·inv on the chunk; maps mode
+    fwd·conj(OTF) and OTF·inv on the chunk, fwd and inv alone on the
+    [maps, n, n // 2 + 1] maps' spectra) and the whole cube-mode conv
+    direction, against its plain version (the same algorithm in torch) and
+    cuFFT's spelling (`library_ms`); the f32 error against float64 cuFFT,
+    kernel ms, the bound (bytes over the memory rate or 5·N·log2 N
+    operations a transform, `fft_conv.fft_flops`, over the FP32 rate, the
+    larger), and beside it the kernels' own operations (`line_flops`) at
+    their issue rate; logs one `[kernel]` line each."""
+    import numpy as np
+    import torch
+
+    from surfh_tpu_torch.core import fft
+    from surfh_tpu_torch.core import fft_conv as fc
+
+    def rel(a, b) -> float:
+        return float((a.to(b.dtype) - b).abs().max() / b.abs().max())
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+    kb, rows = n // 2 + 1, planes * n
+    x = torch.rand((planes, n, n), generator=gen, device=dev)
+    stamps = np.random.default_rng(29).random((planes, min(40, n), min(40, n)))
+    otf = fft.ir2fr_device(stamps / stamps.sum(axis=(1, 2), keepdims=True), (n, n), device=dev)
+    spec = fc.rows_r2c(x)
+    spec_m = fc.rows_r2c(x[:maps])
+    scale = 1.0 / (n * n)
+    real_b, half_b, half_m = x.numel() * 4, spec.numel() * 8, spec_m.numel() * 8
+    row_lines, col_lines, col_m = (rows + 1) // 2, planes * kb, maps * kb
+    x64, otf64 = x[:8].double(), otf[:8].to(torch.complex128)
+    spec0, spec_m0 = spec.clone(), spec_m.clone()
+
+    def col_case(s0, o, conj, fwd, inv, sc):
+        """(kernel, checked call, plain, library) of one column mode on `s0`;
+        the kernel is timed in place on a copy whose values are not read."""
+        buf = s0.clone()
+        kern = lambda: fc.columns_(buf, o, forward=fwd, inverse=inv, conj=conj, scale=sc)
+        chk = lambda: fc.columns_(s0.clone(), o, forward=fwd, inverse=inv, conj=conj, scale=sc)
+        plain = lambda: fc.columns_plain(s0.clone(), o, forward=fwd, inverse=inv, conj=conj, scale=sc)
+
+        def lib():
+            z = torch.fft.fft(s0, dim=1) if fwd else s0
+            if o is not None:
+                z = z * (o.conj() if conj else o) * sc
+            return torch.fft.ifft(z, dim=1, norm="forward") if inv else z
+        return kern, chk, plain, lib
+
+    cases = {  # name: kernel, the call checked (None: the kernel's own), plain, library, float64
+        #         reference of the first 8 planes, bytes, transforms, OTF products
+        "rows_r2c": (lambda: fc.rows_r2c(x, out=spec), None, lambda: fc.rows_r2c_plain(x),
+                     lambda: torch.fft.rfft(x), torch.fft.rfft(x64), real_b + half_b, row_lines, 0),
+        "cols fwd*otf*inv": col_case(spec0, otf, False, True, True, 1.0 / n)
+        + (None, 3 * half_b, 2 * col_lines, col_lines * n),
+        "cols fwd*conj(otf)": col_case(spec0, otf, True, True, False, 1.0)
+        + (None, 3 * half_b, col_lines, col_lines * n),
+        "cols otf*inv": col_case(spec0, otf, False, False, True, 1.0)
+        + (None, 3 * half_b, col_lines, col_lines * n),
+        "cols fwd (maps)": col_case(spec_m0, None, False, True, False, 1.0)
+        + (None, 2 * half_m, col_m, 0),
+        "cols inv (maps)": col_case(spec_m0, None, False, False, True, 1.0)
+        + (None, 2 * half_m, col_m, 0),
+        "rows_c2r": (lambda: fc.rows_c2r(spec0, n), None, lambda: fc.rows_c2r_plain(spec0, n),
+                     lambda: torch.fft.irfft(spec0, n=n), None, real_b + half_b, row_lines, 0),
+        "cube direction": (
+            lambda: fft.conv_otf_chunks(x, otf)[0], None,
+            lambda: fc.rows_c2r_plain(fc.columns_plain(fc.rows_r2c_plain(x), otf, forward=True,
+                                                       inverse=True, scale=scale), n),
+            lambda: fft.idft(fft.dft(x) * otf, (n, n)),
+            torch.fft.irfft2(torch.fft.rfft2(x64) * otf64, s=(n, n)),
+            2 * real_b + 5 * half_b, 2 * row_lines + 2 * col_lines, col_lines * n),
+    }
+    out = {}
+    for name, (kern, checked, plain, lib, ref64, nbytes, lines, prods) in cases.items():
+        fc.reset_launches()
+        got = (checked or kern)()
+        want = plain()
+        torch.cuda.synchronize(dev)
+        err = rel(got, want)
+        err64 = rel(got[:8], ref64) if ref64 is not None else float("nan")
+        lib64 = rel(lib()[:8], ref64) if ref64 is not None else float("nan")
+        launches = fc.launches
+        ms_k, ms_p, ms_l = cuda_ms(kern, 20), cuda_ms(plain, 3), cuda_ms(lib, 20)
+        flops = lines * fc.fft_flops(n) + 6 * prods
+        own = lines * fc.line_flops(n) + 6 * prods
+        b_ms, by = bound(nbytes, flops)
+        shape = f"[{maps if '(maps)' in name else planes} x {n} x {kb if 'cols' in name else n}]"
+        log(f"[kernel] {card}: fft_conv {name} {shape} ({launches} launches): max rel "
+            f"err vs plain {err:.2e}, vs float64 {err64:.2e} (cuFFT {lib64:.2e}); kernel {ms_k:.4f} ms, "
+            f"plain {ms_p:.4f} ms, library (cuFFT) {ms_l:.4f} ms; bound {b_ms:.4f} ms by {by} "
+            f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP at 5 N log2 N) ({100 * b_ms / ms_k:.1f} %); "
+            f"the kernels' own {own / 1e9:.2f} GFLOP at {own / (ms_k * 1e-3) / 1e12:.1f} TFLOP/s")
+        check(err <= 1e-5 and (ref64 is None or err64 <= 2e-6), f"fft_conv {name}: {err:.3e} / {err64:.3e}")
+        out[name] = {"err": err, "err64": err64, "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l,
+                     "bound_ms": b_ms, "bound_by": by, "own_gflop": own / 1e9, "launches": launches}
+    whole = out["cube direction"]["ms"] * 3879 / planes
+    log(f"[kernel] {card}: fft_conv a cube-mode direction on the whole [3879, {n}, {n}] cube ≈ "
+        f"{whole:.2f} ms (cuFFT's spelling ≈ {out['cube direction']['library_ms'] * 3879 / planes:.2f} ms)")
+    del x, spec, spec0, spec_m, spec_m0, otf, cases
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_prior_route(crit, x, tag: str) -> None:
@@ -2426,6 +2538,7 @@ def main(argv=None) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from surfh_tpu_torch.core import _build, fft
+    from surfh_tpu_torch.core import fft_conv as fc
     from surfh_tpu_torch.core import gather_fixed as gf
     from surfh_tpu_torch.core import gather_rows as gr
     from surfh_tpu_torch.core import normal_prior as fused
@@ -2461,11 +2574,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as ex:  # one nvcc per source, all at once
         for f in [ex.submit(gr.load_kernel), ex.submit(wb.load_kernels),
-                  ex.submit(gf.load_kernels), ex.submit(fused.load_kernel)]:
+                  ex.submit(gf.load_kernels), ex.submit(fused.load_kernel), ex.submit(fc.load_kernels)]:
             f.result()
-    log(f"[build] gather_rows.cu, wblur_banded.cu, gather_fixed.cu, normal_prior.cu -> "
+    log(f"[build] gather_rows.cu, wblur_banded.cu, gather_fixed.cu, normal_prior.cu, fft_conv.cu -> "
         f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
-    for name in ("gather_rows", "wblur_banded", "normal_prior"):
+    for name in ("gather_rows", "wblur_banded", "normal_prior", "fft_conv"):
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] ptxas {name}: {line.strip()}")
@@ -2484,6 +2597,8 @@ def main(argv=None) -> int:
 
     # the criterion's fused normal on the voxel cube's shape, before anything else holds the card
     prior = run_normal_prior_phase(dev, card, cuda_ms, bound)
+    fconv = run_fft_conv_phase(dev, card, cuda_ms, bound)
+    conv_paths = {"fft_conv_phase": sum(r["launches"] for r in fconv.values())}
 
     # 3. host tables: cold into a fresh cache directory, then a cache hit --
     bands = args.bands.split(",") if args.bands else None
@@ -2793,7 +2908,8 @@ def main(argv=None) -> int:
     t_rel = cuda_ms(lambda: [wmodel.patch_rows(chunks, c) for c in range(n_c)], 5)
     t_rel_t = cuda_ms(lambda: [wmodel.add_patch_rows_(cube, rows[c], c) for c in range(n_c)], 5)
     log(f"[wplane] {card}: T (maps -> cube {tuple(cube.shape)}) {t_lmm:.3f} ms; FFT stage "
-        f"(rfft2 * sotf, irfft2, {fft.CONV_OTF_CHUNK}-plane chunks out, the cube read) {t_fft:.3f} ms per "
+        f"(kernel #8: rows r2c, columns x sotf, rows c2r, {fft.CONV_OTF_CHUNK}-plane chunks out, the cube "
+        f"read) {t_fft:.3f} ms per "
         f"direction; bbox relayout [W, ha, wb] -> [ha*wb, W] {t_rel:.3f} ms, back (add into "
         f"the cube) {t_rel_t:.3f} ms, all {n_c} bands; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     del cube, chunks, rows
@@ -2861,6 +2977,7 @@ def main(argv=None) -> int:
     gr.reset_launches()
     wb.reset_launches()
     fused.reset_launches()
+    fc.reset_launches()
     t0 = time.perf_counter()
     y_w = wmodel.forward(truth)
     wcrit = QuadCriterion_MRS(1.0, y_w, wmodel, mu_reg)
@@ -2869,15 +2986,22 @@ def main(argv=None) -> int:
     t_wmain = time.perf_counter() - t0
     wmain = (gr.launches, wb.launches, wb.launches_t)
     prior_paths["wplane"] = fused.launches
+    conv_paths["wplane"] = fc.launches
     n_app = wres.n_iter + 1
     expect_w = (2 * n_pt + 2 * n_pt * n_app, n_pt * (1 + n_app), n_pt * (1 + n_app))
+    # kernel #8 with templates: the maps' two passes and two a λ-chunk, each
+    # direction; a direction for y, one for Hᵗy and two a normal
+    per_dir = 2 + 2 * -(-wmodel.cube_shape[0] // fft.CONV_OTF_CHUNK)
+    expect_conv = per_dir * (2 + 2 * n_app)
     wgn = wres.grad_norm
     log(f"[wplane] main path (y, b, {wres.n_iter} lcg it, mu_reg={mu_reg:g}) in {t_wmain:.3f} s; "
         f"launches gather_rows / wblur_banded / wblur_banded_t {wmain} (expected {expect_w}; "
         f"add-the-parts passes {wb.launches_sum}); fused normal launches {prior_paths['wplane']} "
-        f"(expected {n_app}); grad norms {wgn.tolist()}")
+        f"(expected {n_app}); fft_conv launches {conv_paths['wplane']} (expected {expect_conv}: "
+        f"{per_dir} a direction); grad norms {wgn.tolist()}")
     check(wmain == expect_w and min(wmain) > 0, "W-plane main-path launches")
     check(prior_paths["wplane"] == n_app, "W-plane main-path fused normal launches")
+    check(conv_paths["wplane"] == expect_conv, "W-plane main-path fft_conv launches")
     check_prior_route(wcrit, truth, "[wplane]")
     check(bool(torch.isfinite(wcrit.b).all()) and bool(torch.isfinite(wres.x).all()), "W-plane b, x finite")
     check(wres.n_iter == 10 and bool(np.isfinite(wgn).all()) and wgn[-1] < wgn[0],
@@ -3078,7 +3202,32 @@ def main(argv=None) -> int:
         "plain_ms": prior["plain_ms"],
         "bound_ms": prior["bound_ms"],
         "bound_by": "bytes",
-    }]}))
+    }] + [{
+        "name": "fft_conv",
+        "route": "cuda",
+        "source": "surfh_tpu_torch/csrc/fft_conv.cu",
+        "replaces": None,  # cuFFT's rfft2 / irfft2 and the OTF product; XLA's FFT on the TPU
+        "launches": sum(conv_paths.values()),
+        "launches_by_path": conv_paths,
+        "max_rel_err": fconv["cube direction"]["err"],
+        "ms": fconv["cube direction"]["ms"],
+        "plain_ms": fconv["cube direction"]["plain_ms"],
+        "bound_ms": fconv["cube direction"]["bound_ms"],
+        "bound_by": fconv["cube direction"]["bound_by"],
+        "library_ms": fconv["cube direction"]["library_ms"],
+    }] + [{
+        "name": f"fft_conv {name}",
+        "route": "cuda",
+        "source": "surfh_tpu_torch/csrc/fft_conv.cu",
+        "replaces": None,  # cuFFT's rfft2 / irfft2 and the OTF product; XLA's FFT on the TPU
+        "launches": r["launches"],
+        "max_rel_err": r["err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+    } for name, r in fconv.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ bit-identical tables); the device side is the λ-rank fused T·C conv
 the W-plane path, the unitary `dft` / `idft` pair (cuFFT on the card, as
 the reference leaves it to `jnp.fft`), the chunked OTF conv pair
 `conv_otf_chunks` / `_t` (the templates mixed in the frequency domain, or
-in cube mode the cube's own planes) and a device `ir2fr` that builds the
-materialized OTF from the PSF stamps.
+in cube mode the cube's own planes; on the card in float32 through kernel
+#8, `core/fft_conv.py`) and a device `ir2fr` that builds the materialized
+OTF from the PSF stamps.
 
 Layout.  The reference keeps the rank-basis patch as ``[Q, ha, wb]``; the
 row-gather kernel downstream wants one contiguous ``Q``-wide row per patch
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
-from . import lmm
+from . import fft_conv, lmm
 from .precision import require_cuda, require_highest
 
 # ---------------------------------------------------------------------------
@@ -442,7 +443,7 @@ def convolve_freq(cube: torch.Tensor, otf: torch.Tensor, im_shape: Tuple[int, in
     return idft(dft(cube) * otf, im_shape)
 
 
-CONV_OTF_CHUNK = 256  # λ-planes per cuFFT call of `conv_otf_chunks` / `_t`
+CONV_OTF_CHUNK = 256  # λ-planes per transform call of `conv_otf_chunks` / `_t`
 SPAN_CONV_MAPS = "surfh.op.conv.maps"  # around each call of `conv_otf_chunks` / `_t` with templates
 SPAN_CONV_CUBE = "surfh.op.conv.cube"  # around each call without (cube mode)
 
@@ -462,14 +463,17 @@ def conv_otf_chunks(x: torch.Tensor, otf: torch.Tensor, tpl: Optional[torch.Tens
     parts), and the unitary pair's two 1/√(Na·Nb) are the GEMM's `alpha`
     around unscaled transforms.  In cube mode each chunk is the unitary
     pair's ``idft(dft(chunk) · otf)``.  Either way the chunks are the
-    inverse transforms' own outputs: no plane is copied (cuFFT's ``out=``
-    would add a pass), and no whole-cube spectrum or FFT workspace is held.
+    inverse transforms' own outputs: no plane is copied, and no whole-cube
+    spectrum or FFT workspace is held.
     Where autograd tracks `x` the route is the out-of-place T then
-    :func:`convolve_freq`, one chunk (a derived transpose)."""
+    :func:`convolve_freq`, one chunk (a derived transpose).  A float32 `x`
+    on the card takes kernel #8 (:func:`_conv_chunks_card`)."""
     na, nb = x.shape[-2:]
     with span(SPAN_CONV_CUBE if tpl is None else SPAN_CONV_MAPS):
         if x.requires_grad and torch.is_grad_enabled():
             return [convolve_freq(x if tpl is None else lmm.lmm_maps2cube(x, tpl), otf, (na, nb))]
+        if _on_kernel(x):
+            return _conv_chunks_card(x.contiguous(), otf, tpl, chunk)
         if tpl is not None:
             spec_maps = torch.view_as_real(torch.fft.rfft2(x)).reshape(x.shape[0], -1)
         chunks = []
@@ -512,9 +516,14 @@ def conv_otf_chunks_t(cube: torch.Tensor, otf: torch.Tensor, tpl: Optional[torch
     is mixed into an [M, Na, Nb//2+1] spectrum (one real GEMM over the
     interleaved real and imaginary parts, accumulating, the unitary scale
     its `alpha`), and only the M maps are transformed back.  In cube mode
-    each chunk is the unitary pair's ``idft(dft(chunk) · conj(otf))``."""
+    each chunk is the unitary pair's ``idft(dft(chunk) · conj(otf))``.  A
+    float32 `cube` on the card takes kernel #8 (:func:`_conv_chunks_t_card`);
+    there a strided `cube` is copied first, and the copy is the one
+    overwritten and returned."""
     n_lambda, na, nb = cube.shape
     with span(SPAN_CONV_CUBE if tpl is None else SPAN_CONV_MAPS):
+        if _on_kernel(cube):
+            return _conv_chunks_t_card(cube.contiguous(), otf, tpl, chunk)
         if tpl is None:
             for i in range(0, n_lambda, chunk):
                 cube[i : i + chunk] = idft(dft(cube[i : i + chunk]).mul_(otf[i : i + chunk].conj()),
@@ -528,6 +537,70 @@ def conv_otf_chunks_t(cube: torch.Tensor, otf: torch.Tensor, tpl: Optional[torch
             acc.view(m, -1).addmm_(tpl[:, i : i + n], torch.view_as_real(spec).reshape(n, -1),
                                    beta=0 if i == 0 else 1, alpha=1.0 / (na * nb))
         return torch.fft.irfft2(torch.view_as_complex(acc), s=(na, nb), norm="forward")
+
+
+def _on_kernel(x: torch.Tensor) -> bool:
+    """The pair's route, from the planes' device, dtype and shape alone:
+    float32 on the card with each axis within kernel #8's reach.  Strided
+    planes are made contiguous by the caller; an OTF the kernels do not take
+    (not contiguous complex64) makes them raise."""
+    return x.is_cuda and x.dtype == torch.float32 and fft_conv.fits(*x.shape[-2:])
+
+
+def _conv_chunks_card(x, otf, tpl, chunk: int) -> List[torch.Tensor]:
+    """:func:`conv_otf_chunks` through kernel #8: per chunk the rows' half
+    spectra into one reused spectrum (cube mode) or the templates' mix of
+    the maps' spectra (the GEMM as on the `torch.fft` route), the column
+    pass (forward, × otf with the pair's 1/(Na·Nb), inverse; or × otf,
+    inverse), and the real rows written into a new chunk."""
+    n_lambda, (na, nb) = otf.shape[0], x.shape[-2:]
+    spec = torch.empty((min(chunk, n_lambda), na, nb // 2 + 1), dtype=x.dtype.to_complex(),
+                       device=x.device)
+    if tpl is not None:
+        spec_maps = fft_conv.columns_(fft_conv.rows_r2c(x), forward=True, inverse=False)
+        spec_maps = torch.view_as_real(spec_maps).reshape(x.shape[0], -1)
+    chunks = []
+    for i in range(0, n_lambda, chunk):
+        o = otf[i : i + chunk]
+        s = spec[: o.shape[0]]
+        if tpl is None:
+            fft_conv.columns_(fft_conv.rows_r2c(x[i : i + chunk], out=s), o, forward=True,
+                              inverse=True, scale=1.0 / (na * nb))
+        else:
+            torch.view_as_real(s).view(o.shape[0], -1).addmm_(tpl[:, i : i + chunk].T, spec_maps,
+                                                               beta=0, alpha=1.0 / (na * nb))
+            fft_conv.columns_(s, o, forward=False, inverse=True)
+        chunks.append(fft_conv.rows_c2r(s, nb))
+    return chunks
+
+
+def _conv_chunks_t_card(cube, otf, tpl, chunk: int) -> torch.Tensor:
+    """:func:`conv_otf_chunks_t` through kernel #8: per chunk the rows' half
+    spectra, the column pass (forward, × conj(otf) with the pair's
+    1/(Na·Nb), inverse) and the real rows written back into the chunk's
+    planes of `cube`; with templates the column pass stops at the product,
+    the chunk is mixed into the maps' spectrum (the GEMM as on the
+    `torch.fft` route), and the maps are transformed back at the end."""
+    n_lambda, na, nb = cube.shape
+    spec = torch.empty((min(chunk, n_lambda), na, nb // 2 + 1), dtype=cube.dtype.to_complex(),
+                       device=cube.device)
+    if tpl is not None:
+        m = tpl.shape[0]
+        acc = torch.empty((m, na, nb // 2 + 1), dtype=cube.dtype.to_complex(), device=cube.device)
+    for i in range(0, n_lambda, chunk):
+        n = min(chunk, n_lambda - i)
+        s = fft_conv.rows_r2c(cube[i : i + n], out=spec[:n])
+        if tpl is None:
+            fft_conv.columns_(s, otf[i : i + n], forward=True, inverse=True, conj=True,
+                              scale=1.0 / (na * nb))
+            fft_conv.rows_c2r(s, nb, out=cube[i : i + n])
+        else:
+            fft_conv.columns_(s, otf[i : i + n], forward=True, inverse=False, conj=True)
+            torch.view_as_real(acc).view(m, -1).addmm_(tpl[:, i : i + n], torch.view_as_real(s).view(n, -1),
+                                                       beta=0 if i == 0 else 1, alpha=1.0 / (na * nb))
+    if tpl is None:
+        return cube
+    return fft_conv.rows_c2r(fft_conv.columns_(acc, forward=False, inverse=True), nb)
 
 
 def ir2fr_device(imp_resp, shape: Tuple[int, int], device=None,

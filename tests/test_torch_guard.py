@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "surfh_tpu_torch.core.lmm",
     "surfh_tpu_torch.core.gather_fixed",
     "surfh_tpu_torch.core.normal_prior",
+    "surfh_tpu_torch.core.fft_conv",
     "surfh_tpu_torch.core.linop",
     "surfh_tpu_torch.core.nearest",
     "surfh_tpu_torch.models.blind2d",

@@ -94,7 +94,8 @@ def test_library_name_hashes_every_file_the_build_reads(tmp_path, monkeypatch):
     from surfh_tpu_torch.core import _build
 
     libs = {"gather_rows": ["gather_rows.cu"], "gather_fixed": ["gather_fixed.cu"],
-            "wblur_banded": ["wblur_banded.cu"], "normal_prior": ["normal_prior.cu"]}
+            "wblur_banded": ["wblur_banded.cu"], "normal_prior": ["normal_prior.cu"],
+            "fft_conv": ["fft_conv.cu"]}
     assert _build.build_inputs(libs["gather_rows"]) == ["gather_rows.cu", "gather_lanes.cuh"]
     assert _build.build_inputs(libs["gather_fixed"]) == ["gather_fixed.cu", "gather_lanes.cuh"]
     # every file of csrc/ is read by some build, and every include is a file there
@@ -112,6 +113,7 @@ def test_library_name_hashes_every_file_the_build_reads(tmp_path, monkeypatch):
     assert after["gather_fixed"] != before["gather_fixed"]
     assert after["wblur_banded"] == before["wblur_banded"]
     assert after["normal_prior"] == before["normal_prior"]
+    assert after["fft_conv"] == before["fft_conv"]
     with open(csrc / "wblur_banded.cu", "a") as f:
         f.write("// edited\n")
     assert _build.library_path("wblur_banded", libs["wblur_banded"]) != before["wblur_banded"]
