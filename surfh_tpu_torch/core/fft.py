@@ -25,7 +25,8 @@ and their transposes) keeps the OTF window in the reference layout
 ``[W, Ka', Kb']`` (a view of a materialized sotf where nothing is cut) and
 runs the inverse α-stage batched over the W planes; its last GEMM reads
 each pixel row's ``[Kb', W]`` slab with strides and writes ``[ha·wb, W]``
-rows, and the transpose's first GEMM reads them the same way.
+rows, and the transpose's first GEMM reads them the same way.  Each call of
+the pair records the span ``surfh.op.conv.window`` under a profiler.
 """
 
 from __future__ import annotations
@@ -344,6 +345,9 @@ def otf_from_stamps(psf: torch.Tensor, st: dict, precision: str = "highest", chu
     return otf_re, otf_im
 
 
+SPAN_CONV_WINDOW = "surfh.op.conv.window"  # around each call of the dense window conv pair
+
+
 def _idft_rows(t_re: torch.Tensor, t_im: torch.Tensor, m: dict) -> torch.Tensor:
     """Inverse of a [W, Ka', Kb'] spectrum onto the FOV bbox, ROW layout
     [ha·wb, W]: the α-stage in Gauss 3M form batched over the W planes, then
@@ -374,39 +378,43 @@ def lmm_conv_otf_rows(maps, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
     `fft.lmm_conv_otf_matmul`): maps [M, Na, Nb], templates tpl_w [M, W],
     OTF window [W, Ka', Kb'] → [ha·wb, W].  The forward DFT runs on the M
     maps; the templates mix the spectra into the W planes."""
-    zm_re, zm_im = _dft_maps(maps, m)  # [M, Ka', Kb']
-    n_map, ka, kb = zm_re.shape
-    zw_re = (tpl_w.T @ zm_re.reshape(n_map, -1)).view(-1, ka, kb)  # 'mck,mw->wck'
-    zw_im = (tpl_w.T @ zm_im.reshape(n_map, -1)).view(-1, ka, kb)
-    t_re = zw_re * otf_re - zw_im * otf_im
-    t_im = zw_re * otf_im + zw_im * otf_re
-    return _idft_rows(t_re, t_im, m)
+    with span(SPAN_CONV_WINDOW):
+        zm_re, zm_im = _dft_maps(maps, m)  # [M, Ka', Kb']
+        n_map, ka, kb = zm_re.shape
+        zw_re = (tpl_w.T @ zm_re.reshape(n_map, -1)).view(-1, ka, kb)  # 'mck,mw->wck'
+        zw_im = (tpl_w.T @ zm_im.reshape(n_map, -1)).view(-1, ka, kb)
+        t_re = zw_re * otf_re - zw_im * otf_im
+        t_im = zw_re * otf_im + zw_im * otf_re
+        return _idft_rows(t_re, t_im, m)
 
 
 def lmm_conv_otf_rows_t(g, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
     """Exact transpose of :func:`lmm_conv_otf_rows` (reference
     `lmm_conv_otf_matmul_t`, term by term): rows [ha·wb, W] → [M, Na, Nb]."""
-    t_re, t_im = _idft_rows_t(g, m)
-    zw_re = t_re * otf_re + t_im * otf_im
-    zw_im = -t_re * otf_im + t_im * otf_re
-    w, ka, kb = zw_re.shape
-    zm_re = (tpl_w @ zw_re.reshape(w, -1)).view(-1, ka, kb)  # 'wck,mw->mck'
-    zm_im = (tpl_w @ zw_im.reshape(w, -1)).view(-1, ka, kb)
-    return _dft_maps_t(zm_re, zm_im, m)
+    with span(SPAN_CONV_WINDOW):
+        t_re, t_im = _idft_rows_t(g, m)
+        zw_re = t_re * otf_re + t_im * otf_im
+        zw_im = -t_re * otf_im + t_im * otf_re
+        w, ka, kb = zw_re.shape
+        zm_re = (tpl_w @ zw_re.reshape(w, -1)).view(-1, ka, kb)  # 'wck,mw->mck'
+        zm_im = (tpl_w @ zw_im.reshape(w, -1)).view(-1, ka, kb)
+        return _dft_maps_t(zm_re, zm_im, m)
 
 
 def conv_otf_matmul_rows(x, otf_re, otf_im, m: dict) -> torch.Tensor:
     """Cube-mode conv of a window x [W, Na, Nb] onto the FOV bbox, ROW
     layout (reference `fft.conv_otf_matmul`): [ha·wb, W]."""
-    za_re, za_im = _dft_maps(x, m)  # [W, Ka', Kb']
-    return _idft_rows(za_re * otf_re - za_im * otf_im, za_re * otf_im + za_im * otf_re, m)
+    with span(SPAN_CONV_WINDOW):
+        za_re, za_im = _dft_maps(x, m)  # [W, Ka', Kb']
+        return _idft_rows(za_re * otf_re - za_im * otf_im, za_re * otf_im + za_im * otf_re, m)
 
 
 def conv_otf_matmul_rows_t(g, otf_re, otf_im, m: dict) -> torch.Tensor:
     """Exact transpose of :func:`conv_otf_matmul_rows` (reference
     `conv_otf_matmul_t`, term by term): rows [ha·wb, W] → [W, Na, Nb]."""
-    t_re, t_im = _idft_rows_t(g, m)
-    return _dft_maps_t(t_re * otf_re + t_im * otf_im, -t_re * otf_im + t_im * otf_re, m)
+    with span(SPAN_CONV_WINDOW):
+        t_re, t_im = _idft_rows_t(g, m)
+        return _dft_maps_t(t_re * otf_re + t_im * otf_im, -t_re * otf_im + t_im * otf_re, m)
 
 
 # ---------------------------------------------------------------------------

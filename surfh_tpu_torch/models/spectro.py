@@ -53,7 +53,8 @@ around each channel's part of the forward, the adjoint and the
 window-local normal; `fft.conv_otf_chunks` / `_t` record
 ``surfh.op.conv.maps`` around each call with templates and
 ``surfh.op.conv.cube`` around each call in cube mode (twice a W-plane
-normal, per band on the window-FFT route).
+normal, per band on the window-FFT route); the dense window-local conv
+pair records ``surfh.op.conv.window`` (twice a band a normal).
 """
 
 from __future__ import annotations

@@ -93,7 +93,9 @@ def span(name: str):
     ``surfh.solver.prior`` in `solvers/huber.py`, ``surfh.op.normal``,
     ``surfh.op.band.<band>`` in `models/spectro.py`, ``surfh.op.conv.maps``
     and ``surfh.op.conv.cube`` in `core/fft.py` (the FFT conv pair with
-    templates and in cube mode)."""
+    templates and in cube mode), and ``surfh.op.conv.window`` there (the
+    dense window-local conv pair, `lmm_conv_otf_rows` / `_t` and
+    `conv_otf_matmul_rows` / `_t`)."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NO_SPAN
     return torch._C._profiler._RecordFunctionFast(name)

@@ -7,7 +7,8 @@ none (``python -m pytest --noconftest tests/test_torch_spans.py -m cuda``).
 * Under `torch.profiler` a 3-iteration solve on a small `SpectroSigRLSCT`,
   in W-plane and window-local mode, with `lcg` and `mmmg`, each loop:
   the exact count of every span, their nesting, and the same iterates as
-  without the profiler.
+  without the profiler; window-local, ``surfh.op.conv.window`` (the dense
+  conv pair) twice a band a normal, inside the band's span.
 * Without a profiler `span` is one shared no-op and makes no range.
 * ``surfh.op.conv.maps`` (the templates mixed into the FFT conv) twice a
   normal on the W-plane model with templates, never in cube mode nor on
@@ -40,6 +41,7 @@ MODES = {"wplane": dict(window_local=False), "wlocal": dict(window_local=True, c
 CASES = [(m, s, loop) for m in MODES for s in ("lcg", "mmmg") for loop in ("graph", "dispatch")]
 SOLVE, ITER, READ = "surfh.solver.solve", "surfh.solver.iter", "surfh.solver.host_read"
 NORMAL, BAND, CONV = "surfh.op.normal", "surfh.op.band.", "surfh.op.conv.maps"
+WINDOW = "surfh.op.conv.window"
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +88,8 @@ def test_spans_count_and_nest(crits, mode, method, loop):
     want.update({name: normals * per_normal for name in crit.model._band_spans})
     if mode == "wplane":  # the templates' conv: once in the forward, once in the adjoint
         want[CONV] = 2 * normals
+    else:  # the dense window conv pair: both directions of every band
+        want[WINDOW] = 2 * n_bands * normals
     assert len(crit.model._band_spans) == n_bands
     assert Counter(n for n, _, _ in spans) == want
     by = {k: [h for h in spans if h[0] == k] for k in (SOLVE, ITER, READ, NORMAL)}
@@ -94,6 +98,7 @@ def test_spans_count_and_nest(crits, mode, method, loop):
     assert all(_inside(h, by[NORMAL]) for h in spans if h[0].startswith(BAND) or h[0] == CONV)
     bands = [h for h in spans if h[0].startswith(BAND)]
     assert not any(_inside(h, bands) for h in spans if h[0] == CONV)
+    assert all(_inside(h, bands) for h in spans if h[0] == WINDOW)
     # a step's normal inside its iteration; the first normal before the first iteration
     assert sum(_inside(h, by[ITER]) for h in by[NORMAL]) == N_ITER
     # host-lane ranges: none is a user annotation (which the profiler mirrors on the card's lane)
@@ -149,7 +154,7 @@ def test_conv_maps_span_twice_a_normal_with_templates_only(crits):
 
 
 def test_span_names_fall_in_no_kernel_class(crits):
-    names = {SOLVE, ITER, READ, NORMAL, CONV, "surfh.op.conv.cube", "surfh.solver.prior"}
+    names = {SOLVE, ITER, READ, NORMAL, CONV, WINDOW, "surfh.op.conv.cube", "surfh.solver.prior"}
     for crit in crits.values():
         names.update(crit.model._band_spans)
     for name in names:
