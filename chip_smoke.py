@@ -22,7 +22,7 @@ for two processes on the one card) and BASELINE config 4 through
 the headline-measurement scripts and the user tools.
 
 1. device      — the card's name and power limit (nvidia-smi);
-2. build       — nvcc builds the five kernel sources from csrc/ into
+2. build       — nvcc builds the six kernel sources from csrc/ into
                  build/, one nvcc each, in parallel;
    normal-prior — the criterion's fused normal (`core.normal_prior`) on
                  the voxel cube's shape [3879, 501, 501] against the eager
@@ -34,6 +34,12 @@ the headline-measurement scripts and the user tools.
                  256-plane chunk of 501² planes: errors against the plain
                  versions and float64, kernel, plain and cuFFT ms, the
                  bound (bytes, or 5 N log2 N operations a transform);
+   window-spectrum — kernel #9 (`core.window_spectrum`), the dense window
+                 conv's spectrum side, both directions at bands 1b's and
+                 3c's (W, Ka', Kb') with 4 templates: errors against the
+                 plain spelling in float32 and float64, kernel and plain
+                 ms, the byte floor (5 spectrum volumes a direction), its
+                 share, the split;
 3. host        — the flagship rank-mode host tables (NumPy, channels in
                  parallel), cold into a fresh disk-cache directory, then
                  again as a cache hit, bit for bit;
@@ -75,7 +81,8 @@ the headline-measurement scripts and the user tools.
                  fused normal against adjoint∘forward, the forward against
                  the rank and the W-plane models within their truncation
                  bounds, launches, times, the main path (y, b, 20 lcg
-                 iterations); its OTF-window variant (SURFH_PSF_STAMPS=0:
+                 iterations) with the launches of #1 and #9 counted, none
+                 of #9 on the rank and W-plane models; its OTF-window variant (SURFH_PSF_STAMPS=0:
                  each band's window of the W-plane setup's sotf): one normal,
                  the dot test;
 11. small      — the card's f32 operators (both modes) against the CPU f64
@@ -465,6 +472,7 @@ def run_wlocal_phase(dev, card: str, cuda_ms, gen, bound, model, setup, wmodel, 
     import torch
 
     from surfh_tpu_torch.core import gather_rows as gr
+    from surfh_tpu_torch.core import window_spectrum as ws
     from surfh_tpu_torch.simulation.flagship import make_flagship_model
     from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
 
@@ -557,10 +565,21 @@ def run_wlocal_phase(dev, card: str, cuda_ms, gen, bound, model, setup, wmodel, 
     res.update(err_rank=e_rank, err_wplane=e_wplane, dot=d_rel, normal_err=nrm)
 
     gr.reset_launches()
+    ws.reset_launches()
     dm.normal(truth)
     sync()
-    per_app = gr.launches
+    per_app, n_b = gr.launches, len(dm.channels)
+    res["spectrum_per_normal"] = (ws.launches, ws.launches_sum)
     check(per_app == 2 * n_pt, f"wlocal gather_rows launches per normal {per_app}")
+    check(ws.launches == 2 * n_b, f"wlocal window_spectrum launches per normal {ws.launches}")
+    ws.reset_launches()
+    model.normal(truth)
+    wmodel.normal(truth)
+    sync()
+    log(f"[wlocal] window_spectrum (#9) per dense normal: {res['spectrum_per_normal'][0]} launches "
+        f"(expected {2 * n_b}: one a band a direction) and {res['spectrum_per_normal'][1]} partial-sum "
+        f"passes; on a rank normal and a W-plane normal: {ws.launches}")
+    check(ws.launches == 0, f"window_spectrum launches on the rank and W-plane models {ws.launches}")
     res["normal_ms"] = cuda_ms(lambda: dm.normal(truth), REPS)
     vox = float(np.prod(dm.cube_shape))
     log(f"[wlocal] {card}: normal {res['normal_ms']:.3f} ms/app ({2 * vox / (res['normal_ms'] * 1e-3) / 1e9:.2f} "
@@ -570,6 +589,7 @@ def run_wlocal_phase(dev, card: str, cuda_ms, gen, bound, model, setup, wmodel, 
 
     # the main path, counted: y, b = µ·Hᵗy, 20 lcg iterations
     gr.reset_launches()
+    ws.reset_launches()
     y = dm.forward(truth)
     crit = QuadCriterion_MRS(1.0, y, dm, mu_reg)
     crit.b
@@ -579,14 +599,19 @@ def run_wlocal_phase(dev, card: str, cuda_ms, gen, bound, model, setup, wmodel, 
     sync()
     res["cg_s_it"] = (time.perf_counter() - t0) / r.n_iter
     res["launches"] = gr.launches
+    res["spectrum_launches"] = (ws.launches, ws.launches_sum)
     expect = 2 * n_pt + 2 * n_pt * (r.n_iter + 1)
+    expect_ws = 2 * n_b + 2 * n_b * (r.n_iter + 1)
     res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     gn = r.grad_norm
     log(f"[wlocal] {card}: lcg {res['cg_s_it']:.4f} s/iteration ({r.n_iter} iterations, host clock); "
         f"grad norm {gn[0]:.4e} -> {gn[-1]:.4e}; gather_rows launches on the main path {res['launches']} "
-        f"(expected {expect}); peak {res['peak_gib']:.2f} GiB (every model on the card)")
+        f"(expected {expect}); window_spectrum {res['spectrum_launches'][0]} (expected {expect_ws}) "
+        f"and {res['spectrum_launches'][1]} partial-sum passes; peak {res['peak_gib']:.2f} GiB (every "
+        f"model on the card)")
     check(r.n_iter == WLOCAL_NITER and bool(np.isfinite(gn).all()) and gn[-1] < gn[0], "wlocal CG")
     check(res["launches"] == expect, "wlocal main-path launches")
+    check(res["spectrum_launches"][0] == expect_ws, "wlocal main-path window_spectrum launches")
     del dm, crit, r, y
     torch.cuda.empty_cache()
 
@@ -1080,6 +1105,69 @@ def run_fft_conv_phase(dev, card: str, cuda_ms, bound, planes: int = 256, n: int
         f"{whole:.2f} ms (cuFFT's spelling ≈ {out['cube direction']['library_ms'] * 3879 / planes:.2f} ms)")
     del x, spec, spec0, spec_m, spec_m0, otf, cases
     torch.cuda.empty_cache()
+    return out
+
+
+WINDOW_SPECTRUM_BANDS = {"1b": (564, 431, 216), "3c": (399, 501, 251)}  # (W, Ka', Kb'), 12-band flagship
+
+
+def run_window_spectrum_phase(dev, card: str, cuda_ms, bound, n_map: int = 4) -> dict:
+    """Kernel #9 (`core.window_spectrum`) at two bands' shapes of the
+    dense window-local flagship, `n_map` templates: each direction against
+    its plain spelling (the eager chain, the mix by cuBLAS) in float32 and
+    in float64, kernel and plain ms, the byte floor (each input read once,
+    each output written once: 5 spectrum volumes a direction and the maps'
+    M-row terms), its share; logs one `[kernel]` line a direction and band."""
+    import torch
+
+    from surfh_tpu_torch.core import window_spectrum as ws
+
+    def rel(a, b) -> float:
+        return float((a.to(b.dtype) - b).abs().max() / b.abs().max())
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for band, (w, ka, kb) in WINDOW_SPECTRUM_BANDS.items():
+        gen = torch.Generator(device=dev).manual_seed(31 + w)
+        z = torch.randn((2, n_map, ka, kb), generator=gen, device=dev).unbind(0)
+        k = torch.randn((3, w, ka, kb), generator=gen, device=dev).unbind(0)
+        o = torch.randn((2, w, ka, kb), generator=gen, device=dev).unbind(0)
+        tpl = torch.rand((n_map, w), generator=gen, device=dev)
+        f64 = lambda ts: [t.double() for t in ts]  # noqa: E731
+        nbins, s_vol = ka * kb, w * ka * kb
+        maps_b = 4 * (2 * n_map * nbins + n_map * w)
+        cases = {
+            "forward": (lambda: ws.spectrum_cuda(*z, *o, tpl), lambda: ws.spectrum_plain(*z, *o, tpl),
+                        lambda: ws.spectrum_plain(*f64(z), *f64(o), tpl.double()), 4 * 5 * s_vol + maps_b),
+            "transpose": (lambda: ws.spectrum_t_cuda(*k, *o, tpl), lambda: ws.spectrum_t_plain(*k, *o, tpl),
+                          lambda: ws.spectrum_t_plain(*f64(k), *f64(o), tpl.double()),
+                          4 * 5 * s_vol + maps_b),
+        }
+        for name, (kern, plain, ref64, nbytes) in cases.items():
+            ws.reset_launches()
+            got, want, want64 = kern(), plain(), ref64()
+            torch.cuda.synchronize(dev)
+            err = max(rel(a, b) for a, b in zip(got, want))
+            err64 = max(rel(a, b) for a, b in zip(got, want64))
+            launches, sums = ws.launches, ws.launches_sum
+            again = kern()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del got, want, want64, again
+            ms_k, ms_p = cuda_ms(kern, 20), cuda_ms(plain, 3)
+            b_ms, by = bound(nbytes)
+            split = ws.launch_split(w, nbins, n_sm)
+            log(f"[kernel] {card}: window_spectrum {name} band {band} [W {w}, Ka' {ka}, Kb' {kb}], "
+                f"{n_map} maps, split {split} ({launches} launch, {sums} sum pass): max rel err vs plain "
+                f"{err:.2e}, vs float64 {err64:.2e}, run to run bit for bit {same}; kernel {ms_k:.4f} ms, "
+                f"plain {ms_p:.4f} ms; bound {b_ms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB) "
+                f"({100 * b_ms / ms_k:.1f} %)")
+            check(err <= 1e-5 and err64 <= 1e-5 and same and launches == 1,
+                  f"window_spectrum {name} band {band}: {err:.3e} / {err64:.3e}, same {same}, "
+                  f"launches {launches}")
+            out[f"{name} {band}"] = {"err": err, "err64": err64, "ms": ms_k, "plain_ms": ms_p,
+                                     "bound_ms": b_ms, "bound_by": by, "split": split}
+        del z, k, o, tpl
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2543,6 +2631,7 @@ def main(argv=None) -> int:
     from surfh_tpu_torch.core import gather_rows as gr
     from surfh_tpu_torch.core import normal_prior as fused
     from surfh_tpu_torch.core import wblur_banded as wb
+    from surfh_tpu_torch.core import window_spectrum as ws
     from surfh_tpu_torch.simulation.flagship import make_flagship_model, make_flagship_setup
     from surfh_tpu_torch.simulation.synthetic import make_model
     from surfh_tpu_torch.solvers.criterion import QuadCriterion_MRS
@@ -2574,11 +2663,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as ex:  # one nvcc per source, all at once
         for f in [ex.submit(gr.load_kernel), ex.submit(wb.load_kernels),
-                  ex.submit(gf.load_kernels), ex.submit(fused.load_kernel), ex.submit(fc.load_kernels)]:
+                  ex.submit(gf.load_kernels), ex.submit(fused.load_kernel), ex.submit(fc.load_kernels),
+                  ex.submit(ws.load_kernels)]:
             f.result()
-    log(f"[build] gather_rows.cu, wblur_banded.cu, gather_fixed.cu, normal_prior.cu, fft_conv.cu -> "
-        f"{_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
-    for name in ("gather_rows", "wblur_banded", "normal_prior", "fft_conv"):
+    log(f"[build] gather_rows.cu, wblur_banded.cu, gather_fixed.cu, normal_prior.cu, fft_conv.cu, "
+        f"window_spectrum.cu -> {_build.BUILD_DIR} in {time.perf_counter() - t0:.2f} s")
+    for name in ("gather_rows", "wblur_banded", "normal_prior", "fft_conv", "window_spectrum"):
         for line in _build.build_logs.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"[build] ptxas {name}: {line.strip()}")
@@ -2599,6 +2689,7 @@ def main(argv=None) -> int:
     prior = run_normal_prior_phase(dev, card, cuda_ms, bound)
     fconv = run_fft_conv_phase(dev, card, cuda_ms, bound)
     conv_paths = {"fft_conv_phase": sum(r["launches"] for r in fconv.values())}
+    wspec = run_window_spectrum_phase(dev, card, cuda_ms, bound)
 
     # 3. host tables: cold into a fresh cache directory, then a cache hit --
     bands = args.bands.split(",") if args.bands else None
@@ -3227,7 +3318,19 @@ def main(argv=None) -> int:
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-    } for name, r in fconv.items()]}))
+    } for name, r in fconv.items()] + [{
+        "name": f"window_spectrum {name}",
+        "route": "cuda",
+        "source": "surfh_tpu_torch/csrc/window_spectrum.cu",
+        "replaces": None,  # the dense window conv's eager mix, OTF product and Gauss-3M adds; XLA fuses them
+        "launches": wl["spectrum_launches"][0],
+        "launches_by_path": {"wlocal": wl["spectrum_launches"][0]},
+        "max_rel_err": r["err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+    } for name, r in wspec.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

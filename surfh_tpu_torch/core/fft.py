@@ -25,8 +25,11 @@ and their transposes) keeps the OTF window in the reference layout
 ``[W, Ka', Kb']`` (a view of a materialized sotf where nothing is cut) and
 runs the inverse α-stage batched over the W planes; its last GEMM reads
 each pixel row's ``[Kb', W]`` slab with strides and writes ``[ha·wb, W]``
-rows, and the transpose's first GEMM reads them the same way.  Each call of
-the pair records the span ``surfh.op.conv.window`` under a profiler.
+rows, and the transpose's first GEMM reads them the same way.  The
+spectrum side between the DFTs and the α stage (the templates' mix, the
+OTF product and the Gauss-3M adds) is kernel #9 on the card
+(`core/window_spectrum.py`).  Each call of the pair records the span
+``surfh.op.conv.window`` under a profiler.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
-from . import fft_conv, lmm
+from . import fft_conv, lmm, window_spectrum
 from .precision import require_cuda, require_highest
 
 # ---------------------------------------------------------------------------
@@ -348,13 +351,14 @@ def otf_from_stamps(psf: torch.Tensor, st: dict, precision: str = "highest", chu
 SPAN_CONV_WINDOW = "surfh.op.conv.window"  # around each call of the dense window conv pair
 
 
-def _idft_rows(t_re: torch.Tensor, t_im: torch.Tensor, m: dict) -> torch.Tensor:
+def _idft_rows(t_re: torch.Tensor, t_im: torch.Tensor, t_sum: torch.Tensor, m: dict) -> torch.Tensor:
     """Inverse of a [W, Ka', Kb'] spectrum onto the FOV bbox, ROW layout
-    [ha·wb, W]: the α-stage in Gauss 3M form batched over the W planes, then
-    per pixel row a = one GEMM icb [wb, Kb'] · ua[:, a, :]ᵀ (a strided
+    [ha·wb, W]: the α-stage in Gauss 3M form batched over the W planes (its
+    pre-add t_re + t_im given, `window_spectrum.spectrum`'s third plane),
+    then per pixel row a = one GEMM icb [wb, Kb'] · ua[:, a, :]ᵀ (a strided
     [Kb', W] operand), written straight into the rows."""
     ha, wb = m["ifa_re"].shape[0], m["icb_re"].shape[0]
-    k1 = m["ifa_re"] @ (t_re + t_im)  # [W, ha, Kb']
+    k1 = m["ifa_re"] @ t_sum  # [W, ha, Kb']
     ua_re = k1 - m["ifa_s"] @ t_im
     ua_im = k1 + m["ifa_d"] @ t_re
     out = m["icb_re"] @ ua_re.permute(1, 2, 0) - m["icb_im"] @ ua_im.permute(1, 2, 0)  # [ha, wb, W]
@@ -362,59 +366,53 @@ def _idft_rows(t_re: torch.Tensor, t_im: torch.Tensor, m: dict) -> torch.Tensor:
 
 
 def _idft_rows_t(g: torch.Tensor, m: dict):
-    """Exact transpose of :func:`_idft_rows`: rows [ha·wb, W] → (re, im)
-    [W, Ka', Kb'].  The first GEMM reads the rows with strides and writes
+    """Exact transpose of :func:`_idft_rows` up to its post-adds: rows
+    [ha·wb, W] → the α stage's three products (k1, pd, ps) [W, Ka', Kb'],
+    t_re = k1 + pd and t_im = k1 − ps (`window_spectrum.spectrum_t` adds
+    them).  The first GEMM reads the rows with strides and writes
     [ha, W, Kb'], which the α-stage reads as [W, ha, Kb'] (a view)."""
     ha, wb = m["ifa_re"].shape[0], m["icb_re"].shape[0]
     g_t = g.view(ha, wb, -1).transpose(1, 2)  # [ha, W, wb]
     ua_re = (g_t @ m["icb_re"]).transpose(0, 1)  # [W, ha, Kb']
     ua_im = -(g_t @ m["icb_im"]).transpose(0, 1)
     k1 = m["ifa_re"].T @ (ua_re + ua_im)  # [W, Ka', Kb']
-    return k1 + m["ifa_d"].T @ ua_im, k1 - m["ifa_s"].T @ ua_re
+    return k1, m["ifa_d"].T @ ua_im, m["ifa_s"].T @ ua_re
 
 
-def lmm_conv_otf_rows(maps, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+def lmm_conv_otf_rows(maps, tpl_w, otf_re, otf_im, m: dict, plain: bool = False) -> torch.Tensor:
     """Fused T·C on a channel window, ROW layout (reference
     `fft.lmm_conv_otf_matmul`): maps [M, Na, Nb], templates tpl_w [M, W],
     OTF window [W, Ka', Kb'] → [ha·wb, W].  The forward DFT runs on the M
-    maps; the templates mix the spectra into the W planes."""
+    maps; the templates mix the spectra into the W planes, and the OTF
+    product, in kernel #9 (`window_spectrum`; its plain spelling on the
+    CPU or with `plain`)."""
     with span(SPAN_CONV_WINDOW):
         zm_re, zm_im = _dft_maps(maps, m)  # [M, Ka', Kb']
-        n_map, ka, kb = zm_re.shape
-        zw_re = (tpl_w.T @ zm_re.reshape(n_map, -1)).view(-1, ka, kb)  # 'mck,mw->wck'
-        zw_im = (tpl_w.T @ zm_im.reshape(n_map, -1)).view(-1, ka, kb)
-        t_re = zw_re * otf_re - zw_im * otf_im
-        t_im = zw_re * otf_im + zw_im * otf_re
-        return _idft_rows(t_re, t_im, m)
+        return _idft_rows(*window_spectrum.spectrum(zm_re, zm_im, otf_re, otf_im, tpl_w, plain), m)
 
 
-def lmm_conv_otf_rows_t(g, tpl_w, otf_re, otf_im, m: dict) -> torch.Tensor:
+def lmm_conv_otf_rows_t(g, tpl_w, otf_re, otf_im, m: dict, plain: bool = False) -> torch.Tensor:
     """Exact transpose of :func:`lmm_conv_otf_rows` (reference
     `lmm_conv_otf_matmul_t`, term by term): rows [ha·wb, W] → [M, Na, Nb]."""
     with span(SPAN_CONV_WINDOW):
-        t_re, t_im = _idft_rows_t(g, m)
-        zw_re = t_re * otf_re + t_im * otf_im
-        zw_im = -t_re * otf_im + t_im * otf_re
-        w, ka, kb = zw_re.shape
-        zm_re = (tpl_w @ zw_re.reshape(w, -1)).view(-1, ka, kb)  # 'wck,mw->mck'
-        zm_im = (tpl_w @ zw_im.reshape(w, -1)).view(-1, ka, kb)
-        return _dft_maps_t(zm_re, zm_im, m)
+        z_re, z_im = window_spectrum.spectrum_t(*_idft_rows_t(g, m), otf_re, otf_im, tpl_w, plain)
+        return _dft_maps_t(z_re, z_im, m)
 
 
-def conv_otf_matmul_rows(x, otf_re, otf_im, m: dict) -> torch.Tensor:
+def conv_otf_matmul_rows(x, otf_re, otf_im, m: dict, plain: bool = False) -> torch.Tensor:
     """Cube-mode conv of a window x [W, Na, Nb] onto the FOV bbox, ROW
     layout (reference `fft.conv_otf_matmul`): [ha·wb, W]."""
     with span(SPAN_CONV_WINDOW):
         za_re, za_im = _dft_maps(x, m)  # [W, Ka', Kb']
-        return _idft_rows(za_re * otf_re - za_im * otf_im, za_re * otf_im + za_im * otf_re, m)
+        return _idft_rows(*window_spectrum.spectrum(za_re, za_im, otf_re, otf_im, None, plain), m)
 
 
-def conv_otf_matmul_rows_t(g, otf_re, otf_im, m: dict) -> torch.Tensor:
+def conv_otf_matmul_rows_t(g, otf_re, otf_im, m: dict, plain: bool = False) -> torch.Tensor:
     """Exact transpose of :func:`conv_otf_matmul_rows` (reference
     `conv_otf_matmul_t`, term by term): rows [ha·wb, W] → [W, Na, Nb]."""
     with span(SPAN_CONV_WINDOW):
-        t_re, t_im = _idft_rows_t(g, m)
-        return _dft_maps_t(t_re * otf_re + t_im * otf_im, -t_re * otf_im + t_im * otf_re, m)
+        z_re, z_im = window_spectrum.spectrum_t(*_idft_rows_t(g, m), otf_re, otf_im, None, plain)
+        return _dft_maps_t(z_re, z_im, m)
 
 
 # ---------------------------------------------------------------------------

@@ -593,12 +593,13 @@ class SpectroSigRLSCT:
         maps for a λ-rank band (R columns of the rows each), else its λ window."""
         return self.ishape[0] if self._rank_band(c) else self.channels[c].n_wslice
 
-    def _conv(self, x, c, cols=None):
+    def _conv(self, x, c, cols=None, plain: bool = False):
         """Channel c's conv: maps (or the cube) → its bbox rows [ha·wb, Q].
         `cols` = (lo, hi) keeps only columns lo..hi (:meth:`_n_cols`), as a
         rank of a λ split does.  A W-plane model convolves the channel's λ
         window with its planes of the whole cube's sotf, as a rank of a
-        channel split does."""
+        channel split does.  `plain` runs the dense window conv's spectrum
+        side in its plain spelling (kernel #9's comparison)."""
         t = self.tables["chan"][c]
         lo, hi = (0, self._n_cols(c)) if cols is None else cols
         if self._rank_band(c):
@@ -609,11 +610,11 @@ class SpectroSigRLSCT:
         if self.window_local and "otf" in t:
             o_re, o_im = t["otf"][0][lo:hi], t["otf"][1][lo:hi]
             if tpl is None:
-                return fft.conv_otf_matmul_rows(x, o_re, o_im, t["dftm"])
-            return fft.lmm_conv_otf_rows(x, tpl, o_re, o_im, t["dftm"])
+                return fft.conv_otf_matmul_rows(x, o_re, o_im, t["dftm"], plain)
+            return fft.lmm_conv_otf_rows(x, tpl, o_re, o_im, t["dftm"], plain)
         return self.channels[c].bbox_rows(fft.conv_otf_chunks(x, self._sotf_w(c, lo, hi), tpl))
 
-    def _conv_t(self, rows, c, cols=None):
+    def _conv_t(self, rows, c, cols=None, plain: bool = False):
         """Transpose of :meth:`_conv`: rows → maps (or the λ-window of the
         cube); add it in with :meth:`_add_contrib_` and the same `cols`."""
         t = self.tables["chan"][c]
@@ -624,8 +625,8 @@ class SpectroSigRLSCT:
         if self.window_local and "otf" in t:
             o_re, o_im = t["otf"][0][lo:hi], t["otf"][1][lo:hi]
             if tpl is None:
-                return fft.conv_otf_matmul_rows_t(rows, o_re, o_im, t["dftm"])
-            return fft.lmm_conv_otf_rows_t(rows, tpl, o_re, o_im, t["dftm"])
+                return fft.conv_otf_matmul_rows_t(rows, o_re, o_im, t["dftm"], plain)
+            return fft.lmm_conv_otf_rows_t(rows, tpl, o_re, o_im, t["dftm"], plain)
         cube_w = torch.zeros((hi - lo,) + self.imshape, device=self.device, dtype=self.dtype)
         self.channels[c].add_bbox_rows_(cube_w, rows)
         return fft.conv_otf_chunks_t(cube_w, self._sotf_w(c, lo, hi), tpl)
@@ -793,7 +794,7 @@ class SpectroSigRLSCT:
         if self.window_local:
             for c, chan in enumerate(self.channels):
                 with span(self._band_spans[c]):
-                    outs.append(chan.forward_rows(self._conv(x, c), self.tables["chan"][c],
+                    outs.append(chan.forward_rows(self._conv(x, c, plain=plain), self.tables["chan"][c],
                                                   plain).reshape(-1))
         else:
             cube = self.blurred_cube(x)
@@ -809,7 +810,8 @@ class SpectroSigRLSCT:
         :meth:`adjoint`): `torch.func.vjp` at a zero primal, taken at the
         first call after :meth:`to` and kept.  The forward's row gathers go
         through `GatherRows`, so on the card the transpose runs kernel #1
-        on the transposed plans."""
+        on the transposed plans, and a dense window-local band's spectrum
+        side kernel #9 (`window_spectrum.Spectrum`)."""
         if self._auto_vjp is None:
             zero = torch.zeros(self.ishape, device=self.device, dtype=self.dtype)
             _, self._auto_vjp = torch.func.vjp(lambda x: self._forward(x, False, False), zero)
@@ -827,7 +829,7 @@ class SpectroSigRLSCT:
                 with span(self._band_spans[c]):
                     yc = y[int(self._idx[c]) : int(self._idx[c + 1])].view(chan.oshape)
                     self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, self.tables["chan"][c],
-                                                                           plain), c), c)
+                                                                           plain), c, plain=plain), c)
             return acc
         banded = self.banded
         cube = torch.zeros(self.cube_shape, device=self.device, dtype=self.dtype)
@@ -849,8 +851,8 @@ class SpectroSigRLSCT:
             for c, chan in enumerate(self.channels):
                 with span(self._band_spans[c]):
                     t = self.tables["chan"][c]
-                    yc = chan.forward_rows(self._conv(x, c), t, plain)
-                    self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, t, plain), c), c)
+                    yc = chan.forward_rows(self._conv(x, c, plain=plain), t, plain)
+                    self._add_contrib_(acc, self._conv_t(chan.adjoint_rows(yc, t, plain), c, plain=plain), c)
             return acc
 
 

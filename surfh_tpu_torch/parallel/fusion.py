@@ -258,12 +258,12 @@ class ShardedSpectro:
         W-plane model's over the channel's λ window alone)."""
         model = self.model
         chan, t = model.channels[c], model.tables["chan"][c]
-        return chan.forward_rows(model._conv(x, c), t, plain, self.banded)
+        return chan.forward_rows(model._conv(x, c, plain=plain), t, plain, self.banded)
 
     def _adj(self, yc, c: int, plain: bool) -> torch.Tensor:
         model = self.model
         chan, t = model.channels[c], model.tables["chan"][c]
-        return model._conv_t(chan.adjoint_rows(yc, t, plain, self.banded), c)
+        return model._conv_t(chan.adjoint_rows(yc, t, plain, self.banded), c, plain=plain)
 
     # ------------------------------------------------------------------
     # public API

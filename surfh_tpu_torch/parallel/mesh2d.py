@@ -108,7 +108,7 @@ class ShardedSpectro2D:
             if c not in self._tables:
                 continue
             lo, n = self._spans[c][self.e]
-            y = model.channels[c].forward_rows(model._conv(x, c, (lo, lo + n)), self._tables[c],
+            y = model.channels[c].forward_rows(model._conv(x, c, (lo, lo + n), plain), self._tables[c],
                                                plain).reshape(-1)
             out[s, : y.numel()] = y
         return out
@@ -137,8 +137,8 @@ class ShardedSpectro2D:
             chan = model.channels[c]
             yc = y_rows[s, : int(np.prod(chan.oshape))].reshape(chan.oshape)
             cols = (lo, lo + n)
-            model._add_contrib_(acc, model._conv_t(chan.adjoint_rows(yc, self._tables[c], plain), c, cols),
-                                c, cols)
+            rows = chan.adjoint_rows(yc, self._tables[c], plain)
+            model._add_contrib_(acc, model._conv_t(rows, c, cols, plain), c, cols)
         dist.all_reduce(acc)
         return acc
 

@@ -95,7 +95,7 @@ def test_library_name_hashes_every_file_the_build_reads(tmp_path, monkeypatch):
 
     libs = {"gather_rows": ["gather_rows.cu"], "gather_fixed": ["gather_fixed.cu"],
             "wblur_banded": ["wblur_banded.cu"], "normal_prior": ["normal_prior.cu"],
-            "fft_conv": ["fft_conv.cu"]}
+            "fft_conv": ["fft_conv.cu"], "window_spectrum": ["window_spectrum.cu"]}
     assert _build.build_inputs(libs["gather_rows"]) == ["gather_rows.cu", "gather_lanes.cuh"]
     assert _build.build_inputs(libs["gather_fixed"]) == ["gather_fixed.cu", "gather_lanes.cuh"]
     # every file of csrc/ is read by some build, and every include is a file there

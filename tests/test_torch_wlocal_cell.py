@@ -149,8 +149,8 @@ def test_the_toy_cell_from_files_alone_is_correct(toy_cell):
 def test_the_toy_cell_with_a_band_zeroed_is_not_correct(toy_cell, monkeypatch):
     conv = SpectroSigRLSCT._conv
 
-    def zeroed(self, x, c, cols=None):
-        rows = conv(self, x, c, cols)
+    def zeroed(self, x, c, cols=None, plain=False):
+        rows = conv(self, x, c, cols, plain)
         return rows * 0 if c == 0 else rows
 
     monkeypatch.setattr(SpectroSigRLSCT, "_conv", zeroed)
